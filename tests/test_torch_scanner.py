@@ -1,0 +1,129 @@
+"""The port's two-pass ``Scanner`` on the CPU against the JAX package's.
+
+``collect()`` must give the same hits -- positions, f32 score bits and
+order -- as ``lightmotif_tpu.Scanner``, and ``max`` must agree in both
+modes.
+"""
+
+import numpy as np
+import pytest
+
+import lightmotif_tpu as jlm
+import lightmotif_tpu_torch as tlm
+
+from .data import PATTERNS, SEQUENCE
+from .torch_parity import hit_keys, pssms, random_counts, random_ranks, sequences
+
+
+def _golden_pssms(pseudo=0.1):
+    counts = jlm.CountMatrix.from_sequences(
+        jlm.EncodedSequence.encode(p) for p in PATTERNS).data
+    return pssms(counts, pseudo=pseudo)
+
+
+def test_verify_golden_scan_twice():
+    _, tp = _golden_pssms()
+    seq = tlm.EncodedSequence.encode(SEQUENCE)
+    for _ in range(2):  # a second call catches module/function shadowing
+        hits = list(tlm.scan(tp, seq, threshold=-10.0))
+        assert [h.position for h in hits] == [18, 27, 32]
+        np.testing.assert_allclose([h.score for h in hits],
+                                   [-5.50167, -6.43455, -8.9611], atol=1e-5)
+
+
+def _threshold(host, kind):
+    if kind == "sparse":
+        return float(np.sort(host)[-25])
+    if kind == "dense":
+        return float(np.quantile(host[np.isfinite(host)], 0.2))
+    return -np.inf  # every window is a candidate and a hit
+
+
+#: (name, protein, m, length, pseudocount, threshold kind, port block_size)
+SCAN_CASES = [
+    ("sparse", False, 15, 20_000, 0.1, "sparse", None),
+    ("dense", False, 15, 20_000, 0.1, "dense", None),
+    ("all", False, 15, 5_000, 0.1, "all", None),
+    ("neginf", False, 12, 20_000, 0.0, "sparse", None),
+    ("protein", True, 10, 8_000, 0.1, "sparse", None),
+    ("segments", False, 15, 40_000, 0.1, "sparse", 997),
+]
+
+
+@pytest.mark.parametrize(
+    "name,protein,m,length,pseudo,kind,block",
+    SCAN_CASES, ids=[c[0] for c in SCAN_CASES])
+def test_collect_matches_jax(name, protein, m, length, pseudo, kind, block):
+    k = 21 if protein else 5
+    rng = np.random.default_rng(length + m)
+    jp, tp = pssms(random_counts(rng, m, k), protein=protein, pseudo=pseudo)
+    data = random_ranks(rng, length, k, wildcard_runs=10)
+    if block is not None:
+        # best windows straddling the port's seams and the JAX package's
+        # (its segments are multiples of 8192 positions on the CPU)
+        site = np.argmax(tp.data[:, : k - 1], axis=1).astype(np.uint8)
+        for seam in (block, 5 * block, 17 * block, 8192, 16384, 24576):
+            start = seam - m // 2
+            data[start : start + m] = site
+    js, ts = sequences(data, protein)
+    host = tp.score_host(ts)
+    threshold = _threshold(host, kind)
+    jscan = jlm.Scanner(jp, js, threshold=threshold)
+    if block is not None:
+        jscan.block_size = 8192
+    tscan = tlm.Scanner(tp, ts, threshold=threshold, device="cpu")
+    if block is not None:
+        tscan.block_size = block
+    got, want = hit_keys(tscan.collect()), hit_keys(jscan.collect())
+    assert got == want
+    assert [p for p, _ in got] == sorted(p for p, _ in got)
+    expected = np.nonzero(host >= np.float32(threshold))[0]
+    assert [p for p, _ in got] == expected.tolist()
+    if kind == "all":
+        assert len(got) == length - m + 1
+    if block is not None:
+        seams = [p for p, _ in got if p % block > block - m]
+        assert len(seams) >= 3, "hits must straddle the port's seams"
+
+
+@pytest.mark.parametrize("threshold", [-100.0, -10.0, 5.0, 100.0])
+@pytest.mark.parametrize("mode", ["exact", "reference"])
+def test_max_matches_jax(threshold, mode):
+    jp, tp = _golden_pssms()
+    js, ts = sequences(random_ranks(np.random.default_rng(9), 3000, 5, 5))
+    got = tlm.Scanner(tp, ts, threshold=threshold, device="cpu").max(mode=mode)
+    want = jlm.Scanner(jp, js, threshold=threshold).max(mode=mode)
+    if want is None:
+        assert got is None
+    else:
+        assert hit_keys([got]) == hit_keys([want])
+
+
+def test_max_modes_match_jax_where_they_diverge():
+    # the seed-0 / trial-10 case of tests/test_scan.py, where the
+    # reference's rising cutoff skips the true best
+    rng = np.random.default_rng(0)
+    for _ in range(11):
+        length = int(rng.integers(40, 400))
+        text = "".join(rng.choice(list("ACTG"), length))
+        m = int(rng.integers(4, 12))
+        counts = rng.integers(0, 12, size=(m, 4))
+        threshold = float(rng.uniform(-20, 2))
+    counts = np.concatenate([counts, np.zeros((m, 1), int)], axis=1)
+    jp, tp = pssms(counts)
+    js, ts = sequences(jlm.EncodedSequence.encode(text).data)
+    for mode in ("exact", "reference"):
+        got = tlm.Scanner(tp, ts, threshold=threshold, device="cpu").max(mode=mode)
+        want = jlm.Scanner(jp, js, threshold=threshold).max(mode=mode)
+        assert hit_keys([got]) == hit_keys([want]), mode
+    exact = tlm.Scanner(tp, ts, threshold=threshold, device="cpu").max()
+    ref = tlm.Scanner(tp, ts, threshold=threshold, device="cpu").max(mode="reference")
+    assert exact.score > ref.score
+
+
+def test_capacity_is_accepted_for_api_parity():
+    jp, tp = _golden_pssms()
+    js, ts = sequences(jlm.EncodedSequence.encode(SEQUENCE).data)
+    got = tlm.Scanner(tp, ts, threshold=-30.0, capacity=4, device="cpu").collect()
+    want = jlm.Scanner(jp, js, threshold=-30.0, capacity=4).collect()
+    assert hit_keys(got) == hit_keys(want)
