@@ -7,6 +7,8 @@ from numpy arrays -- the alphabet's name, ``data``, the background
 frequencies and, for a discrete matrix, ``factor``, ``offsets`` and
 ``offset`` -- and :func:`arrays` gives those arrays back, so a matrix
 crosses either way without either package importing the other.
+:func:`motif_set` carries a whole motif database across: its matrices,
+its thresholds and, on request, the reverse strands.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 from .alphabet import DNA, PROTEIN, Alphabet, Background
 from .matrix import DiscreteMatrix, ScoringMatrix
 
-__all__ = ["scoring_matrix", "discrete_matrix", "arrays"]
+__all__ = ["scoring_matrix", "discrete_matrix", "arrays", "motif_set"]
 
 _ALPHABETS = {a.name: a for a in (DNA, PROTEIN)}
 
@@ -55,3 +57,23 @@ def arrays(matrix) -> dict:
     else:
         out["background"] = np.array(matrix.background.frequencies)
     return out
+
+
+def motif_set(matrices, thresholds=None, both_strands: bool = False):
+    """A motif database of either package as the port's scoring
+    matrices and float32 thresholds, one per matrix (a scalar is
+    repeated; ``None`` stays ``None``).
+
+    With ``both_strands`` the reverse complements follow the forward
+    matrices, each built by ``reverse_complement()``, and the thresholds
+    repeat: the order of the JAX package's whole-database scan
+    (``bench.py``)."""
+    pssms = [scoring_matrix(**arrays(m)) for m in matrices]
+    if thresholds is not None:
+        thresholds = np.broadcast_to(
+            np.asarray(thresholds, np.float32), (len(pssms),)).copy()
+        if both_strands:
+            thresholds = np.concatenate([thresholds, thresholds])
+    if both_strands:
+        pssms += [p.reverse_complement() for p in pssms]
+    return pssms, thresholds

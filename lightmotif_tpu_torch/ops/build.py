@@ -1,9 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-At first use, every ``csrc/*.cu`` source is compiled with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-which is loaded with :mod:`ctypes`.  The library's file name carries a
-hash of the sources and flags, so a changed source is rebuilt and an
+At first use, each ``csrc/*.cu`` source is compiled with ``nvcc`` for
+Hopper (``sm_90a``) into a shared library of its own with a plain C
+interface, which is loaded with :mod:`ctypes`.  The sources compile in
+parallel, one ``nvcc`` each, so a build takes as long as its slowest
+source as sources are added (one ``nvcc`` over several sources
+compiles them one after another).  A library's file name carries a hash of
+its source and the flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is.  The build directory is ``_build/``
 beside this file.
 
@@ -22,6 +25,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 __all__ = ["library", "build_info"]
 
@@ -34,17 +38,20 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
+_I64 = ctypes.c_longlong
+_P = ctypes.c_void_p
+_INT = ctypes.c_int
+
 #: ``name: (argtypes, restype)`` of every exported C function.
 _SIGNATURES = {
-    "lm_score_tile": ([], ctypes.c_int),
-    "lm_score_f32": (
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
-        ctypes.c_int),
-    "lm_score_u8": (
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
-        ctypes.c_int),
+    "lm_score_tile": ([], _INT),
+    "lm_score_f32": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
+    "lm_score_u8": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
+    "lm_prefilter_lanes": ([], _INT),
+    "lm_prefilter_tile": ([], _INT),
+    "lm_prefilter_row_bytes": ([], _INT),
+    "lm_prefilter_any8": (
+        [_P, _I64, _P, _P, _P, _INT, _INT, _INT, _P, _P], _INT),
 }
 
 
@@ -63,49 +70,75 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(sources: list[Path]) -> str:
+def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return h.hexdigest()[:16]
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"liblm-{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 @functools.cache
 def build_info() -> dict:
-    """Compile the kernels if needed; return ``path``, ``seconds`` (0.0
-    when an up-to-date library was found) and the compiler's ``log``."""
-    sources = _sources()
-    lib_path = BUILD_DIR / f"liblmkernels-{_digest(sources)}.so"
-    log_path = lib_path.with_suffix(".log")
-    if lib_path.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        return {"path": lib_path, "seconds": 0.0, "log": log}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent processes never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    """Compile the kernels that are not up to date, all at once; return
+    ``paths`` (one library per source), ``seconds`` (wall time of the
+    build, 0.0 when every library was found) and the compilers' ``log``
+    (``ptxas -v`` lines included)."""
+    libs = {src: _lib_path(src) for src in _sources()}
+    logs = {}
+    todo = []
+    for src, lib in libs.items():
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            logs[lib] = log.read_text() if log.exists() else ""
+        else:
+            todo.append(src)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    log = proc.stdout + proc.stderr
-    log_path.write_text(log)
-    return {"path": lib_path, "seconds": seconds, "log": log}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src in todo:
+            # compile to a private name, then rename: concurrent
+            # processes never load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, tmp, proc))
+        failed = []
+        for src, tmp, proc in jobs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, libs[src])
+            libs[src].with_suffix(".log").write_text(log)
+            logs[libs[src]] = log
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    paths = list(libs.values())
+    return {"paths": paths,
+            "seconds": time.perf_counter() - t0 if todo else 0.0,
+            "log": "".join(logs[p] for p in paths)}
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, with every function's signature set."""
-    lib = ctypes.CDLL(str(build_info()["path"]))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
+def library() -> SimpleNamespace:
+    """Every exported kernel function, with its signature set, from the
+    loaded libraries."""
+    fns = {}
+    for path in build_info()["paths"]:
+        lib = ctypes.CDLL(str(path))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name, None)
+            if fn is None:
+                continue
+            fn.argtypes = argtypes
+            fn.restype = restype
+            fns[name] = fn
+    missing = sorted(set(_SIGNATURES) - set(fns))
+    if missing:
+        raise RuntimeError(f"kernel functions missing from the build: {missing}")
+    return SimpleNamespace(**fns)

@@ -18,6 +18,9 @@ Arithmetic contracts, as in the JAX package:
 Sequences are flat ``uint8`` rank tensors.  A window that runs past the
 end of the sequence reads the wildcard (rank ``K - 1``), and so does any
 rank ``>= K``.
+
+:func:`prefilter_any8` is the plain version of the multi-motif
+prefilter K3 (``csrc/prefilter.cu``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 __all__ = [
     "score_f32",
     "score_u8",
+    "prefilter_any8",
     "max_last",
     "argmax_last",
     "compact_mask",
@@ -75,6 +79,38 @@ def score_u8(seq: torch.Tensor, dm: torch.Tensor, n_scores: int) -> torch.Tensor
     acc = torch.clamp(acc, max=255)
     pos = torch.arange(lp, device=seq.device)
     return torch.where(pos < n_scores, acc, -1)
+
+
+#: Elements of the ``[positions, lanes]`` int32 block of
+#: :func:`prefilter_any8` (64 MiB).
+_K3_BLOCK_ELEMS = 1 << 24
+
+
+def prefilter_any8(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+                   t_eff: torch.Tensor) -> torch.Tensor:
+    """``max_mo (sum_j d16[mo, j, s[p+j]] - t_eff[mo])`` of every window
+    start as int32 ``[Lp]``.
+
+    ``table``: int32 ``[chunks, m, K, lanes]`` with ``table[c, j, s, l]
+    = d16[c * lanes + l, j, s]``; ``t_eff``: int32 ``[chunks * lanes]``.
+    Every row ``j < m`` is summed: ``chunk_m`` is the CUDA kernel's loop
+    bound, and the rows past it are zero, so it changes no sum and is
+    not read here.  Integer sums are exact in any order.
+    """
+    n_chunks, m, k, lanes = table.shape
+    m_pad = n_chunks * lanes
+    d = table.permute(1, 2, 0, 3).reshape(m, k, m_pad)  # d[j, s, mo]
+    lp = seq.shape[0]
+    s = _window_ranks(seq, m, k)
+    out = torch.empty(lp, dtype=torch.int32, device=seq.device)
+    blk = max(1, _K3_BLOCK_ELEMS // m_pad)
+    for p0 in range(0, lp, blk):
+        p1 = min(p0 + blk, lp)
+        acc = d[0][s[p0:p1]]  # [n, m_pad]
+        for j in range(1, m):
+            acc += d[j][s[p0 + j : p1 + j]]
+        out[p0:p1] = (acc - t_eff).amax(dim=1)
+    return out
 
 
 def max_last(scores: torch.Tensor) -> torch.Tensor:

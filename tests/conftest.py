@@ -27,3 +27,10 @@ except Exception:  # pragma: no cover - older jax reads XLA_FLAGS instead
     pass
 
 assert jax.device_count() == 8, jax.devices()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips where there is none")

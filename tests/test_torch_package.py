@@ -16,6 +16,7 @@ def test_import_leaves_jax_out(tmp_path):
         "import sys\n"
         "import lightmotif_tpu_torch as lm\n"
         "import lightmotif_tpu_torch.ops.build, lightmotif_tpu_torch.convert\n"
+        "import lightmotif_tpu_torch.ops.multi, lightmotif_tpu_torch.scanner\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'lightmotif_tpu'))\n"
         "assert not bad, bad\n"
@@ -40,4 +41,5 @@ def test_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert (PACKAGE / "ops" / "csrc" / "score.cu").is_file()
+    for name in ("score.cu", "prefilter.cu"):
+        assert (PACKAGE / "ops" / "csrc" / name).is_file()

@@ -100,3 +100,40 @@ def kernel_inputs(k: int, m: int, length, seed: int):
     # ragged: a few valid windows short of the last
     n_scores = max(length - m + 1 - int(rng.integers(0, 100)), 0)
     return flat, w, dm, n_scores
+
+
+def random_motifs(rng, widths, protein: bool = False, pseudo=0.1):
+    """JAX-package scoring matrices of random counts, one per width, in
+    the order given."""
+    k = 21 if protein else 5
+    alphabet = jlm.PROTEIN if protein else jlm.DNA
+    return [jlm.CountMatrix(alphabet, random_counts(rng, w, k))
+            .to_freq(pseudo).to_weight(None).to_scoring() for w in widths]
+
+
+def motif_stack(motifs):
+    """``(stack [M, m_max, K] f32, lengths)`` of JAX-package matrices."""
+    from lightmotif_tpu.ops import multi as jmulti
+
+    k = motifs[0].alphabet.size
+    return jmulti.stack_motifs([np.asarray(p.data, np.float32) for p in motifs], k)
+
+
+def assert_same_arrays(got, want, what=""):
+    """Same dtype, shape and bytes (tuples and None compare as values)."""
+    if isinstance(want, np.ndarray):
+        got = np.asarray(got)
+        assert got.dtype == want.dtype and got.shape == want.shape, (
+            what, got.dtype, got.shape, want.dtype, want.shape)
+        assert got.tobytes() == want.tobytes(), what
+    else:
+        assert got == want, what
+
+
+def multi_triples(arrays) -> list:
+    """(motif, position, score bits) of ``collect_arrays()`` output,
+    after checking the dtypes both packages give."""
+    motif_ids, positions, scores = arrays
+    assert motif_ids.dtype == np.int32 and positions.dtype == np.int64
+    assert scores.dtype == np.float32
+    return list(zip(motif_ids.tolist(), positions.tolist(), bits(scores).tolist()))
