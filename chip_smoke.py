@@ -24,28 +24,52 @@ Phases, one line of output each (any failure exits non-zero):
    (ragged lengths) and 2,048 motif lanes with m_max 2 to 128 (1, 2, 3
    and 8 contraction blocks), protein groups with m_max 5 and 32,
    never-pass lanes, sequences with wildcard runs;
-6. the database path at full size: a seeded synthetic stand-in for
+6. K4 (u8) and K5 (u16), the other two prefilters, against their plain
+   versions on the same groups and sequences, and K4 at the shape of
+   ``bench.py:123-130`` (1,024 lanes of m = 15, thresholds 2,400 written
+   by hand) over the genome;
+7. the database path at full size: a seeded synthetic stand-in for
    JASPAR2024 (2,346 DNA motifs of lengths 5-35, 20 Dirichlet(0.5)
    sites each, pseudocount 0.1, both strands = 4,692 PSSMs, thresholds
    at p = 1e-6) scanned over the genome by ``MultiScanner.scan_arrays``
    in one segment and in five, each equal to a per-PSSM brute force on
    the card (K1 + threshold: positions and f32 bits, -0.0 read as
    +0.0); K3 must have been launched by the scan;
-7. the dense path (four DNA motifs of m 129-257) and a protein database
+8. the prefilter modes at full size, through the package's
+   ``multi.route_motifs``, ``multi.database_groups`` and
+   ``multi.scan_groups``: the same database through the u16 (K5) mode
+   in 1 and 5 segments, equal to the K3 mode and the brute force, and
+   through the u8 (K4) mode in groups of 512 lanes, equal to the K3
+   mode (the genome has no wildcard); each must launch its kernel once
+   per group and segment.  In each mode the segment entry
+   ``multi.scan_multi_segment_fused``, given the first group's JAX
+   filters, must give that group's hits with one launch;
+9. the dense path (four DNA motifs of m 129-257) and a protein database
    (200 motifs of m 5-40 over 1,000,000 residues) against the same
    brute force; each scan must have launched K1 once per dense motif
    and K3 once per motif group;
-8. times on the card (CUDA events, median of 15 samples after a
-   warm-up), each kernel beside its plain version: device time per
-   launch (launches queued behind a GPU spin), and one call with the
-   host's launch cost; then ``score_max``, the Scanner's wall time, K3
-   at a database group's shape, the database scan's steady-state wall
-   and, from one more run through the scanner's timing hook and
-   ``torch.profiler``, its split by stage, device-busy time and host
-   time.
+10. batched records: the genome cut into seeded records of 50-2,000 bp
+    (some shorter than the motif) through ``BatchReducer`` (against the
+    per-record host oracle), ``BatchScanner`` at p = 1e-5 (against
+    per-record Scanners) and ``MultiBatchScanner`` with the database
+    (against the brute force over the concatenation, windows inside one
+    record); each class's launches are counted from 0 over its own call
+    and must be K1 once, K2 once per segment and K3 once per motif group
+    and segment;
+11. times on the card (CUDA events, median of 15 samples after a
+    warm-up), each kernel beside its plain version, its bound (the least
+    time the card could take: bytes over HBM's rate or operations over
+    the card's peak) and a ``conv1d`` library yardstick: device time per
+    launch (launches queued behind a GPU spin), and one call with the
+    host's launch cost; then ``score_max``, the Scanner's wall time, K3,
+    K4 and K5 at their shapes, the database scan's steady-state wall in
+    the K3 and u16 modes and, from one more run through the scanner's
+    timing hook and ``torch.profiler``, its split by stage, device-busy
+    time and host time; the batch classes' walls.
 
-The line before the last is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.  There is no CPU
+The line before the last is a JSON object with one entry per kernel
+(launches counted on the path that runs it, with the counts reset just
+before it); the last line is ``{"ok": true, "device": {...}}``.  There is no CPU
 path: without a CUDA device the script fails.
 """
 
@@ -72,6 +96,8 @@ SOURCE = "lightmotif_tpu_torch/ops/csrc/score.cu"
 REPLACES = "lightmotif_tpu/ops/kernels.py:73"
 K3_SOURCE = "lightmotif_tpu_torch/ops/csrc/prefilter.cu"
 K3_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:300"
+K4_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:163"
+K5_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:213"
 
 DB_MOTIFS = 2346  # JASPAR2024 CORE, as tests/test_io.py pins it
 DB_SEED = 0x1A5BA2
@@ -79,6 +105,27 @@ DB_PVALUE = 1e-6
 PROTEIN_LENGTH = 1_000_000
 PROTEIN_MOTIFS = 200
 PROTEIN_PVALUE = 1e-5
+
+# K4 at the shape of bench.py:123-130: 1,024 lanes of m = 15 random u8
+# cells (0-199, zero wildcard column), thresholds 2,400 written by hand
+BENCH_K4_LANES = 1024
+BENCH_K4_M = 15
+BENCH_K4_THRESHOLD = 2400
+
+#: Lanes per u8 (K4) mode group: the u8 candidate union saturates larger
+#: groups (lightmotif_tpu/ops/multi.py:837-840).
+K4_GROUP_LANES = 512
+
+# batched records: the genome cut into seeded records of 50-2,000 bp,
+# every RECORD_SHORT_EVERY-th one shorter than the motif
+RECORD_SEED = 0xBA7C4
+RECORD_LENGTHS = (50, 2000)
+RECORD_SHORT_EVERY = 97
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W),
+# for the least time a kernel's work could take
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
 
 
 def log(phase: str, **fields) -> None:
@@ -275,21 +322,35 @@ def synthetic_database(n: int, seed: int):
 
 
 def k3_group(pssms, thresholds):
-    """The K3 inputs of one motif group, on the card, and its m_max."""
-    from lightmotif_tpu_torch.ops import multi
+    """The K3 inputs of one motif group, on the card, its m_max and ragged
+    widths, and the K4 and K5 tables of the same motifs: K5 from the JAX
+    layout of the u16 filters, K4 from the u8 discrete matrices."""
+    from lightmotif_tpu_torch.ops import multi, multi_kernel
 
     k = pssms[0].alphabet.size
     stack, lengths = multi.stack_motifs([p.data for p in pssms], k)
     m_max = int(lengths.max())
-    g = multi.pack_motif_group(np.arange(len(pssms)), len(pssms), m_max,
-                               stack, np.asarray(thresholds, np.float32), k)
-    return [torch.from_numpy(a).to(DEVICE) for a in g["k3"]], m_max, g["widths"]
+    ths = np.asarray(thresholds, np.float32)
+    g = multi.pack_motif_group(np.arange(len(pssms)), len(pssms), m_max, stack, ths, k)
+    k5 = multi.group_from_filters(g["pssm"], g["th"], m_max, k, DEVICE,
+                                  filters_fine=(g["f_hi"], g["f_lo"]),
+                                  widths=g["widths"])["k5"]
+    dms = [p.to_discrete() for p in pssms]
+    dm_stack, _ = multi.stack_motifs([d.data.astype(np.float32) for d in dms], k)
+    t_scaled = np.asarray([d.scale(t) for d, t in zip(dms, ths)], np.int64)
+    t_scaled[ths > 1e5] = 300  # never-pass lanes: past the u8 range
+    k4 = [torch.from_numpy(a).to(DEVICE) for a in multi.pack_filters_k4(
+        multi_kernel.pack_filters_any(dm_stack, t_scaled, k), k)]
+    return ([torch.from_numpy(a).to(DEVICE) for a in g["k3"]], m_max, g["widths"],
+            {"prefilter_any": k4, "prefilter_any16": list(k5)})
 
 
-def phase_k3() -> float:
-    """K3 against its plain version; returns the largest error."""
+def prefilter_cases():
+    """The prefilter checks' groups and sequences (seed 0xA11): DNA groups
+    of 16, 256 (ragged) and 2,048 lanes with m_max 2 to 128, protein
+    groups with m_max 5 and 32, every 7th lane never passing, sequences
+    with wildcard runs.  Yields (k, lengths, k3_group(...), sequence)."""
     from lightmotif_tpu_torch import DNA, PROTEIN
-    from lightmotif_tpu_torch.ops import multi_kernel, torch_ops
 
     rng = np.random.default_rng(0xA11)
     ragged = lambda top: sorted(  # noqa: E731
@@ -305,30 +366,77 @@ def phase_k3() -> float:
         (PROTEIN, [2, 3, 3, 4, 4, 4, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5]),
         (PROTEIN, sorted(int(w) for w in rng.integers(5, 33, 256))),
     ]
-    worst = 0.0
     for alphabet, lengths in cases:
         k = len(alphabet.symbols)
         pssms = synthetic_motifs(rng, alphabet, lengths)
         ths = [p.score_distribution().score(max(1e-3, 4.0 ** -len(p))) for p in pssms]
         ths[::7] = [1e6] * len(ths[::7])  # never-pass lanes
-        args, m_max, widths = k3_group(pssms, ths)
+        group = k3_group(pssms, ths)
         length = int(rng.integers(150_000, 250_000))
         s = rng.integers(0, k - 1, size=length).astype(np.uint8)
         for start in rng.integers(0, length - 300, size=30):  # wildcard runs
             s[start : start + int(rng.integers(1, 300))] = k - 1
-        sd = torch.from_numpy(s).to(DEVICE)
-        got = multi_kernel.prefilter_any8(sd, *args)
-        want = torch_ops.prefilter_any8(sd, *args)
-        torch.cuda.synchronize()
-        n = length - m_max + 1
-        if not torch.equal(got[:n], want[:n]):
-            bad = int(torch.nonzero(got[:n] != want[:n])[0])
-            raise SystemExit(f"prefilter_any8: kernel != plain at {bad} (K={k}, "
-                             f"m_max={m_max}, lanes={len(lengths)}): "
-                             f"{got[bad].item()} vs {want[bad].item()}")
-        worst = max(worst, max_abs_err(got[:n], want[:n]))
+        yield k, lengths, group, torch.from_numpy(s).to(DEVICE)
+
+
+def check_prefilter(name, seq, args, m_max, what) -> float:
+    """A prefilter kernel ``torch.equal`` to its plain version on every
+    window that fits; returns the largest error (0.0)."""
+    from lightmotif_tpu_torch.ops import multi_kernel, torch_ops
+
+    got = getattr(multi_kernel, name)(seq, *args)
+    want = getattr(torch_ops, name)(seq, *args)
+    torch.cuda.synchronize()
+    n = seq.shape[0] - m_max + 1
+    if not torch.equal(got[:n], want[:n]):
+        bad = int(torch.nonzero(got[:n] != want[:n])[0])
+        raise SystemExit(f"{name}: kernel != plain at {bad} ({what}): "
+                         f"{got[bad].item()} vs {want[bad].item()}")
+    return max_abs_err(got[:n], want[:n])
+
+
+def phase_k3(cases) -> float:
+    """K3 against its plain version; returns the largest error."""
+    worst = 0.0
+    for k, lengths, (args, m_max, widths, _), sd in cases:
+        worst = max(worst, check_prefilter(
+            "prefilter_any8", sd, args, m_max, f"K={k}, m_max={m_max}, lanes={len(lengths)}"))
         log("k3", k=k, m_max=m_max, lanes=len(lengths), widths=widths,
-            length=length, candidates=int((want[:n] >= 0).sum()), equal=True)
+            length=sd.shape[0], equal=True)
+    return worst
+
+
+def bench_k4_inputs(seq):
+    """K4 at bench.py's shape: the padded genome and the u8 table of 1,024
+    lanes of m = 15 with thresholds 2,400 written by hand (seed 11)."""
+    from lightmotif_tpu_torch.ops import multi, multi_kernel
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+
+    rng = np.random.default_rng(11)
+    m, k, count = BENCH_K4_M, 5, BENCH_K4_LANES
+    dms = rng.integers(0, 200, size=(count, m, k)).astype(np.float32)
+    dms[:, :, 4] = 0.0
+    filters_t = multi_kernel.pack_filters_any(dms, np.full(count, BENCH_K4_THRESHOLD), k)
+    filters_t[multi_kernel._lanes_for(k) - 1, :] = -float(BENCH_K4_THRESHOLD)
+    table = [torch.from_numpy(a).to(DEVICE) for a in multi.pack_filters_k4(filters_t, k)]
+    return DeviceSequence(seq, DEVICE).data, table, m
+
+
+def phase_k4k5(cases, seq) -> dict:
+    """K4 and K5 against their plain versions on K3's cases, and K4 at
+    bench.py's shape over the genome; returns the largest error of each."""
+    worst = {"prefilter_any": 0.0, "prefilter_any16": 0.0}
+    for k, lengths, (_, m_max, widths, tables), sd in cases:
+        for name, args in tables.items():
+            worst[name] = max(worst[name], check_prefilter(
+                name, sd, args, m_max, f"K={k}, m_max={m_max}, lanes={len(lengths)}"))
+        log("k4k5", k=k, m_max=m_max, lanes=len(lengths), widths=widths,
+            length=sd.shape[0], equal=True)
+    data, table, m = bench_k4_inputs(seq)
+    worst["prefilter_any"] = max(worst["prefilter_any"], check_prefilter(
+        "prefilter_any", data, table, m, "bench shape"))
+    log("k4k5", shape=f"bench: genome x {BENCH_K4_LANES} lanes, m={m}, "
+        f"thresholds {BENCH_K4_THRESHOLD}", equal=True)
     return worst
 
 
@@ -357,12 +465,13 @@ def check_scan(name, got, want) -> None:
     bits = (sc + np.float32(0.0)).view(np.uint32)
     if not (np.array_equal(mo, want[0]) and np.array_equal(pos, want[1])
             and np.array_equal(bits, want[2])):
-        raise SystemExit(f"{name}: MultiScanner != brute force "
+        raise SystemExit(f"{name}: hits != brute force "
                          f"({len(mo)} hits vs {len(want[0])})")
 
 
 def phase_database(seq):
-    """The database path at full size; returns (scanner, its launches)."""
+    """The database path at full size; returns (scanner, its launches,
+    the brute force's hits)."""
     from lightmotif_tpu_torch.ops import kernels, multi_kernel
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
     from lightmotif_tpu_torch.scanner import MultiScanner
@@ -400,7 +509,273 @@ def phase_database(seq):
     check_scan("database, 5 segments", five.scan_arrays(seq), want)
     log("database", check="scan_arrays == brute force", segments=5,
         segment=five.SEGMENT)
-    return ms, launches["prefilter_any8"]
+    return ms, launches["prefilter_any8"], want
+
+
+class ModeDatabase:
+    """The database of a ``MultiScanner`` laid out for the prefilter
+    modes through the package's own functions: its routing
+    (``multi.route_motifs``), its groups in one mode
+    (``multi.database_groups``) and their scan (``multi.scan_groups``)
+    over the genome, resident on the card."""
+
+    def __init__(self, ms, seq):
+        from lightmotif_tpu_torch.ops import multi
+        from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+        from lightmotif_tpu_torch.scanner import MultiScanner
+
+        self.ms = ms
+        self.k = ms.pssms[0].alphabet.size
+        self.short, dense = multi.route_motifs(ms.pssm_stack, ms.lengths, ms.thresholds,
+                                               self.k, MultiScanner.dense_m_limit(self.k))
+        if dense.size:
+            raise SystemExit("modes: the database has dense motifs; the modes run no dense path")
+        self.dseq = DeviceSequence(seq, DEVICE)
+        self._discrete = None
+
+    def lanes(self, prefilter: str) -> int:
+        """Lanes per group: the scanner's 2,048 for K3 and K5,
+        K4_GROUP_LANES for K4."""
+        from lightmotif_tpu_torch.scanner import MultiScanner
+
+        return K4_GROUP_LANES if prefilter == "k4" else MultiScanner.GROUP_MOTIFS
+
+    def discrete(self):
+        """The u8 filters' inputs: each PSSM's ``to_discrete()`` matrix and
+        ``scale()`` of its threshold, as tests/test_multi.py:275-282 builds
+        them."""
+        from lightmotif_tpu_torch.ops import multi
+
+        if self._discrete is None:
+            dms = [p.to_discrete() for p in self.ms.pssms]
+            self._discrete = (
+                multi.stack_motifs([d.data.astype(np.float32) for d in dms], self.k)[0],
+                np.asarray([d.scale(t) for d, t in zip(dms, self.ms.thresholds)], np.int64))
+        return self._discrete
+
+    def groups(self, prefilter: str) -> list:
+        from lightmotif_tpu_torch.ops import multi
+
+        ms = self.ms
+        return multi.database_groups(
+            ms.pssm_stack, ms.lengths, ms.thresholds, self.short, self.k, DEVICE,
+            self.lanes(prefilter), prefilter=prefilter,
+            discrete=self.discrete() if prefilter == "k4" else None)
+
+    def scan(self, groups, segment: int):
+        """Hit arrays through ``groups``, sorted as ``scan_arrays`` sorts."""
+        from lightmotif_tpu_torch.ops import multi
+
+        return multi.sorted_hits(multi.scan_groups(
+            self.dseq.data, self.dseq.length, self.ms.lengths, groups, self.k, segment))
+
+    def segment_entry(self, prefilter: str):
+        """The port's ``scan_multi_segment_fused``, given the first group's
+        JAX filters as they come (``filters_fine`` and ``widths``, or
+        ``filters_t``), over the whole genome in one segment.  Returns
+        (the group's ids, its hit arrays sorted as ``scan_arrays`` sorts,
+        the prefilter's launches)."""
+        from lightmotif_tpu_torch.ops import multi, multi_kernel
+
+        ms = self.ms
+        ids, g = next(multi.pack_database(ms.pssm_stack, ms.lengths, ms.thresholds,
+                                          self.short, self.k, self.lanes(prefilter)))
+        filters = ({"filters_t": None, "filters_fine": (g["f_hi"], g["f_lo"]),
+                    "widths": g["widths"]} if prefilter == "k5" else
+                   {"filters_t": multi.pack_filters_u8(g, ids, *self.discrete(), self.k)})
+        n_valid = np.zeros((1, g["f_hi"].shape[1]), np.int64)
+        n_valid[0, : ids.size] = np.maximum(self.dseq.length - ms.lengths[ids] + 1, 0)
+        multi_kernel.reset_launches()
+        pos, lanes, scores = multi.scan_multi_segment_fused(
+            self.dseq.data, 0, n_valid, filters.pop("filters_t"), g["pssm"], g["th"],
+            int(n_valid.max()) + g["m_max"] - 1, 0, g["m_max"], self.k, **filters)
+        torch.cuda.synchronize()
+        launches = dict(multi_kernel.LAUNCHES)
+        ids_dev = torch.as_tensor(ids, device=DEVICE)
+        return ids, multi.sorted_hits([(pos, ids_dev[lanes], scores)]), launches
+
+
+def same_hits(a, b) -> bool:
+    return all(np.array_equal(x.view(np.uint8), y.view(np.uint8)) for x, y in zip(a, b))
+
+
+def check_segment_entry(db, prefilter: str, mode_hits, what: str) -> None:
+    """The segment entry's hits of the first group equal the mode's hits
+    of that group's motifs, through one launch of the mode's kernel."""
+    from lightmotif_tpu_torch.ops import multi
+
+    ids, got, launches = db.segment_entry(prefilter)
+    name = multi.PREFILTERS[prefilter]
+    if launches[name] != 1 or sum(launches.values()) != 1:
+        raise SystemExit(f"{what}: scan_multi_segment_fused launches {launches}")
+    sel = np.isin(mode_hits[0], ids)
+    if not (len(got[0]) and same_hits(got, [a[sel] for a in mode_hits])):
+        raise SystemExit(f"{what}: scan_multi_segment_fused != the mode's hits of group 0 "
+                         f"({len(got[0])} vs {int(sel.sum())})")
+    log("modes", check=f"{what}: scan_multi_segment_fused of group 0 == the mode's hits",
+        lanes=ids.size, hits=len(got[0]), launches=launches)
+
+
+def phase_modes(ms, seq, brute) -> tuple:
+    """The u16 (K5) and u8 (K4) modes of the database core at full size,
+    held to the K3 mode's hits (``ms.scan_arrays``) and, for K5, to the
+    brute force in 1 and 5 segments; each mode must launch its kernel
+    once per group and segment.  The segment entry, given group 0's JAX
+    filters, must give that group's hits in each mode.  Returns (the
+    ModeDatabase, K5 groups, K5 launches of the one-segment run, K4
+    launches)."""
+    from lightmotif_tpu_torch.ops import multi_kernel
+
+    db = ModeDatabase(ms, seq)
+    want = ms.scan_arrays(seq)
+    n = len(seq) - int(ms.lengths.min()) + 1
+    t0 = time.perf_counter()
+    groups5 = db.groups("k5")
+    pack_s = time.perf_counter() - t0
+    launches5 = None
+    for segments in (1, 5):
+        segment = -(-n // segments)
+        multi_kernel.reset_launches()
+        t0 = time.perf_counter()
+        got = db.scan(groups5, segment)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs = dict(multi_kernel.LAUNCHES)
+        if runs["prefilter_any16"] != len(groups5) * segments or runs["prefilter_any8"]:
+            raise SystemExit(f"u16 mode, {segments} segments, {len(groups5)} groups: "
+                             f"launches {runs}")
+        launches5 = launches5 or runs["prefilter_any16"]
+        check_scan(f"u16 mode, {segments} segments", got, brute)
+        if not same_hits(got, want):
+            raise SystemExit(f"u16 mode, {segments} segments: hits != the K3 mode's")
+        log("modes", mode="u16 (K5)", segments=segments, groups=len(groups5),
+            hits=len(got[0]), equal_k3_mode=True, equal_brute_force=True,
+            launches=runs, first_scan_s=f"{wall:.3f}", pack_s=f"{pack_s:.3f}")
+    check_segment_entry(db, "k5", want, "u16 mode")
+
+    t0 = time.perf_counter()
+    groups4 = db.groups("k4")
+    pack_s = time.perf_counter() - t0
+    multi_kernel.reset_launches()
+    t0 = time.perf_counter()
+    got = db.scan(groups4, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches4 = dict(multi_kernel.LAUNCHES)
+    if launches4["prefilter_any"] != len(groups4) or launches4["prefilter_any16"]:
+        raise SystemExit(f"u8 mode, {len(groups4)} groups: launches {launches4}")
+    # the genome has no wildcard, so the u8 test misses no hit
+    if not same_hits(got, want):
+        raise SystemExit("u8 mode: hits != the K3 mode's")
+    log("modes", mode="u8 (K4)", segments=1, groups=len(groups4),
+        group_lanes=K4_GROUP_LANES, group_rows=[g["m_max"] for g in groups4],
+        hits=len(got[0]), equal_k3_mode=True, launches=launches4,
+        scan_s=f"{wall:.3f}", pack_s=f"{pack_s:.3f}")
+    check_segment_entry(db, "k4", want, "u8 mode")
+    return db, groups5, launches5, launches4["prefilter_any"]
+
+
+def genome_records(seq):
+    """The genome cut into seeded records of 50-2,000 bp; every
+    RECORD_SHORT_EVERY-th record is 1-14 bp, shorter than MX000001."""
+    from lightmotif_tpu_torch import EncodedSequence
+
+    rng = np.random.default_rng(RECORD_SEED)
+    lengths = rng.integers(RECORD_LENGTHS[0], RECORD_LENGTHS[1] + 1, len(seq) // 40)
+    lengths[::RECORD_SHORT_EVERY] = rng.integers(1, 15, lengths[::RECORD_SHORT_EVERY].size)
+    ends = np.cumsum(lengths)
+    ends = ends[ends < len(seq)]
+    starts = np.concatenate([[0], ends[:-1]])
+    data = np.asarray(seq.data)
+    return [EncodedSequence(data[a:b].copy()) for a, b in zip(starts, ends)]
+
+
+def phase_batch(pssm, seq, ms) -> tuple:
+    """Batched records: BatchReducer against the per-record host oracle,
+    BatchScanner at p = 1e-5 against per-record Scanners, and
+    MultiBatchScanner with the database against the brute force over the
+    concatenation, windows inside one record.  Each class's launches are
+    counted from 0 over its own call, before its oracle runs: K1 once
+    for the reducer, K2 once per segment for the scanner, K3 once per
+    motif group and segment for the database.  Returns (records, the
+    BatchReducer, the MultiBatchScanner)."""
+    from lightmotif_tpu_torch import Scanner
+    from lightmotif_tpu_torch.batch import BatchReducer, BatchScanner, MultiBatchScanner
+    from lightmotif_tpu_torch.ops import kernels, multi, multi_kernel
+    from lightmotif_tpu_torch.scanner import DEFAULT_SEGMENT, MultiScanner
+
+    def counts():
+        return {**kernels.LAUNCHES, **multi_kernel.LAUNCHES}
+
+    def expect(what, launches, want):
+        if {k: v for k, v in launches.items() if v} != want:
+            raise SystemExit(f"{what}: launches {launches}, expected {want}")
+
+    records = genome_records(seq)
+    m = len(pssm)
+    n_short = sum(len(r) < m for r in records)
+    br = BatchReducer(pssm, records, device=DEVICE)
+    reset_launches()
+    am, mx = br.argmax()
+    torch.cuda.synchronize()
+    launches_br = counts()
+    expect("BatchReducer.argmax", launches_br, {"score_f32": 1})
+    for i, r in enumerate(records):
+        if len(r) < m:
+            ok = am[i] == -1 and mx[i] == -np.inf
+        else:
+            host = pssm.score_host(r)
+            ok = (f32_bits(mx[i]) == f32_bits(host.max())
+                  and am[i] == np.nonzero(host == host.max())[0][-1])
+        if not ok:
+            raise SystemExit(f"BatchReducer != host oracle at record {i}: ({mx[i]}, {am[i]})")
+    log("batch", records=len(records), short=n_short, bp=sum(map(len, records)),
+        check="BatchReducer == per-record host oracle", slot=br.slot,
+        launches=launches_br)
+
+    t = pssm.score_distribution().score(1e-5)
+    bs = BatchScanner(pssm, records, threshold=t, device=DEVICE)
+    reset_launches()
+    got = bs.collect()
+    launches_bs = counts()
+    # one concatenation of the records with m - 1 separators each
+    n_windows = sum(map(len, records)) + len(records) * (m - 1) - m + 1
+    expect("BatchScanner.collect", launches_bs,
+           {"score_u8": -(-n_windows // DEFAULT_SEGMENT)})
+    for i, (r, hits) in enumerate(zip(records, got)):
+        own = Scanner(pssm, r, threshold=t, device=DEVICE).collect()
+        if [(h.position, f32_bits(h.score)) for h in hits] != \
+                [(h.position, f32_bits(h.score)) for h in own]:
+            raise SystemExit(f"BatchScanner != Scanner at record {i}")
+    log("batch", check="BatchScanner == per-record Scanner", threshold=t,
+        hits=sum(map(len, got)), launches=launches_bs)
+
+    mbs = MultiBatchScanner(ms.pssms, thresholds=ms.thresholds, device=DEVICE)
+    dseq, offsets, lengths = prepared = mbs.prepare(records)
+    mbs.rebind_prepared(prepared)
+    reset_launches()
+    rec, mo, local, sc = mbs.collect_arrays()
+    launches_mbs = counts()
+    # K3 once per group and segment; every motif of this database is short
+    k = ms.pssms[0].alphabet.size
+    short, _ = multi.route_motifs(ms.pssm_stack, ms.lengths, ms.thresholds, k,
+                                  MultiScanner.dense_m_limit(k))
+    size = MultiScanner.GROUP_MOTIFS
+    want_k3 = sum(-(-(dseq.length - int(ms.lengths[short[s:s + size]].min()) + 1)
+                    // MultiScanner.SEGMENT) for s in range(0, short.size, size))
+    expect("MultiBatchScanner.collect_arrays", launches_mbs, {"prefilter_any8": want_k3})
+    ids, pos, bits = brute_force(ms.pssms, ms.thresholds, dseq)
+    r = np.searchsorted(offsets, pos, side="right") - 1
+    lo = pos - offsets[r]
+    keep = lo <= lengths[r] - ms.lengths[ids]
+    if not (np.array_equal(rec, r[keep]) and np.array_equal(mo, ids[keep])
+            and np.array_equal(local, lo[keep])
+            and np.array_equal((sc + np.float32(0.0)).view(np.uint32), bits[keep])):
+        raise SystemExit(f"MultiBatchScanner != brute force ({len(mo)} hits vs {keep.sum()})")
+    log("batch", check="MultiBatchScanner == brute force inside records",
+        pssms=len(ms.pssms), hits=len(mo), dropped_across_records=int((~keep).sum()),
+        groups=-(-short.size // size), launches=launches_mbs)
+    return records, br, mbs
 
 
 def phase_other_paths(seq) -> None:
@@ -438,6 +813,76 @@ def phase_other_paths(seq) -> None:
             raise SystemExit(f"{name}: no hits or no dense motif, the check is vacuous")
 
 
+def bound(nbytes: float, ops: float, kind: str) -> tuple:
+    """The least time the card could take for a function (ms) and what
+    bounds it: the bytes it must move (each input read once, each output
+    written once) over HBM's rate, or its operations over the card's
+    peak for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def prefilter_bound(seq, table, chunk_m, t_eff, planes: int) -> tuple:
+    """A prefilter's bound on this run's inputs: the int8 tensor-core form
+    of its sums (one-hot windows x ``planes`` byte planes, 2 operations
+    per multiply-add) over the rows each lane chunk needs (``chunk_m``),
+    against one byte in and four out per position and its tables."""
+    from lightmotif_tpu_torch.ops import multi_kernel
+
+    lp, k = seq.shape[0], table.shape[2]
+    nbytes = 5 * lp + table.nbytes + chunk_m.nbytes + t_eff.nbytes
+    ops = 2 * planes * lp * k * multi_kernel.K3_LANES * int(chunk_m.sum())
+    return bound(nbytes, ops, "int8")
+
+
+def windows_onehot(seq, k: int, m: int, rows: int = 64):
+    """The sequence as f32 one-hot rows ``[rows, K, T + m - 1]`` of T
+    window starts each plus their halo (the wildcard past the end), so
+    a convolution's output stays within 32-bit indexing per row."""
+    import torch.nn.functional as F
+
+    lp = seq.shape[0]
+    t = -(-lp // rows)
+    ext = torch.full((rows * t + m - 1,), k - 1, dtype=torch.long, device=seq.device)
+    ext[:lp] = seq.long().clamp(max=k - 1)
+    idx = torch.arange(rows, device=seq.device)[:, None] * t + torch.arange(
+        t + m - 1, device=seq.device)
+    return F.one_hot(ext[idx], k).permute(0, 2, 1).float().contiguous()
+
+
+def library_ms(fn, check) -> tuple:
+    """The median ms of one library computation (``torch.nn.functional.
+    conv1d`` and what completes it) in full f32 (TF32 off), and whether
+    ``check`` finds its result equal to the kernel's."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.cuda.empty_cache()
+        equal = check(fn())
+        ms = time_cuda(fn, runs=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+        torch.cuda.empty_cache()
+    return ms, equal
+
+
+def library_prefilter(seq, table, t_eff, got) -> tuple:
+    """A prefilter as PyTorch computes it: ``conv1d`` of the one-hot
+    sequence with every lane's cells as a filter and ``-t_eff`` as the
+    bias, then ``amax`` over the lanes (two calls)."""
+    import torch.nn.functional as F
+
+    chunks, m, k, lanes = table.shape
+    x = windows_onehot(seq, k, m)
+    weight = table.permute(0, 3, 2, 1).reshape(chunks * lanes, k, m).float()
+    bias = -t_eff.float()
+    n = seq.shape[0] - m + 1
+    fn = lambda: F.conv1d(x, weight, bias).amax(dim=1)  # noqa: E731
+    return library_ms(fn, lambda out: bool(torch.equal(
+        out.reshape(-1)[:n], got[:n].float())))
+
+
 def time_cuda(fn, repeat: int = 1, runs: int = RUNS) -> float:
     """Median milliseconds of one ``fn()`` over ``runs`` samples after a
     warm-up, timed with CUDA events around ``repeat`` calls.
@@ -464,6 +909,8 @@ def time_cuda(fn, repeat: int = 1, runs: int = RUNS) -> float:
 
 
 def phase_times(pssm, seq) -> dict:
+    import torch.nn.functional as F
+
     from lightmotif_tpu_torch import Scanner
     from lightmotif_tpu_torch.ops import kernels, torch_ops
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence, Pipeline
@@ -473,6 +920,15 @@ def phase_times(pssm, seq) -> dict:
     w = torch.from_numpy(pssm.data).to(DEVICE)
     d = torch.from_numpy(pssm.to_discrete().data).to(DEVICE)
     out = {}
+    x = windows_onehot(dseq.data, d.shape[1], len(pssm))
+    # conv1d of the one-hot genome, which reassociates the f32 sum; the
+    # -inf wildcard cells become -1e4 (0 x -inf would make every window
+    # NaN), which changes no window of the genome, which has no wildcard
+    w_lib = torch.where(torch.isfinite(w), w, -1e4).t()[None].contiguous()
+    libraries = {
+        "score_f32": lambda: F.conv1d(x, w_lib),
+        "score_u8": lambda: F.conv1d(x, d.t().float()[None]).clamp_(max=255),
+    }
     for name, kernel, plain, table in (
             ("score_f32", kernels.score_f32, torch_ops.score_f32, w),
             ("score_u8", kernels.score_u8, torch_ops.score_u8, d)):
@@ -482,14 +938,26 @@ def phase_times(pssm, seq) -> dict:
         k2 = time_cuda(lambda: kernel(dseq.data, table, n), repeat=20)
         p2 = time_cuda(lambda: plain(dseq.data, table, n), repeat=20)
         ms, plain_ms = min(k1, k2), min(p1, p2)
-        out[name] = (ms, plain_ms)
         # one call as a caller sees it, host launch cost included
         call_ms = time_cuda(lambda: kernel(dseq.data, table, n))
         plain_call_ms = time_cuda(lambda: plain(dseq.data, table, n))
+        # bytes: the padded genome in, 4 bytes out per position, the table;
+        # operations: one add per window row, at the f32 CUDA-core rate
+        lp = dseq.data.shape[0]
+        bound_ms, bound_by = bound(5 * lp + table.nbytes, n * len(pssm), "f32")
+        got = kernel(dseq.data, table, n)[:n]
+        lib_ms, lib_equal = library_ms(libraries[name], lambda o: float(
+            (o.reshape(-1)[:n] - got.float()).abs().max()))
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
         log("times", kernel=name, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             gpos_s=f"{n / ms / 1e6:.3f}", plain_gpos_s=f"{n / plain_ms / 1e6:.3f}",
             runs=f"k={k1:.4f},{k2:.4f} p={p1:.4f},{p2:.4f}",
-            call_ms=f"{call_ms:.4f}", plain_call_ms=f"{plain_call_ms:.4f}")
+            call_ms=f"{call_ms:.4f}", plain_call_ms=f"{plain_call_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            library_ms=f"{lib_ms:.4f}", library="conv1d of the one-hot genome"
+            + (" + clamp" if name == "score_u8" else ""),
+            library_max_abs_diff=lib_equal)
 
     pipe = Pipeline(DEVICE)
     ms = time_cuda(lambda: pipe.score_max(pssm, dseq))
@@ -501,7 +969,7 @@ def phase_times(pssm, seq) -> dict:
     walls = []
     for _ in range(RUNS + 1):
         t0 = time.perf_counter()
-        Scanner(pssm, seq, threshold=t).collect()
+        Scanner(pssm, seq, threshold=t, device=DEVICE).collect()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     log("times", op="Scanner(...).collect() wall, p=1e-5",
@@ -531,10 +999,16 @@ def phase_database_times(ms, seq) -> tuple:
     k2 = time_cuda(kernel, repeat=3)
     p2 = time_cuda(plain, runs=3)
     ms_k3, plain_k3 = min(k1, k2), min(p1, p2)
+    bound_ms, bound_by = prefilter_bound(chunk, *args, planes=2)
+    lib_ms, lib_equal = library_prefilter(chunk, args[0], args[2], kernel())
+    entry = {"ms": ms_k3, "plain_ms": plain_k3, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms}
     log("times", kernel="prefilter_any8", shape=f"{chunk.shape[0]}x{lanes} lanes, "
         f"m={group['m_max']}", equal=True, ms=f"{ms_k3:.4f}", plain_ms=f"{plain_k3:.4f}",
         runs=f"k={k1:.4f},{k2:.4f} p={p1:.4f},{p2:.4f}",
-        gpos_lanes_s=f"{chunk.shape[0] * lanes / ms_k3 / 1e6:.3f}")
+        gpos_lanes_s=f"{chunk.shape[0] * lanes / ms_k3 / 1e6:.3f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, library_ms=f"{lib_ms:.4f}",
+        library="conv1d + amax", library_equal=lib_equal)
 
     walls = []
     for _ in range(RUNS + 1):
@@ -584,7 +1058,100 @@ def phase_database_times(ms, seq) -> tuple:
         host_ms=f"{run_wall - busy:.4f}" if busy else "not measured",
         idle_share=f"{1 - busy / run_wall:.4f}" if busy else "not measured",
         **{f"n_{k}": v for k, v in counts.items() if k not in ("start", "k3")})
-    return ms_k3, plain_k3
+    return entry
+
+
+def time_prefilter(name, seq, args, m, planes: int, what: str) -> dict:
+    """A prefilter kernel beside its plain version (in turns: plain,
+    kernel, kernel, plain), its bound and its library computation."""
+    from lightmotif_tpu_torch.ops import multi_kernel, torch_ops
+
+    kernel = lambda: getattr(multi_kernel, name)(seq, *args)  # noqa: E731
+    plain = lambda: getattr(torch_ops, name)(seq, *args)  # noqa: E731
+    n = seq.shape[0] - m + 1
+    got = kernel()
+    if not torch.equal(got[:n], plain()[:n]):
+        raise SystemExit(f"{name} != plain at {what}")
+    p1 = time_cuda(plain, runs=3)
+    k1 = time_cuda(kernel, repeat=3)
+    k2 = time_cuda(kernel, repeat=3)
+    p2 = time_cuda(plain, runs=3)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    bound_ms, bound_by = prefilter_bound(seq, *args, planes=planes)
+    lib_ms, lib_equal = library_prefilter(seq, args[0], args[2], got)
+    lanes = args[2].shape[0]
+    log("times", kernel=name, shape=what, equal=True, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", runs=f"k={k1:.4f},{k2:.4f} p={p1:.4f},{p2:.4f}",
+        gpos_lanes_s=f"{seq.shape[0] * lanes / ms / 1e6:.3f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, library_ms=f"{lib_ms:.4f}",
+        library="conv1d + amax", library_equal=lib_equal)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def wall_ms(fn, runs: int = RUNS) -> list:
+    """Host-clock walls (ms) of ``fn()`` to a synchronised end, after one
+    warm-up call."""
+    walls = []
+    for _ in range(runs + 1):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls[1:]
+
+
+def phase_mode_times(ms, seq, db, groups5) -> dict:
+    """K4 at bench.py's shape and K5 at group 0's shape, each beside its
+    plain version; the u16-mode and K3-mode database walls, in turns."""
+    out = {}
+    data, table, m = bench_k4_inputs(seq)
+    out["prefilter_any"] = time_prefilter(
+        "prefilter_any", data, table, m, 1,
+        f"bench: {data.shape[0]}x{BENCH_K4_LANES} lanes, m={m}")
+    dseq = db.dseq
+    group = groups5[0]
+    n_valid = np.maximum(dseq.length - ms.lengths + 1, 0)
+    chunk = dseq.data[: int(n_valid[group["ids"]].max()) + group["m_max"] - 1]
+    lanes = group["t_eff"].shape[0]
+    out["prefilter_any16"] = time_prefilter(
+        "prefilter_any16", chunk, group["k5"], group["m_max"], 2,
+        f"database group 0: {chunk.shape[0]}x{lanes} lanes, m={group['m_max']}")
+
+    segment = len(seq)
+    k3a = wall_ms(lambda: ms.scan_arrays(seq))
+    u16a = wall_ms(lambda: db.scan(groups5, segment))
+    u16b = wall_ms(lambda: db.scan(groups5, segment))
+    k3b = wall_ms(lambda: ms.scan_arrays(seq))
+    med = statistics.median
+    log("times", op=f"database scan wall, steady state, {len(ms.pssms)} PSSMs, "
+        "median of 15 in turns (K3, u16, u16, K3)",
+        k3_mode_ms=f"{med(k3a):.4f},{med(k3b):.4f}",
+        u16_mode_ms=f"{med(u16a):.4f},{med(u16b):.4f}",
+        k3_mode_p90_ms=f"{sorted(k3a + k3b)[int(0.9 * 2 * RUNS)]:.4f}",
+        u16_mode_p90_ms=f"{sorted(u16a + u16b)[int(0.9 * 2 * RUNS)]:.4f}")
+    return out
+
+
+def phase_batch_times(pssm, records, br, mbs) -> None:
+    """Steady-state walls of the batched records: BatchReducer (rebind +
+    argmax) beside a per-record ``Pipeline.score_max`` loop, and
+    MultiBatchScanner (prepare + rebind + collect_arrays)."""
+    from lightmotif_tpu_torch.ops.pipeline import Pipeline
+
+    med = statistics.median
+    reducer = wall_ms(lambda: br.rebind(records).argmax())
+    pipe = Pipeline(DEVICE)
+    m = len(pssm)
+    per_record = wall_ms(lambda: [pipe.score_max(pssm, r) for r in records if len(r) >= m],
+                         runs=3)
+    log("times", op=f"BatchReducer rebind+argmax wall, {len(records)} records",
+        ms=f"{med(reducer):.4f}", p90_ms=f"{sorted(reducer)[int(0.9 * RUNS)]:.4f}",
+        per_record_score_max_ms=f"{med(per_record):.4f}")
+    multi = wall_ms(lambda: mbs.rebind_prepared(mbs.prepare(records)).collect_arrays())
+    log("times", op=f"MultiBatchScanner prepare+rebind+collect_arrays wall, "
+        f"{len(records)} records x {len(mbs.pssms)} PSSMs",
+        ms=f"{med(multi):.4f}", p90_ms=f"{sorted(multi)[int(0.9 * RUNS)]:.4f}")
 
 
 def main() -> int:
@@ -596,18 +1163,27 @@ def main() -> int:
     phase_build()
     pssm, seq = build_inputs()
     errs = phase_kernels(pssm, seq)
-    errs["prefilter_any8"] = phase_k3()
+    cases = list(prefilter_cases())
+    errs["prefilter_any8"] = phase_k3(cases)
+    errs.update(phase_k4k5(cases, seq))
+    del cases
     launches = phase_main_path(pssm, seq)
-    ms, launches["prefilter_any8"] = phase_database(seq)
+    ms, launches["prefilter_any8"], brute = phase_database(seq)
+    db, groups5, launches["prefilter_any16"], launches["prefilter_any"] = phase_modes(
+        ms, seq, brute)
     phase_other_paths(seq)
+    records, br, mbs = phase_batch(pssm, seq, ms)
     times = phase_times(pssm, seq)
     times["prefilter_any8"] = phase_database_times(ms, seq)
+    times.update(phase_mode_times(ms, seq, db, groups5))
+    phase_batch_times(pssm, records, br, mbs)
     sources = {"score_f32": (SOURCE, REPLACES), "score_u8": (SOURCE, REPLACES),
-               "prefilter_any8": (K3_SOURCE, K3_REPLACES)}
+               "prefilter_any8": (K3_SOURCE, K3_REPLACES),
+               "prefilter_any": (K3_SOURCE, K4_REPLACES),
+               "prefilter_any16": (K3_SOURCE, K5_REPLACES)}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": launches[name], "max_abs_err": errs[name], **times[name]}
         for name, (src, rep) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,16 @@
 """lightmotif-tpu on PyTorch and CUDA.
 
 The port of ``lightmotif_tpu`` (JAX on a TPU) to PyTorch, with its
-scoring kernels written by hand in CUDA C++ for NVIDIA Hopper.  This
-package holds the main path: the count -> frequency -> weight ->
-scoring -> discrete matrix chain, exact-f32 scoring with max / argmax
-reductions, the two-pass thresholded ``Scanner`` and the MEME score
-distribution.  It imports ``torch`` and numpy, never JAX.
+kernels written by hand in CUDA C++ for NVIDIA Hopper.  This package
+holds the count -> frequency -> weight -> scoring -> discrete matrix
+chain, exact-f32 scoring with max / argmax reductions, the two-pass
+thresholded ``Scanner``, the MEME score distribution, the motif-database
+scan (``scanner.MultiScanner``) and batched records (``batch``).  It
+imports ``torch`` and numpy, never JAX.
 
-On a CUDA device the scoring runs the kernels of
-``ops/csrc/score.cu``; on the CPU it runs their plain PyTorch versions.
+On a CUDA device the scans run the kernels of ``ops/csrc/``; on the CPU,
+when a caller asks for it (``device="cpu"`` or
+``ops.pipeline.use_device("cpu")``), their plain PyTorch versions.
 """
 
 from __future__ import annotations

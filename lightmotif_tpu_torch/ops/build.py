@@ -52,6 +52,10 @@ _SIGNATURES = {
     "lm_prefilter_row_bytes": ([], _INT),
     "lm_prefilter_any8": (
         [_P, _I64, _P, _P, _P, _INT, _INT, _INT, _P, _P], _INT),
+    "lm_prefilter_any": (
+        [_P, _I64, _P, _P, _P, _INT, _INT, _INT, _P, _P], _INT),
+    "lm_prefilter_any16": (
+        [_P, _I64, _P, _P, _P, _INT, _INT, _INT, _P, _P], _INT),
 }
 
 

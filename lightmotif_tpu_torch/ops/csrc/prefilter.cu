@@ -1,17 +1,31 @@
-// Multi-motif prefilter K3 for NVIDIA Hopper (sm_90a).
+// Multi-motif prefilters K3, K4 and K5 for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel lightmotif_tpu/ops/multi_kernel.py::_any8_kernel
-// (prefilter_any8).  For every window start p it computes, in int32,
+// Replaces three Pallas TPU kernels of lightmotif_tpu/ops/multi_kernel.py:
+// _any8_kernel (prefilter_any8, K3), _any_kernel (prefilter_any, K4) and
+// _any16_kernel (prefilter_any16, K5).  For every window start p each computes
 //
-//   out[p] = max over motif lanes mo of ( sum_j d16[mo][j][s[p+j]] - t_eff[mo] )
+//   out[p] = max over motif lanes mo of ( sum_j cell[mo][j][s[p+j]] - t_eff[mo] )
 //
-// where d16 holds the u16 cells of a motif group (zero for padded rows and
-// lanes) and t_eff is the u16 threshold, or 2^26 for a lane that never passes.
-// out[p] >= 0 marks a candidate.  The TPU kernel gets the same integers from an
-// int8 MXU product of a one-hot window matrix with -128-shifted byte planes;
-// those are layout devices of the MXU.  Here the sums are plain table lookups:
-// integer arithmetic, so any order gives the same bits, sentinel values
-// included.
+// and out[p] >= 0 marks a candidate.  They differ only in the cells and the
+// thresholds, which the host packs (lightmotif_tpu_torch/ops/multi.py):
+//
+//   K3: cell = d16, the u16 cells of a motif group;
+//       t_eff = clip(t16, 0, 65535), or 2^26 for a lane that never passes;
+//   K5: cell = d16 (the TPU sums its hi and lo byte planes and takes
+//       256 * hi + lo); t_eff = clip(t16, 0, 65535), or 262144 = 256 * 1024
+//       for a never-pass lane (the TPU's -1024 hi guard);
+//   K4: cell = the u8 cells dm; t_eff = t_scaled when it is <= 255, else
+//       65536 (the TPU's NEG_GUARD), or -bf16(filters_t[lanes - 1][mo]) for
+//       hand-written filters (the TPU's constant-one threshold slot).
+//
+// Padded lanes have zero cells and the never-pass threshold.  The TPU gets
+// these integers from a one-hot window matrix times the cells on its MXU
+// (bf16 with f32 accumulation for K4 and K5, int8 with -128-shifted byte
+// planes for K3); every sum is an integer below 2^24, so each of those is
+// exact.  Here the sums are plain table lookups in int32: integer arithmetic,
+// so any order gives the same bits, sentinel values included, and one kernel
+// serves all three.  Each has its own C entry point (lm_prefilter_any8,
+// lm_prefilter_any, lm_prefilter_any16) so that its launches are its own.
 //
 // Inputs: seq uint8 [lp]; table int32 [n_chunks][m][k][CH] with
 // table[c][j][s][l] = d16[c*CH + l][j][s]; chunk_m int32 [n_chunks], the rows
@@ -26,7 +40,9 @@
 // What bounds it: each (position, lane, row) costs one shared-memory table read
 // and one integer add -- about 2e11 of them for a JASPAR-sized database against
 // a bacterial genome -- against one byte read and four bytes written per
-// position.  It is bound by shared-memory bandwidth and the integer pipe.
+// position.  It is bound by shared-memory bandwidth and the integer pipe; the
+// card's least time for the same work is that of the int8 tensor-core form
+// (the one-hot matrix times the cells), which this first design does not use.
 //
 // Design: a block takes TILE = THREADS * PPT consecutive positions and stages
 // them, with their (m - 1)-byte halo, in shared memory once.  It then walks the
@@ -126,22 +142,12 @@ any8_kernel(const uint8_t* __restrict__ seq, long long lp,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Lanes per chunk of the table layout, positions per block, and the bytes of
-// shared memory per staged (j, symbol) row, so the caller can check its layout
-// and size shared memory.
-int lm_prefilter_lanes() { return CH; }
-int lm_prefilter_tile() { return TILE; }
-int lm_prefilter_row_bytes() { return ROW * static_cast<int>(sizeof(int)); }
-
 // seq: uint8 [lp]; table: int32 [n_chunks][m][k][CH]; chunk_m: int32
-// [n_chunks]; t_eff: int32 [n_chunks * CH]; out: int32 [lp].
-int lm_prefilter_any8(const void* seq, long long lp, const void* table,
-                      const void* chunk_m, const void* t_eff, int n_chunks,
-                      int m, int k, void* out, void* stream) {
+// [n_chunks]; t_eff: int32 [n_chunks * CH]; out: int32 [lp].  Returns the CUDA
+// error of the launch (0 when it was queued).
+int launch_any(const void* seq, long long lp, const void* table,
+               const void* chunk_m, const void* t_eff, int n_chunks, int m,
+               int k, void* out, void* stream) {
   const size_t smem =
       static_cast<size_t>(m) * k * ROW * sizeof(int) + TILE + m - 1;
   if (smem > 48 * 1024) {
@@ -159,6 +165,38 @@ int lm_prefilter_any8(const void* seq, long long lp, const void* table,
       static_cast<const int*>(chunk_m), static_cast<const int*>(t_eff),
       n_chunks, m, k, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Lanes per chunk of the table layout, positions per block, and the bytes of
+// shared memory per staged (j, symbol) row, so the caller can check its layout
+// and size shared memory.
+int lm_prefilter_lanes() { return CH; }
+int lm_prefilter_tile() { return TILE; }
+int lm_prefilter_row_bytes() { return ROW * static_cast<int>(sizeof(int)); }
+
+// K3: the u16 table of pack_filters_k3.
+int lm_prefilter_any8(const void* seq, long long lp, const void* table,
+                      const void* chunk_m, const void* t_eff, int n_chunks,
+                      int m, int k, void* out, void* stream) {
+  return launch_any(seq, lp, table, chunk_m, t_eff, n_chunks, m, k, out, stream);
+}
+
+// K4: the u8 table of pack_filters_k4.
+int lm_prefilter_any(const void* seq, long long lp, const void* table,
+                     const void* chunk_m, const void* t_eff, int n_chunks,
+                     int m, int k, void* out, void* stream) {
+  return launch_any(seq, lp, table, chunk_m, t_eff, n_chunks, m, k, out, stream);
+}
+
+// K5: the u16 table of pack_filters_k5.
+int lm_prefilter_any16(const void* seq, long long lp, const void* table,
+                       const void* chunk_m, const void* t_eff, int n_chunks,
+                       int m, int k, void* out, void* stream) {
+  return launch_any(seq, lp, table, chunk_m, t_eff, n_chunks, m, k, out, stream);
 }
 
 }  // extern "C"

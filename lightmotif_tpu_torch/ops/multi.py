@@ -4,18 +4,26 @@ Counterpart of :mod:`lightmotif_tpu.ops.multi`.  The host packers
 (:func:`fine_discretize` to :func:`pack_dense_motif`) are numpy and
 give the JAX package's arrays byte for byte; :func:`pack_motif_group`
 adds the layouts the port's device stages read (``k3``, ``fine``,
-``t_eff``).
+``t_eff``), and :func:`group_from_filters` builds them from the JAX
+filters of any prefilter mode.  :func:`route_motifs`,
+:func:`pack_database` and :func:`database_groups` split a whole motif
+database into those groups, in any mode, for :func:`scan_groups`.
 
 The device stages (:func:`scan_multi_core`) are the torch version of
 the JAX ``scan_multi_core`` on one segment:
 
-1. K3 (:func:`.multi_kernel.prefilter_any8`): ``max_mo (sum16 - t16)``
-   of every window start; ``>= 0`` marks a candidate;
+1. the prefilter, chosen in the JAX order from the filters the group
+   holds: K3 (``k3``, the JAX ``filters_i8``), else K5 (``k5``,
+   ``filters_fine``), else K4 (``k4``, the u8 ``filters_t``); each gives
+   ``max_mo (sum - t_eff)`` of every window start, and ``>= 0`` marks a
+   candidate (:mod:`.multi_kernel` states the three formulas);
 2. candidates: one ``torch.nonzero``, exact, so there are no capacities
    and no retry;
-3. phase C: the u16 test per (candidate, motif lane), ``sum16 - t16 >=
-   0`` inside the lane's valid windows, as one one-hot matmul against
-   the byte planes of ``d16`` (exact, see :func:`phase_c_filters`);
+3. phase C: the test per (candidate, motif lane) inside the lane's valid
+   windows, as one one-hot matmul against the group's ``fine`` planes
+   with its own thresholds ``t_eff``: the byte planes of ``d16`` (the
+   u16 test ``sum16 - t >= 0``) or the u8 cells (``sum8 - t >= 0``),
+   exact either way (see :func:`phase_c_filters`);
 4. pairs: ``torch.nonzero`` of the phase-C mask, which lists them in
    ascending (position, motif lane) order -- the order the JAX bit-pack
    and lowest-set-bit extraction produce;
@@ -23,7 +31,9 @@ the JAX ``scan_multi_core`` on one segment:
    mask ``score >= threshold``.
 
 The u16 test has no false negatives against the f32 threshold
-(:func:`fine_discretize`), so the hits are the exact ones.
+(:func:`fine_discretize`), so the hits are the exact ones; the u8 test
+follows the reference's saturating rule (no false negatives on sequences
+without wildcards).
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ __all__ = [
     "pack_filters_fine",
     "pack_filters_fine_i8",
     "pack_filters_k3",
+    "pack_filters_k5",
+    "pack_filters_k4",
     "phase_c_filters",
     "stack_motifs",
     "pack_motif_group",
@@ -52,7 +64,16 @@ __all__ = [
     "phase_c",
     "phase_c_pairs",
     "rescore_multi",
+    "PREFILTERS",
     "scan_multi_core",
+    "group_from_filters",
+    "scan_multi_segment_fused",
+    "scan_groups",
+    "sorted_hits",
+    "route_motifs",
+    "pack_database",
+    "pack_filters_u8",
+    "database_groups",
 ]
 
 #: Bound on the ``[candidates, 2 * motif lanes]`` f32 product of one
@@ -66,6 +87,11 @@ PHASE_C_ELEMS = 1 << 27
 #: Pairs per exact-rescore block (bounds the ``[pairs, m]`` gathers);
 #: 2**18 was the best of 2**14, 2**16 and 2**18 in the same sweep.
 RESCORE_BLOCK = 1 << 18
+
+#: ``t_eff`` of a lane that never passes: K3's, and K5's (the JAX u16
+#: filters' -1024 hi guard, ``256 * 1024``).
+K3_NEVER = 1 << 26
+K5_NEVER = 256 * 1024
 
 
 # -- host packers: byte-identical to lightmotif_tpu.ops.multi -----------------
@@ -215,53 +241,181 @@ def pack_filters_fine_i8(data16, t16, k: int, widths):
     return hi.astype(np.int8), lo.astype(np.int8), adj
 
 
-def pack_filters_k3(data16, t16):
+def _k_table(cells, t_eff):
+    """The table of the port's prefilter kernel from per-lane cells.
+
+    ``cells``: integer ``[m_pad, m, K]``, ``m_pad`` a multiple of
+    :data:`.multi_kernel.K3_LANES`.  Returns ``table`` int32 ``[chunks, m,
+    K, K3_LANES]`` (``table[c, j, s, l] = cells[c * K3_LANES + l, j,
+    s]``), ``chunk_m`` int32 ``[chunks]`` (one past the last row with a
+    nonzero cell in the chunk: the kernel sums no row past it, and those
+    rows are zero, so no sum changes) and ``t_eff`` as int32."""
+    m_pad, m, k = cells.shape
+    lanes = multi_kernel.K3_LANES
+    table = np.ascontiguousarray(np.asarray(cells, np.int32).reshape(
+        m_pad // lanes, lanes, m, k).transpose(0, 2, 3, 1))
+    rows = (table != 0).any(axis=(2, 3))  # [chunks, m]
+    chunk_m = np.where(rows.any(axis=1), m - np.argmax(rows[:, ::-1], axis=1), 0)
+    return table, chunk_m.astype(np.int32), np.asarray(t_eff).astype(np.int32)
+
+
+def pack_filters_k3(data16, t16, never: int = K3_NEVER):
     """The filters of the port's K3 (:func:`.multi_kernel.prefilter_any8`).
 
     ``data16``: ``[M, m, K]`` u16 cells; ``t16``: ``[M]`` u16 thresholds
     (65536 = never pass).  Lanes pad to :data:`.multi_kernel.
-    BITS_PER_WORD` like the JAX filters.  Returns
-
-    * ``table`` int32 ``[chunks, m, K, K3_LANES]``: ``table[c, j, s, l] =
-      data16[c * K3_LANES + l, j, s]``, zero for padded lanes;
-    * ``chunk_m`` int32 ``[chunks]``: one past the last row with a
-      nonzero cell in the chunk (the kernel sums no row past it; those
-      rows are zero, so no sum changes);
-    * ``t_eff`` int32 ``[m_pad]``: ``clip(t16, 0, 65535)``, or ``2**26``
-      for never-pass and padded lanes -- the JAX kernel's values exactly
-      (``adj`` minus its byte-plane shift).
+    BITS_PER_WORD` like the JAX filters.  Returns ``(table, chunk_m,
+    t_eff)`` of :func:`_k_table`, with ``t_eff = clip(t16, 0, 65535)``,
+    or ``never`` for never-pass and padded lanes -- the JAX kernel's
+    values exactly (``adj`` minus its byte-plane shift).
     """
     mcount, m, k = data16.shape
     bpw = multi_kernel.BITS_PER_WORD
-    lanes = multi_kernel.K3_LANES
     m_pad = -(-mcount // bpw) * bpw
     d = np.zeros((m_pad, m, k), np.int32)
     d[:mcount] = data16
-    table = np.ascontiguousarray(
-        d.reshape(m_pad // lanes, lanes, m, k).transpose(0, 2, 3, 1))
-    rows = (table != 0).any(axis=(2, 3))  # [chunks, m]
-    chunk_m = np.where(rows.any(axis=1), m - np.argmax(rows[:, ::-1], axis=1), 0)
     tt = np.asarray(t16, np.int64)
-    t_eff = np.full(m_pad, 1 << 26, np.int64)
-    t_eff[:mcount] = np.where(tt > 65535, 1 << 26, np.clip(tt, 0, 65535))
-    return table, chunk_m.astype(np.int32), t_eff.astype(np.int32)
+    t_eff = np.full(m_pad, never, np.int64)
+    t_eff[:mcount] = np.where(tt > 65535, never, np.clip(tt, 0, 65535))
+    return _k_table(d, t_eff)
 
 
-def phase_c_filters(data16):
-    """f32 ``[m * K, 2 * m_pad]`` byte planes of the phase-C matmul:
-    column ``mo`` holds ``data16[mo] >> 8`` and column ``m_pad + mo``
-    ``data16[mo] & 255``, row ``j * K + s``.
+def pack_filters_k5(data16, t16):
+    """The filters of the port's K5 (:func:`.multi_kernel.prefilter_any16`):
+    K3's table, with never-pass and padded lanes at 262144, the value
+    the JAX u16 filters' -1024 hi guard gives (:func:`pack_filters_fine`).
+    A never-pass lane's ``sum16 - 262144`` can reach 0 on long wildcard
+    runs (wildcard cells may exceed the body maximum); the value is the
+    JAX one all the same."""
+    return pack_filters_k3(data16, t16, never=K5_NEVER)
 
-    One-hot windows times these planes give ``sum16 >> 8``-weighted and
-    low-byte sums exactly at every ``torch.set_float32_matmul_precision``:
-    the operands are 0/1 and integers below 256 (at most 8 significant
-    bits; TF32 keeps 11, bf16 8), every product is exact, and every sum
-    is an integer below ``m * 255 < 2**24``."""
+
+def _bf16(x) -> np.ndarray:
+    """f32 values rounded to bf16 (to nearest, ties to even) and back,
+    as the JAX kernels cast their filters."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def _slot_cells(filters, k: int, widths=None) -> np.ndarray:
+    """Per-lane cells ``[m_pad, n_blocks * rpb, K]`` of a filter in the
+    JAX slot layout (:func:`.multi_kernel.pack_slots`).  Under ragged
+    ``widths`` contraction block ``b`` covers only the last ``widths[b]``
+    lanes; the cells it does not cover are zero, as the JAX kernels
+    never read them."""
+    f = np.asarray(filters)
+    lanes = multi_kernel._lanes_for(k)
+    rpb = multi_kernel.MAX_MK // lanes
+    mk = multi_kernel.MAX_MK
+    n_blocks, m_pad = f.shape[0] // mk, f.shape[1]
+    if f.shape[0] % mk or m_pad % multi_kernel.BITS_PER_WORD:
+        raise ValueError(f"filters of shape {f.shape} are not in the slot layout")
+    cells = (f.reshape(n_blocks, rpb, lanes, m_pad)[:, :, :k]
+             .reshape(n_blocks * rpb, k, m_pad).transpose(2, 0, 1).copy())
+    if widths is not None:
+        if len(widths) != n_blocks:
+            raise ValueError(f"{len(widths)} widths for {n_blocks} contraction blocks")
+        for b, wd in enumerate(widths):
+            cells[: m_pad - wd, b * rpb:(b + 1) * rpb] = 0
+    return cells
+
+
+def _integers(x, what: str) -> np.ndarray:
+    if not (np.isfinite(x).all() and np.array_equal(x, np.round(x))):
+        raise ValueError(f"{what} must hold integers")
+    return x.astype(np.int64)
+
+
+def _exact_sums(cells, t_eff, what: str) -> None:
+    # the JAX kernels sum in f32: exact only below 2**24
+    bound = np.abs(cells).max(axis=2).sum(axis=1) + np.abs(t_eff)
+    if bound.size and bound.max() >= 1 << 24:
+        raise ValueError(f"{what}: a window sum may reach 2**24, where the JAX "
+                         "package's f32 sums are no longer exact")
+
+
+def _cells_k4(filters_t, k: int):
+    """u8 cells and thresholds of the JAX ``filters_t``, after its bf16
+    cast: ``(cells [m_pad, n_blocks * rpb, K], t4 [m_pad])``."""
+    f = _integers(_bf16(filters_t), "filters_t after the bf16 cast")
+    t4 = -f[multi_kernel._lanes_for(k) - 1]
+    cells = _slot_cells(f, k)
+    _exact_sums(cells, t4, "filters_t")
+    return cells, t4
+
+
+def _cells_fine(f_hi, f_lo, k: int, widths=None):
+    """u16 cells and thresholds of the JAX ``filters_fine`` (hi/lo byte
+    planes, threshold halves in the constant slot): ``(d16, t5)``."""
+    hi = _integers(_bf16(f_hi), "f_hi after the bf16 cast")
+    lo = _integers(_bf16(f_lo), "f_lo after the bf16 cast")
+    c = multi_kernel._lanes_for(k) - 1
+    cells = 256 * _slot_cells(hi, k, widths) + _slot_cells(lo, k, widths)
+    t5 = -(256 * hi[c] + lo[c])
+    _exact_sums(cells, t5, "filters_fine")
+    return cells, t5
+
+
+def _cells_i8(hi8, lo8, adj, k: int, widths=None):
+    """u16 cells and thresholds of the JAX ``filters_i8`` (-128-shifted
+    int8 byte planes, ``adj = 128 * 257 * R_mo - t``): ``(d16, t3)``."""
+    hi = np.asarray(hi8, np.int64) + 128
+    lo = np.asarray(lo8, np.int64) + 128
+    m_pad = hi.shape[1]
+    n_blocks = hi.shape[0] // multi_kernel.MAX_MK
+    rpb = multi_kernel.MAX_MK // multi_kernel._lanes_for(k)
+    cells = 256 * _slot_cells(hi, k, widths) + _slot_cells(lo, k, widths)
+    r_mo = np.zeros(m_pad, np.int64)
+    for wd in (widths if widths is not None else (m_pad,) * n_blocks):
+        r_mo[m_pad - wd:] += rpb
+    t3 = 128 * 257 * r_mo - np.asarray(adj, np.int64).reshape(-1)
+    return cells, t3
+
+
+def pack_filters_k4(filters_t, k: int):
+    """The filters of the port's K4 (:func:`.multi_kernel.prefilter_any`)
+    from the JAX threshold-folded u8 filters
+    (:func:`.multi_kernel.pack_filters_any`, or written by hand).
+
+    The filters round through bf16 as the JAX kernel casts them; cells
+    that are not integers then are refused, and so are filters whose
+    window sums could reach ``2**24``.  Returns ``(table, chunk_m, t4)``
+    of :func:`_k_table` with ``t4 = -filters_t[lanes - 1]``: the scaled
+    threshold, 65536 for never-pass and padded lanes.  Trailing rows
+    with no nonzero cell are cut (they add nothing)."""
+    cells, t4 = _cells_k4(filters_t, k)
+    return _k_table(_trim_rows(cells), t4)
+
+
+def _trim_rows(cells) -> np.ndarray:
+    nz = np.nonzero(cells.any(axis=(0, 2)))[0]
+    return cells[:, : int(nz[-1]) + 1 if nz.size else 1]
+
+
+def phase_c_filters(data16, byte_planes: bool = True):
+    """f32 filters of the phase-C matmul, row ``j * K + s``.
+
+    With ``byte_planes`` (the u16 test): ``[m * K, 2 * m_pad]``, column
+    ``mo`` holding ``data16[mo] >> 8`` and column ``m_pad + mo``
+    ``data16[mo] & 255``.  Without (the u8 test): ``[m * K, m_pad]``, the
+    cells themselves.
+
+    One-hot windows times these filters give the sums exactly at every
+    ``torch.set_float32_matmul_precision``: the operands are 0/1 and
+    integers that bf16 holds exactly (bytes, or u8 cells after the JAX
+    package's bf16 cast: at most 8 significant bits; TF32 keeps 11, bf16
+    8), every product is exact, and every sum is an integer below
+    ``2**24`` (``m * 255`` for a byte plane; :func:`pack_filters_k4`
+    refuses u8 filters that could go past it)."""
     mcount, m, k = data16.shape
     bpw = multi_kernel.BITS_PER_WORD
     m_pad = -(-mcount // bpw) * bpw
-    out = np.zeros((m * k, 2 * m_pad), np.float32)
     flat = np.asarray(data16).reshape(mcount, m * k).T
+    if not byte_planes:
+        out = np.zeros((m * k, m_pad), np.float32)
+        out[:, :mcount] = flat
+        return out
+    out = np.zeros((m * k, 2 * m_pad), np.float32)
     out[:, :mcount] = flat >> 8
     out[:, m_pad:m_pad + mcount] = flat & 255
     return out
@@ -378,13 +532,15 @@ def pack_dense_motif(pssm_data, k: int):
 
 
 def group_to_device(g: dict, device: torch.device) -> dict:
-    """The tensors of a packed group that the device stages read."""
+    """The tensors of a packed group that the device stages read (K3,
+    and phase C on the u16 byte planes)."""
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
     return {
         "k3": tuple(dev(a) for a in g["k3"]),
         "fine": dev(g["fine"]),
+        "byte_planes": True,
         "t_eff": dev(g["t_eff"]),
         "pssm": dev(g["pssm"]),
         "th": dev(g["th"]),
@@ -409,29 +565,34 @@ def candidates(maxv: torch.Tensor) -> torch.Tensor:
 
 
 def phase_c(chunk: torch.Tensor, positions: torch.Tensor, fine: torch.Tensor,
-            t_eff: torch.Tensor, m: int, k: int) -> torch.Tensor:
-    """``sum16 - t_eff`` of every (candidate, motif lane) as int32
-    ``[n, m_pad]``, exactly (see :func:`phase_c_filters`)."""
+            t_eff: torch.Tensor, m: int, k: int, byte_planes: bool = True) -> torch.Tensor:
+    """``sum - t_eff`` of every (candidate, motif lane) as int32
+    ``[n, m_pad]``, exactly (see :func:`phase_c_filters`): ``sum16`` when
+    ``fine`` holds the two byte planes (``byte_planes``), else the u8 sum
+    of the cells it holds."""
     n = positions.shape[0]
     m_pad = t_eff.shape[0]
     sym = _windows(chunk, positions, m, k)
     onehot = torch.zeros((n, m * k), dtype=torch.float32, device=chunk.device)
     onehot.scatter_(1, sym + torch.arange(m, device=chunk.device) * k, 1.0)
-    planes = (onehot @ fine).to(torch.int32)  # [n, 2 * m_pad]
+    planes = (onehot @ fine).to(torch.int32)  # [n, 2 * m_pad] or [n, m_pad]
+    if not byte_planes:
+        return planes - t_eff
     return 256 * planes[:, :m_pad] + planes[:, m_pad:] - t_eff
 
 
 def phase_c_pairs(chunk: torch.Tensor, cand: torch.Tensor, n_valid: torch.Tensor,
                   group: dict, k: int):
-    """(position, motif lane) pairs that pass the u16 test inside the
-    lane's valid windows, in ascending (position, lane) order."""
+    """(position, motif lane) pairs that pass the group's phase-C test
+    inside the lane's valid windows, in ascending (position, lane)
+    order."""
     m_pad = group["t_eff"].shape[0]
     blk = max(1, PHASE_C_ELEMS // (2 * m_pad))
     rows, lanes = [], []
     for b0 in range(0, cand.shape[0], blk):
         pos = cand[b0 : b0 + blk]
         part = phase_c(chunk, pos, group["fine"], group["t_eff"],
-                       group["m_max"], k)
+                       group["m_max"], k, group["byte_planes"])
         mask = (part >= 0) & (pos[:, None] < n_valid[None, :])
         pair = torch.nonzero(mask)
         rows.append(pos[pair[:, 0]])
@@ -472,25 +633,33 @@ def _no_mark(stage: str, n: int) -> None:
     pass
 
 
+#: The prefilter of each group key, in the JAX package's selection
+#: order: ``filters_i8`` (K3), else ``filters_fine`` (K5), else
+#: ``filters_t`` (K4).
+PREFILTERS = {"k3": "prefilter_any8", "k5": "prefilter_any16", "k4": "prefilter_any"}
+
+
 def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict,
                     k: int, mark=None):
     """Hits of one motif group in one segment.
 
     ``chunk``: uint8 ranks of the segment's window starts plus the
     group's ``m - 1`` halo; ``n_valid``: int64 ``[m_pad]`` window starts
-    of each lane that this segment owns (0 for padded lanes).  Returns
-    ``(positions, lanes, scores)`` of the kept hits in ascending
-    (position, lane) order: positions relative to the chunk, lanes
-    within the group, f32 scores.
+    of each lane that this segment owns (0 for padded lanes); ``group``:
+    the device tensors of :func:`group_to_device` or
+    :func:`group_from_filters`.  Returns ``(positions, lanes, scores)``
+    of the kept hits in ascending (position, lane) order: positions
+    relative to the chunk, lanes within the group, f32 scores.
 
     ``mark``, a timing hook, is called once each stage's work is queued
-    with the stage's name and the count it produced: ``("k3", window
-    starts)``, ``("candidates", n)``, ``("phase_c", pairs)``,
+    with the stage's name and the count it produced: (the prefilter's
+    key, window starts), ``("candidates", n)``, ``("phase_c", pairs)``,
     ``("rescore", kept hits)``.
     """
     mark = mark or _no_mark
-    maxv = multi_kernel.prefilter_any8(chunk, *group["k3"])
-    mark("k3", maxv.shape[0])
+    mode = next(name for name in PREFILTERS if name in group)
+    maxv = getattr(multi_kernel, PREFILTERS[mode])(chunk, *group[mode])
+    mark(mode, maxv.shape[0])
     cand = candidates(maxv)
     mark("candidates", cand.shape[0])
     positions, lanes = phase_c_pairs(chunk, cand, n_valid, group, k)
@@ -500,3 +669,234 @@ def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict,
     positions, lanes, scores = positions[keep], lanes[keep], scores[keep]
     mark("rescore", positions.shape[0])
     return positions, lanes, scores
+
+
+def group_from_filters(pssms, thresholds, m_max: int, k: int, device,
+                       filters_t=None, filters_fine=None, widths=None,
+                       filters_i8=None) -> dict:
+    """The device group of :func:`scan_multi_core` from the JAX filters
+    as the JAX ``scan_multi_core`` takes them.
+
+    The prefilter is chosen in the JAX order: ``filters_i8`` (``(hi8,
+    lo8, adj)``) runs K3, else ``filters_fine`` (``(f_hi, f_lo)``) K5,
+    else ``filters_t`` K4; ``widths`` are the ragged widths of the first
+    two.  Phase C reads ``filters_fine`` when it is given (the u16 test,
+    its thresholds ``t5``), else ``filters_t`` (the u8 test, ``t4``), as
+    the JAX phase C does, so ``filters_i8`` alone is refused.  Its
+    windows have ``m_max`` rows.  ``pssms`` ``[M, m, K]`` and
+    ``thresholds`` ``[M]`` are the exact rescore's.
+    """
+    if filters_i8 is None and filters_fine is None and filters_t is None:
+        raise ValueError("no prefilter filters given")
+    if filters_fine is None and filters_t is None:
+        raise ValueError("phase C needs filters_fine or filters_t")
+    u16 = None if filters_fine is None else _cells_fine(*filters_fine, k, widths)
+    u8 = None if filters_t is None else _cells_k4(filters_t, k)
+    if filters_i8 is not None:
+        mode, (cells, t_pre) = "k3", _cells_i8(*filters_i8, k, widths)
+    else:
+        mode, (cells, t_pre) = ("k5", u16) if u16 is not None else ("k4", u8)
+    byte_planes = u16 is not None
+    fine, t_c = u16 if byte_planes else u8
+    planes = phase_c_filters(fine[:, :m_max], byte_planes=byte_planes)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return {
+        mode: tuple(dev(a) for a in _k_table(_trim_rows(cells), t_pre)),
+        "fine": dev(planes),
+        "byte_planes": byte_planes,
+        "t_eff": dev(np.asarray(t_c, np.int32)),
+        "pssm": dev(np.asarray(pssms, np.float32)),
+        "th": dev(np.asarray(thresholds, np.float32)),
+        "m_max": int(m_max),
+    }
+
+
+def scan_multi_segment_fused(seq, off, n_valid_here, filters_t, pssms,
+                             thresholds, chunk_len: int, cap: int,
+                             m_max: int, k: int, dense: bool = False,
+                             cap_hits: int | None = None,
+                             filters_fine=None, widths=None,
+                             filters_i8=None, rsplits=None, pre4=None):
+    """The kept hits of one segment, from the JAX package's arguments.
+
+    Counterpart of the JAX ``scan_multi_segment_fused``: ``seq`` is a
+    uint8 tensor on the device to run on, the segment is ``seq[off :
+    off + chunk_len]``, ``n_valid_here`` holds the ``[1, m_pad]`` (or
+    ``[m_pad]``) valid window starts of each lane, and the filters go
+    through :func:`group_from_filters`.  ``cap``, ``cap_hits`` and
+    ``dense`` size the JAX package's compaction buffers; compaction here
+    is exact, so they are unused, and so are ``rsplits`` and ``pre4``
+    (the port has one rescore, which gives the same bits).  Returns
+    ``(positions, lanes, scores)`` of the kept hits in (position, lane)
+    order: the JAX ``packed[:, :n_kept]``.
+
+    Every call unpacks the filters and uploads the group again, a host
+    cost paid per segment.  A loop over segments or groups should pack
+    once (:func:`database_groups`, or :func:`group_from_filters` per
+    group) and run :func:`scan_groups`.
+    """
+    group = group_from_filters(pssms, thresholds, m_max, k, seq.device,
+                               filters_t=filters_t, filters_fine=filters_fine,
+                               widths=widths, filters_i8=filters_i8)
+    off = int(off)
+    n_valid = torch.as_tensor(np.asarray(n_valid_here, np.int64).reshape(-1),
+                              device=seq.device)
+    return scan_multi_core(seq[off : off + chunk_len], n_valid, group, k)
+
+
+def scan_groups(data: torch.Tensor, length: int, lengths, groups, k: int,
+                segment: int, mark=None) -> list:
+    """Hits of motif groups over a device sequence, segment by segment.
+
+    ``data``: the uint8 ranks (padded past ``length``); ``lengths``: the
+    motif length of each database index; each group, from
+    :func:`group_to_device` or :func:`group_from_filters`, also holds
+    its database indices as ``ids`` (numpy) and ``ids_dev`` (on the
+    device).  Each segment carries its group's ``m - 1`` halo.  Returns
+    one ``(positions, motif ids, scores)`` triple of device tensors per
+    (group, segment) with a window to scan, in that order.
+    """
+    n_valid = np.maximum(length - np.asarray(lengths) + 1, 0).astype(np.int64)
+    n_total = int(n_valid.max(initial=0))
+    parts = []
+    for group in groups:
+        ids = group["ids"]
+        m_pad = group["t_eff"].shape[0]
+        for off in range(0, n_total, segment):
+            n_here = np.zeros(m_pad, np.int64)
+            n_here[: len(ids)] = np.clip(n_valid[ids] - off, 0, segment)
+            n_max = int(n_here.max())
+            if n_max == 0:
+                continue
+            # the segment's window starts plus the group's halo
+            chunk = data[off : off + n_max + group["m_max"] - 1]
+            pos, lanes, scores = scan_multi_core(
+                chunk, torch.as_tensor(n_here, device=data.device), group, k, mark)
+            parts.append((pos + off, group["ids_dev"][lanes], scores))
+    return parts
+
+
+def sorted_hits(parts):
+    """Hit arrays ``(motif_ids int32, positions int64, scores float32)``
+    on the host, ordered by (motif, position), from ``(positions, motif
+    ids, scores)`` device triples such as :func:`scan_groups` returns."""
+    if not parts:
+        return (np.zeros(0, np.int32), np.zeros(0, np.int64),
+                np.zeros(0, np.float32))
+    positions = torch.cat([p for p, _, _ in parts])
+    motif_ids = torch.cat([m for _, m, _ in parts])
+    scores = torch.cat([s for _, _, s in parts])
+    # (motif, position) is unique per hit: one sort of the packed key
+    order = torch.argsort((motif_ids << 40) | positions)
+    return (motif_ids[order].to(torch.int32).cpu().numpy(),
+            positions[order].cpu().numpy(),
+            scores[order].cpu().numpy())
+
+
+# -- a whole motif database ---------------------------------------------------
+
+
+def route_motifs(pssm_stack, lengths, thresholds, k: int, dense_m_limit: int):
+    """Route a motif database as the JAX ``MultiScanner`` does.
+
+    Motifs longer than ``dense_m_limit`` take the dense path, motifs
+    whose thresholds no window can reach (:func:`unreachable_thresholds`)
+    are dropped, and the rest go through the prefilter groups; when the
+    prefilter has no geometry for them (:func:`.multi_kernel.
+    supports_fused`), every live motif takes the dense path.  Returns
+    ``(short_idx, dense_idx)``: the database indices of the groups'
+    motifs, sorted by length (stable), and of the dense path's."""
+    lengths = np.asarray(lengths)
+    long_sel = lengths > dense_m_limit
+    live_sel = ~unreachable_thresholds(pssm_stack, thresholds)
+    short_idx = np.nonzero(~long_sel & live_sel)[0]
+    m_short = int(lengths[short_idx].max()) if short_idx.size else 0
+    if short_idx.size and multi_kernel.supports_fused(m_short, k, int(short_idx.size)):
+        dense_idx = np.nonzero(long_sel & live_sel)[0]
+    else:
+        dense_idx = np.nonzero(live_sel)[0]
+        short_idx = np.zeros(0, np.int64)
+    # length-sorted, so each group's rows match its longest motif
+    return short_idx[np.argsort(lengths[short_idx], kind="stable")], dense_idx
+
+
+def pack_database(pssm_stack, lengths, thresholds, ids, k: int, group_motifs: int,
+                  single_bucket: bool = False):
+    """Yield ``(group ids, packed group)`` of each motif group of the
+    database motifs ``ids`` (length-sorted: :func:`route_motifs`'
+    ``short_idx``), in groups of ``group_motifs``.
+
+    The groups are :func:`pack_motif_group`'s, as the JAX
+    ``MultiScanner`` packs them: when there are several, every group has
+    ``group_motifs`` lanes and rows in whole contraction blocks
+    (:func:`group_bucket`); ``single_bucket`` gives every group the rows
+    of the longest motif of ``ids``."""
+    ids = np.asarray(ids)
+    n = int(ids.size)
+    gsize = min(group_motifs, n)
+    gstarts = range(0, n, gsize) if gsize else range(0)
+    multi_group = len(gstarts) > 1
+    rpb = multi_kernel.MAX_MK // multi_kernel._lanes_for(k)
+    for s in gstarts:
+        g_ids = ids[s:s + gsize]
+        m_bkt = int(np.asarray(lengths)[ids if single_bucket else g_ids].max())
+        yield g_ids, pack_motif_group(
+            g_ids, gsize if multi_group else len(g_ids),
+            group_bucket(m_bkt, rpb, multi_group), pssm_stack, thresholds, k)
+
+
+def pack_filters_u8(g: dict, ids, dm_stack, t_scaled, k: int) -> np.ndarray:
+    """The JAX u8 filters ``filters_t`` (:func:`.multi_kernel.
+    pack_filters_any`) of a packed group at its lanes and rows.
+
+    ``g``: :func:`pack_motif_group`'s arrays of the database motifs
+    ``ids``; ``dm_stack``: the database's u8 discrete matrices ``[M, m,
+    K]`` and ``t_scaled`` their scaled thresholds ``[M]`` (each PSSM's
+    ``to_discrete()`` and its ``scale(threshold)``).  Padded lanes never
+    pass."""
+    gm, m_bucket, _ = g["pssm"].shape
+    ids = np.asarray(ids)
+    mw = min(m_bucket, dm_stack.shape[1])
+    dm = np.zeros((gm, m_bucket, k), np.float32)
+    dm[: ids.size, :mw] = np.asarray(dm_stack, np.float32)[ids][:, :mw]
+    t = np.full(gm, 256, np.int64)  # above the u8 range: never passes
+    t[: ids.size] = np.asarray(t_scaled)[ids]
+    return multi_kernel.pack_filters_any(dm, t, k)
+
+
+def database_groups(pssm_stack, lengths, thresholds, ids, k: int, device,
+                    group_motifs: int, prefilter: str = "k3",
+                    single_bucket: bool = False, discrete=None) -> list:
+    """The device groups of :func:`scan_groups` for the database motifs
+    ``ids`` in one prefilter mode, each with its ``ids`` and ``ids_dev``.
+
+    The groups are :func:`pack_database`'s.  ``prefilter``: ``"k3"``,
+    the ``MultiScanner``'s (K3, phase C on the u16 byte planes);
+    ``"k5"``, the u16 mode, from each group's JAX ``filters_fine`` and
+    ragged ``widths``; ``"k4"``, the u8 mode, from its JAX ``filters_t``
+    built by :func:`pack_filters_u8` out of ``discrete = (dm_stack,
+    t_scaled)``.  The u8 candidate union saturates large groups, so the
+    u8 mode wants small ``group_motifs`` (the JAX package's note at
+    ``scan_multi_core``'s u16 prefilter)."""
+    if prefilter not in PREFILTERS:
+        raise ValueError(f"unknown prefilter {prefilter!r}; one of {sorted(PREFILTERS)}")
+    if prefilter == "k4" and discrete is None:
+        raise ValueError("the u8 mode needs discrete=(dm_stack, t_scaled)")
+    groups = []
+    for g_ids, g in pack_database(pssm_stack, lengths, thresholds, ids, k,
+                                  group_motifs, single_bucket):
+        if prefilter == "k3":
+            group = group_to_device(g, device)
+        else:
+            filters = ({"filters_fine": (g["f_hi"], g["f_lo"]), "widths": g["widths"]}
+                       if prefilter == "k5" else
+                       {"filters_t": pack_filters_u8(g, g_ids, *discrete, k)})
+            group = group_from_filters(g["pssm"], g["th"], g["m_max"], k, device,
+                                       **filters)
+        group["ids"] = g_ids
+        group["ids_dev"] = torch.as_tensor(g_ids, device=device)
+        groups.append(group)
+    return groups

@@ -1,29 +1,47 @@
-"""The multi-motif prefilter K3: geometry, filter layout and its wrapper.
+"""The multi-motif prefilters K3, K4 and K5: geometry, filter layout and
+their wrappers.
 
-Counterpart of :mod:`lightmotif_tpu.ops.multi_kernel`.  The Pallas
-kernel ``_any8_kernel`` (``prefilter_any8``) scores every position
-against every motif of a group at once and keeps one int32 per
-position::
+Counterpart of :mod:`lightmotif_tpu.ops.multi_kernel`.  Its three Pallas
+kernels score every position against every motif lane of a group at
+once and keep one int32 per position; ``out[p] >= 0`` marks a candidate.
+They compute one integer function::
 
     out[p] = max over motif lanes mo of
-             (sum_{j < m_max} d16[mo, j, s[p+j]] - t_eff[mo])
+             (sum_{j} cell[mo, j, s[p+j]] - t_eff[mo])
 
-with ``d16`` the u16 discretization of the group
-(:func:`.multi.fine_discretize`) and ``t_eff`` the u16 threshold, or
-``2**26`` for a lane that never passes.  ``out[p] >= 0`` marks a
-candidate position.  On the TPU the sums ride the int8 MXU through a
-one-hot window matrix and -128-shifted byte planes; here
-``csrc/prefilter.cu`` (``lm_prefilter_any8``) sums table lookups in
-int32, which gives the same integers.
+and differ only in the cells and in the thresholds of lanes that never
+pass (padded lanes have zero cells and the never-pass threshold):
 
-A tensor on the CPU runs the plain version
-(:func:`.torch_ops.prefilter_any8`); a tensor on a CUDA device launches
-the kernel, and anything the kernel does not take raises.  Nothing
-falls back.  :data:`LAUNCHES` counts the kernel launches.
+* K3, ``_any8_kernel`` (:func:`prefilter_any8`): the u16 cells ``d16``
+  (:func:`.multi.fine_discretize`), ``t_eff = clip(t16, 0, 65535)``, or
+  ``2**26`` for a lane that never passes;
+* K5, ``_any16_kernel`` (:func:`prefilter_any16`): the same cells as
+  hi/lo byte planes, ``256 * (sum hi - th_hi) + (sum lo - th_lo) = sum16
+  - t_eff`` with ``t_eff = clip(t16, 0, 65535)``, or ``256 * 1024 =
+  262144`` for never-pass lanes (the -1024 hi guard);
+* K4, ``_any_kernel`` (:func:`prefilter_any`): u8 cells ``dm`` and the
+  threshold folded into a constant-one slot: ``t_eff = t_scaled`` up to
+  255, else 65536 (:data:`NEG_GUARD`); for hand-written filters,
+  ``-bf16(filters_t[lanes - 1, mo])``.
 
-The constants and :func:`pack_slots` keep the JAX package's slot layout:
-the routing (:func:`supports_fused`) and the packers of :mod:`.multi`
-are defined by it, so they stay byte-identical to the JAX ones.
+On the TPU the sums ride the MXU through a one-hot window matrix; the
+constant slot, the byte planes, their -128 shift and the ragged widths
+are layout devices of the MXU.  Every sum is an integer below ``2**24``,
+exact in the TPU's f32 or int32 accumulators, so one CUDA kernel
+(``any8_kernel`` in ``csrc/prefilter.cu``) that sums table lookups in
+int32 gives all three, each from its own table and thresholds
+(:func:`.multi.pack_filters_k3`, :func:`.multi.pack_filters_k5`,
+:func:`.multi.pack_filters_k4`), through its own C entry point.
+
+A tensor on the CPU runs the plain version (:mod:`.torch_ops`); a tensor
+on a CUDA device launches the kernel, and anything the kernel does not
+take raises.  Nothing falls back.  :data:`LAUNCHES` counts the kernel
+launches of each wrapper.
+
+The constants, :func:`pack_slots`, :func:`pack_filters` and
+:func:`pack_filters_any` keep the JAX package's slot layout: the routing
+(:func:`supports_fused`) and the packers of :mod:`.multi` are defined by
+it, so they stay byte-identical to the JAX ones.
 """
 
 from __future__ import annotations
@@ -46,8 +64,12 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "pack_slots",
+    "pack_filters",
+    "pack_filters_any",
     "supports_fused",
     "prefilter_any8",
+    "prefilter_any",
+    "prefilter_any16",
 ]
 
 #: Motifs per packed word of the JAX layout; motif lanes pad to it.
@@ -73,12 +95,13 @@ MAX_M_ROWS = MAX_BLOCKS * ROWS_PER_BLOCK
 NEG_GUARD = 65536.0
 
 #: Motif lanes per chunk of the CUDA kernel's table (``CH`` in
-#: ``csrc/prefilter.cu``).  Lane counts pad to :data:`BITS_PER_WORD`,
-#: a multiple of it, so every group splits into whole chunks.
+#: ``csrc/prefilter.cu``), for K3, K4 and K5 alike.  Lane counts pad to
+#: :data:`BITS_PER_WORD`, a multiple of it, so every group splits into
+#: whole chunks.
 K3_LANES = 16
 
-#: Kernel launches since the last :func:`reset_launches`.
-LAUNCHES = {"prefilter_any8": 0}
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+LAUNCHES = {"prefilter_any8": 0, "prefilter_any": 0, "prefilter_any16": 0}
 
 #: Shared memory a block may use on Hopper (bytes).
 _MAX_SMEM = 232_448
@@ -112,6 +135,34 @@ def pack_slots(stack: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
+def pack_filters(dm_stack: np.ndarray, t_scaled: np.ndarray, k: int):
+    """The JAX base layout of :func:`pack_filters_any`: ``(filters
+    [n_blocks*128, m_pad], t_eff [1, m_pad])`` with ``+inf`` thresholds
+    for padded motif slots and for thresholds above the u8 range.
+
+    ``dm_stack``: f32 ``[M, m_max, K]`` zero-padded discrete matrices;
+    ``t_scaled``: int ``[M]`` scaled thresholds."""
+    mcount = dm_stack.shape[0]
+    filters = pack_slots(dm_stack, k)
+    t_eff = np.full((1, filters.shape[1]), np.inf, np.float32)
+    t_eff[0, :mcount] = np.where(
+        np.asarray(t_scaled) > 255, np.inf, t_scaled).astype(np.float32)
+    return filters, t_eff
+
+
+def pack_filters_any(dm_stack: np.ndarray, t_scaled: np.ndarray, k: int):
+    """The JAX threshold-folded u8 filters ``filters_t`` of K4: the
+    :func:`pack_filters` layout with ``-t`` per motif in row ``lanes -
+    1`` (group 0's top symbol slot, never a real symbol because ``k <
+    lanes``); thresholds above 255 and padded motif slots fold to
+    ``-NEG_GUARD``."""
+    filters, t_eff = pack_filters(dm_stack, t_scaled, k)
+    lanes = _lanes_for(k)
+    t_fin = np.where(np.isfinite(t_eff[0]), t_eff[0], NEG_GUARD)
+    filters[lanes - 1, :] = -t_fin
+    return filters
+
+
 def supports_fused(m_max: int, k: int, n_motifs: int) -> bool:
     """Whether a motif set of this geometry takes the prefilter path.
 
@@ -124,35 +175,36 @@ def supports_fused(m_max: int, k: int, n_motifs: int) -> bool:
     return -(-m_max // rpb) <= MAX_BLOCKS
 
 
-def _check(seq, table, chunk_m, t_eff):
+def _check(name, seq, table, chunk_m, t_eff):
     if seq.dtype != torch.uint8 or seq.dim() != 1:
-        raise TypeError(f"seq must be a 1-D uint8 tensor, got {seq.dtype} {tuple(seq.shape)}")
+        raise TypeError(f"{name}: seq must be a 1-D uint8 tensor, got {seq.dtype} "
+                        f"{tuple(seq.shape)}")
     if table.dtype != torch.int32 or table.dim() != 4 or table.shape[3] != K3_LANES:
         raise TypeError(
-            f"table must be an int32 [chunks, m, K, {K3_LANES}] tensor, "
+            f"{name}: table must be an int32 [chunks, m, K, {K3_LANES}] tensor, "
             f"got {table.dtype} {tuple(table.shape)}")
     n_chunks, m, k, _ = table.shape
     if n_chunks < 1 or m < 1 or not 2 <= k <= 256:
-        raise ValueError(f"bad table shape {tuple(table.shape)}")
+        raise ValueError(f"{name}: bad table shape {tuple(table.shape)}")
     if chunk_m.dtype != torch.int32 or tuple(chunk_m.shape) != (n_chunks,):
-        raise TypeError(f"chunk_m must be int32 [{n_chunks}], got {chunk_m.dtype} "
-                        f"{tuple(chunk_m.shape)}")
+        raise TypeError(f"{name}: chunk_m must be int32 [{n_chunks}], got "
+                        f"{chunk_m.dtype} {tuple(chunk_m.shape)}")
     if t_eff.dtype != torch.int32 or tuple(t_eff.shape) != (n_chunks * K3_LANES,):
-        raise TypeError(f"t_eff must be int32 [{n_chunks * K3_LANES}], got "
+        raise TypeError(f"{name}: t_eff must be int32 [{n_chunks * K3_LANES}], got "
                         f"{t_eff.dtype} {tuple(t_eff.shape)}")
-    for name, t in (("table", table), ("chunk_m", chunk_m), ("t_eff", t_eff)):
+    for what, t in (("table", table), ("chunk_m", chunk_m), ("t_eff", t_eff)):
         if t.device != seq.device:
-            raise ValueError(f"seq on {seq.device} but {name} on {t.device}")
+            raise ValueError(f"{name}: seq on {seq.device} but {what} on {t.device}")
     if seq.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {seq.device}")
+        raise ValueError(f"{name}: unsupported device {seq.device}")
 
 
-def _launch(seq, table, chunk_m, t_eff) -> torch.Tensor:
+def _launch(name, seq, table, chunk_m, t_eff) -> torch.Tensor:
     from . import build
 
     for t in (seq, table, chunk_m, t_eff):
         if not t.is_contiguous():
-            raise ValueError("prefilter_any8 takes contiguous tensors")
+            raise ValueError(f"{name} takes contiguous tensors")
     lib = build.library()
     if lib.lm_prefilter_lanes() != K3_LANES:
         raise RuntimeError("csrc/prefilter.cu and K3_LANES disagree")
@@ -160,7 +212,7 @@ def _launch(seq, table, chunk_m, t_eff) -> torch.Tensor:
     smem = m * k * lib.lm_prefilter_row_bytes() + lib.lm_prefilter_tile() + m - 1
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"an m={m}, K={k} chunk needs {smem} bytes of shared memory "
+            f"{name}: an m={m}, K={k} chunk needs {smem} bytes of shared memory "
             f"(max {_MAX_SMEM})")
     lp = seq.shape[0]
     out = torch.empty(lp, dtype=torch.int32, device=seq.device)
@@ -168,13 +220,20 @@ def _launch(seq, table, chunk_m, t_eff) -> torch.Tensor:
         return out
     with torch.cuda.device(seq.device):
         stream = torch.cuda.current_stream(seq.device).cuda_stream
-        err = lib.lm_prefilter_any8(
+        err = getattr(lib, f"lm_{name}")(
             seq.data_ptr(), lp, table.data_ptr(), chunk_m.data_ptr(),
             t_eff.data_ptr(), n_chunks, m, k, out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"prefilter_any8 kernel launch failed: CUDA error {err}")
-    LAUNCHES["prefilter_any8"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out
+
+
+def _prefilter(name, seq, table, chunk_m, t_eff) -> torch.Tensor:
+    _check(name, seq, table, chunk_m, t_eff)
+    if seq.device.type == "cpu":
+        return getattr(torch_ops, name)(seq, table, chunk_m, t_eff)
+    return _launch(name, seq, table, chunk_m, t_eff)
 
 
 def prefilter_any8(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
@@ -186,7 +245,24 @@ def prefilter_any8(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor
     the end of ``seq`` read the wildcard, so the value is the JAX
     kernel's on every ``p < Lp - m + 1``.
     """
-    _check(seq, table, chunk_m, t_eff)
-    if seq.device.type == "cpu":
-        return torch_ops.prefilter_any8(seq, table, chunk_m, t_eff)
-    return _launch(seq, table, chunk_m, t_eff)
+    return _prefilter("prefilter_any8", seq, table, chunk_m, t_eff)
+
+
+def prefilter_any(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+                  t_eff: torch.Tensor) -> torch.Tensor:
+    """``max_mo (sum_j dm - t_eff)`` of every window start as int32
+    ``[Lp]`` (K4, the u8 prefilter).
+
+    The inputs are those of :func:`prefilter_any8`, with the u8 cells
+    and thresholds of :func:`.multi.pack_filters_k4`."""
+    return _prefilter("prefilter_any", seq, table, chunk_m, t_eff)
+
+
+def prefilter_any16(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+                    t_eff: torch.Tensor) -> torch.Tensor:
+    """``max_mo (sum16 - t_eff)`` of every window start as int32 ``[Lp]``
+    (K5, the u16 byte-plane prefilter).
+
+    The inputs are those of :func:`prefilter_any8`, with the thresholds
+    of :func:`.multi.pack_filters_k5` (never-pass lanes at 262144)."""
+    return _prefilter("prefilter_any16", seq, table, chunk_m, t_eff)

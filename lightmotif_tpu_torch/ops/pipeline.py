@@ -4,6 +4,11 @@ Counterpart of :mod:`lightmotif_tpu.ops.pipeline`.  A :class:`Pipeline`
 runs on one explicit :class:`torch.device`.  On a CUDA device the
 scoring goes through the hand-written kernels (:mod:`.kernels`); on the
 CPU the same wrappers run their plain PyTorch versions.
+
+The device is never chosen silently.  An entry point given no device
+runs on the current CUDA device, or on the device set for the whole
+process by :func:`use_device` (the counterpart of ``JAX_PLATFORMS=cpu``);
+with neither, it raises.  The CPU runs only when a caller asks for it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ __all__ = [
     "default_pipeline",
     "resolve_device",
     "score",
+    "use_device",
 ]
 
 #: Uploaded sequences are padded with the wildcard to a multiple of the
@@ -34,9 +40,32 @@ def pad_length(n: int, multiple: int = PAD_MULTIPLE) -> int:
     return max(multiple, -(-n // multiple) * multiple)
 
 
+#: The device set by :func:`use_device`; ``None`` = the current CUDA device.
+_CHOSEN: torch.device | None = None
+
+
+def use_device(device) -> None:
+    """Set the device of every entry point that is given none, for the
+    whole process (``"cpu"`` to run the plain versions); ``None`` clears
+    the choice."""
+    global _CHOSEN, _DEFAULT
+    _CHOSEN = None if device is None else torch.device(device)
+    _DEFAULT = None
+
+
 def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of :func:`use_device`, else the current CUDA device.
+
+    Raises ``RuntimeError`` when there is neither: the CPU is never a
+    silent fallback."""
+    if _CHOSEN is not None:
+        return _CHOSEN
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' (or call "
+            "lightmotif_tpu_torch.ops.pipeline.use_device('cpu')) to run "
+            "the plain PyTorch versions on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 class DeviceSequence:
@@ -123,6 +152,7 @@ _DEFAULT: Pipeline | None = None
 
 
 def default_pipeline() -> Pipeline:
+    """The pipeline of :func:`default_device` (rebuilt by :func:`use_device`)."""
     global _DEFAULT
     if _DEFAULT is None:
         _DEFAULT = Pipeline()

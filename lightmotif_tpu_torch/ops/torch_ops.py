@@ -19,8 +19,10 @@ Sequences are flat ``uint8`` rank tensors.  A window that runs past the
 end of the sequence reads the wildcard (rank ``K - 1``), and so does any
 rank ``>= K``.
 
-:func:`prefilter_any8` is the plain version of the multi-motif
-prefilter K3 (``csrc/prefilter.cu``).
+:func:`prefilter_any8`, :func:`prefilter_any` and :func:`prefilter_any16`
+are the plain versions of the multi-motif prefilters K3, K4 and K5
+(``csrc/prefilter.cu``): one function of their tables, as the kernel is
+one kernel (see :mod:`.multi_kernel`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ __all__ = [
     "score_f32",
     "score_u8",
     "prefilter_any8",
+    "prefilter_any",
+    "prefilter_any16",
     "max_last",
     "argmax_last",
     "compact_mask",
@@ -111,6 +115,18 @@ def prefilter_any8(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor
             acc += d[j][s[p0 + j : p1 + j]]
         out[p0:p1] = (acc - t_eff).amax(dim=1)
     return out
+
+
+def prefilter_any(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+                  t_eff: torch.Tensor) -> torch.Tensor:
+    """K4's plain version: :func:`prefilter_any8` of the u8 table."""
+    return prefilter_any8(seq, table, chunk_m, t_eff)
+
+
+def prefilter_any16(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+                    t_eff: torch.Tensor) -> torch.Tensor:
+    """K5's plain version: :func:`prefilter_any8` of the K5 table."""
+    return prefilter_any8(seq, table, chunk_m, t_eff)
 
 
 def max_last(scores: torch.Tensor) -> torch.Tensor:

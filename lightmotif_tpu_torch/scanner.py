@@ -363,47 +363,19 @@ class MultiScanner:
     def _route(self) -> dict:
         if self._routing is None:
             k = self.pssms[0].alphabet.size
-            long_sel = self.lengths > self.dense_m_limit(k)
-            live_sel = ~multi.unreachable_thresholds(
-                self.pssm_stack, self.thresholds)
-            short_idx = np.nonzero(~long_sel & live_sel)[0]
-            m_short = int(self.lengths[short_idx].max()) if short_idx.size else 0
-            if short_idx.size and multi_kernel.supports_fused(
-                    m_short, k, int(short_idx.size)):
-                dense_idx = np.nonzero(long_sel & live_sel)[0]
-            else:
-                dense_idx = np.nonzero(live_sel)[0]
-                short_idx = np.zeros(0, np.int64)
-            # length-sorted, so each group's rows match its longest motif
-            short_idx = short_idx[np.argsort(
-                self.lengths[short_idx], kind="stable")]
+            short_idx, dense_idx = multi.route_motifs(
+                self.pssm_stack, self.lengths, self.thresholds, k,
+                self.dense_m_limit(k))
             self._routing = {"short_idx": short_idx, "dense_idx": dense_idx}
         return self._routing
 
     def _pack(self) -> list:
-        """Pack and upload the motif groups, once per scanner."""
+        """Pack and upload the motif groups (K3), once per scanner."""
         if self._groups is None:
-            k = self.pssms[0].alphabet.size
-            short_idx = self._route()["short_idx"]
-            n_short = int(short_idx.size)
-            gsize = min(self.GROUP_MOTIFS, n_short)
-            gstarts = list(range(0, n_short, gsize)) if gsize else []
-            multi_group = len(gstarts) > 1
-            rpb = multi_kernel.MAX_MK // multi_kernel._lanes_for(k)
-            groups = []
-            for s in gstarts:
-                ids = short_idx[s:s + gsize]
-                m_bkt = int(self.lengths[short_idx if self.single_bucket
-                                         else ids].max())
-                g = multi.pack_motif_group(
-                    ids, gsize if multi_group else len(ids),
-                    multi.group_bucket(m_bkt, rpb, multi_group),
-                    self.pssm_stack, self.thresholds, k)
-                dev = multi.group_to_device(g, self.device)
-                dev["ids"] = ids
-                dev["ids_dev"] = torch.as_tensor(ids, device=self.device)
-                groups.append(dev)
-            self._groups = groups
+            self._groups = multi.database_groups(
+                self.pssm_stack, self.lengths, self.thresholds,
+                self._route()["short_idx"], self.pssms[0].alphabet.size,
+                self.device, self.GROUP_MOTIFS, single_bucket=self.single_bucket)
         return self._groups
 
     def dispatch(self) -> dict:
@@ -414,29 +386,14 @@ class MultiScanner:
         if dseq is None:
             raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
         n_valid = np.maximum(dseq.length - self.lengths + 1, 0).astype(np.int64)
-        n_total = int(n_valid.max(initial=0))
-        parts = []
-        if n_total == 0:
-            return {"parts": parts}
+        if int(n_valid.max(initial=0)) == 0:
+            return {"parts": []}
         seg = int(self.SEGMENT)
         if seg < 1:
             raise ValueError("SEGMENT must be positive")
         k = self.pssms[0].alphabet.size
-        for group in self._pack():
-            ids = group["ids"]
-            m_pad = group["t_eff"].shape[0]
-            for off in range(0, n_total, seg):
-                n_here = np.zeros(m_pad, np.int64)
-                n_here[: len(ids)] = np.clip(n_valid[ids] - off, 0, seg)
-                n_max = int(n_here.max())
-                if n_max == 0:
-                    continue
-                # the segment's window starts plus the group's halo
-                chunk = dseq.data[off : off + n_max + group["m_max"] - 1]
-                pos, lanes, scores = multi.scan_multi_core(
-                    chunk, torch.as_tensor(n_here, device=self.device), group, k,
-                    self.mark)
-                parts.append((pos + off, group["ids_dev"][lanes], scores))
+        parts = multi.scan_groups(dseq.data, dseq.length, self.lengths,
+                                  self._pack(), k, seg, self.mark)
         n_fused = len(parts)
         for i in self._route()["dense_idx"]:
             i = int(i)
@@ -460,19 +417,8 @@ class MultiScanner:
         """Hit arrays ``(motif_ids int32, positions int64, scores
         float32)`` of a :meth:`dispatch` token, ordered by (motif,
         position)."""
-        parts = token["parts"]
-        if not parts:
-            return (np.zeros(0, np.int32), np.zeros(0, np.int64),
-                    np.zeros(0, np.float32))
-        positions = torch.cat([p for p, _, _ in parts])
-        motif_ids = torch.cat([m for _, m, _ in parts])
-        scores = torch.cat([s for _, _, s in parts])
-        # (motif, position) is unique per hit: one sort of the packed key
-        order = torch.argsort((motif_ids << 40) | positions)
-        out = (motif_ids[order].to(torch.int32).cpu().numpy(),
-               positions[order].cpu().numpy(),
-               scores[order].cpu().numpy())
-        if self.mark is not None:
+        out = multi.sorted_hits(token["parts"])
+        if self.mark is not None and token["parts"]:
             self.mark("fetch", len(out[0]))
         return out
 

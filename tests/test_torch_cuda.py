@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from lightmotif_tpu_torch import DNA, PROTEIN, CountMatrix, EncodedSequence
+from lightmotif_tpu_torch import DNA, PROTEIN, CountMatrix, EncodedSequence, batch
 from lightmotif_tpu_torch.ops import multi, multi_kernel, torch_ops
 from lightmotif_tpu_torch.scanner import MultiScanner
 
@@ -111,3 +111,52 @@ def test_phase_c_is_exact_on_the_card_at_every_matmul_precision(cuda, precision)
     finally:
         torch.set_float32_matmul_precision(saved)
     assert part.is_cuda and torch.equal(part.cpu(), ref)
+
+
+def _extreme_tables(rng, name):
+    """m = 128 DNA tables at the extremes: u16 cells up to 65535 (both
+    bytes full) for K5, u8 cells up to 255 for K4, a never-pass lane."""
+    m, k, count = 128, 5, 37
+    if name == "prefilter_any16":
+        stack = rng.normal(scale=4.0, size=(count, m, k)).astype(np.float32)
+        stack[:, :, k - 1] = stack[:, :, : k - 1].max(axis=2) + 1e6  # clips to 65535
+        d16 = multi.fine_discretize(stack)[0]
+        assert d16.max() == 65535 and (d16 & 255).max() == 255
+        t16 = rng.integers(0, 65536, size=count)
+        t16[0] = 65536
+        return multi.pack_filters_k5(d16, t16), m
+    dm = rng.integers(0, 256, size=(count, m, k)).astype(np.float32)
+    dm[:, ::3] = 255.0
+    t_scaled = rng.integers(0, 256, size=count)
+    t_scaled[0] = 300
+    filters_t = multi_kernel.pack_filters_any(dm, t_scaled, k)
+    return multi.pack_filters_k4(filters_t, k), m
+
+
+@pytest.mark.parametrize("name", ["prefilter_any", "prefilter_any16"])
+def test_k4_k5_kernels_match_plain_at_the_extremes(cuda, name):
+    rng = np.random.default_rng(5)
+    table, m = _extreme_tables(rng, name)
+    seq = rng.integers(0, 5, size=100_000).astype(np.uint8)
+    seq[::101] = 4  # wildcards in the windows
+    seq_dev = torch.from_numpy(seq).to(cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in table]
+    before = multi_kernel.LAUNCHES[name]
+    got = getattr(multi_kernel, name)(seq_dev, *args)
+    want = getattr(torch_ops, name)(seq_dev, *args)
+    torch.cuda.synchronize()
+    assert multi_kernel.LAUNCHES[name] == before + 1
+    n = seq.size - m + 1
+    assert torch.equal(got[:n], want[:n])
+    assert want[:n].unique().numel() > 100  # not vacuous
+
+
+def test_batch_reducer_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(9)
+    (pssm,) = _motifs(rng, [15], DNA)
+    records = [EncodedSequence(rng.integers(0, 5, size=int(n)).astype(np.uint8))
+               for n in rng.integers(5, 3000, size=300)]
+    got = batch.BatchReducer(pssm, records, device=cuda)
+    want = batch.BatchReducer(pssm, records, device="cpu")
+    assert np.array_equal(got.max().view(np.uint32), want.max().view(np.uint32))
+    assert np.array_equal(got.argmax()[0], want.argmax()[0])

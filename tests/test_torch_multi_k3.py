@@ -89,7 +89,7 @@ def test_cpu_wrapper_runs_the_plain_version():
     multi_kernel.reset_launches()
     got = multi_kernel.prefilter_any8(seq, table, chunk_m, t_eff)
     assert torch.equal(got, torch_ops.prefilter_any8(seq, table, chunk_m, t_eff))
-    assert multi_kernel.LAUNCHES == {"prefilter_any8": 0}
+    assert set(multi_kernel.LAUNCHES.values()) == {0}
     # the plain version sums every row, so the chunk bounds change nothing
     assert torch.equal(got, torch_ops.prefilter_any8(
         seq, table, torch.zeros_like(chunk_m), t_eff))

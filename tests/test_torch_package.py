@@ -17,6 +17,7 @@ def test_import_leaves_jax_out(tmp_path):
         "import lightmotif_tpu_torch as lm\n"
         "import lightmotif_tpu_torch.ops.build, lightmotif_tpu_torch.convert\n"
         "import lightmotif_tpu_torch.ops.multi, lightmotif_tpu_torch.scanner\n"
+        "import lightmotif_tpu_torch.batch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'lightmotif_tpu'))\n"
         "assert not bad, bad\n"

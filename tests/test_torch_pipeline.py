@@ -7,14 +7,19 @@ to ``lightmotif_tpu``'s, including the last-max tie rule.
 
 import numpy as np
 import pytest
+import torch
 
 import lightmotif_tpu as jlm
 import lightmotif_tpu_torch as tlm
 from lightmotif_tpu.ops.pipeline import Pipeline as JaxPipeline
+from lightmotif_tpu_torch import batch
+from lightmotif_tpu_torch.ops import pipeline as tpipeline
 from lightmotif_tpu_torch.ops.pipeline import Pipeline
+from lightmotif_tpu_torch.scanner import MultiScanner
 
 from .data import EXPECTED, PATTERNS, SEQUENCE
-from .torch_parity import bits, pssms, random_counts, random_ranks, sequences
+from .torch_parity import (  # noqa: F401  (cpu_choice is a fixture)
+    bits, cpu_choice, pssms, random_counts, random_ranks, sequences)
 
 #: (protein, m, sequence length, pseudocount)
 CASES = [
@@ -88,6 +93,7 @@ def test_score_max_all_neginf_takes_the_last_window():
     assert got == (-np.inf, 300 - 4)
 
 
+@pytest.mark.usefixtures("cpu_choice")
 def test_scoring_matrix_score_on_text_and_striped():
     jp, tp = pssms(jlm.CountMatrix.from_sequences(
         jlm.EncodedSequence.encode(p) for p in PATTERNS).data)
@@ -105,3 +111,45 @@ def test_device_is_explicit():
     _, tp, _, ts = _case(False, 4, 50, 0.1, seed=0)
     assert Pipeline(device="cpu").device.type == "cpu"
     assert tlm.Scanner(tp, ts, device="cpu").device.type == "cpu"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """No CUDA device, and no device chosen for the process."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tpipeline.use_device(None)
+    yield
+    tpipeline.use_device(None)
+
+
+#: Every entry point that takes a device, called without one.
+ENTRY_POINTS = {
+    "Pipeline": lambda tp, ts: Pipeline(),
+    "Scanner": lambda tp, ts: tlm.Scanner(tp, ts),
+    "scan": lambda tp, ts: tlm.scan(tp, ts),
+    "MultiScanner": lambda tp, ts: MultiScanner([tp], ts, 0.0),
+    "BatchScanner": lambda tp, ts: batch.BatchScanner(tp, [ts, ts]),
+    "BatchReducer": lambda tp, ts: batch.BatchReducer(tp, [ts, ts]),
+    "MultiBatchScanner": lambda tp, ts: batch.MultiBatchScanner([tp], [ts, ts]),
+    "ScoringMatrix.score": lambda tp, ts: tp.score(ts),
+    "pipeline.score": lambda tp, ts: tpipeline.score(tp, ts),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_no_card_and_no_choice_raises(no_card, entry):
+    _, tp, _, ts = _case(False, 4, 50, 0.1, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        ENTRY_POINTS[entry](tp, ts)
+
+
+def test_use_device_is_the_explicit_process_wide_choice(no_card):
+    jp, tp, js, ts = _case(False, 4, 50, 0.1, seed=0)
+    tpipeline.use_device("cpu")
+    assert Pipeline().device == torch.device("cpu")
+    assert tlm.Scanner(tp, ts).device == torch.device("cpu")
+    assert np.array_equal(bits(tp.score(ts).unstripe().data),
+                          bits(jp.score(js).unstripe().data))
+    tpipeline.use_device(None)  # cleared: no silent fallback again
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.score(ts)

@@ -12,7 +12,8 @@ import lightmotif_tpu as jlm
 import lightmotif_tpu_torch as tlm
 
 from .data import PATTERNS, SEQUENCE
-from .torch_parity import hit_keys, pssms, random_counts, random_ranks, sequences
+from .torch_parity import (  # noqa: F401  (cpu_choice is a fixture)
+    cpu_choice, hit_keys, pssms, random_counts, random_ranks, sequences)
 
 
 def _golden_pssms(pseudo=0.1):
@@ -21,6 +22,7 @@ def _golden_pssms(pseudo=0.1):
     return pssms(counts, pseudo=pseudo)
 
 
+@pytest.mark.usefixtures("cpu_choice")
 def test_verify_golden_scan_twice():
     _, tp = _golden_pssms()
     seq = tlm.EncodedSequence.encode(SEQUENCE)

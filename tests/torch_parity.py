@@ -9,6 +9,7 @@ import pytest
 import lightmotif_tpu as jlm
 import lightmotif_tpu_torch as tlm
 from lightmotif_tpu.ops import kernels as jax_kernels
+from lightmotif_tpu_torch.ops import pipeline as tpipeline
 
 
 def bits(values) -> np.ndarray:
@@ -68,6 +69,16 @@ def interpret_mode():
     yield
     jax_kernels.INTERPRET = False
     jax.clear_caches()
+
+
+@pytest.fixture
+def cpu_choice():
+    """Run the port's device-less entry points (``ScoringMatrix.score``,
+    ``pipeline.score``, a ``scan`` given no device) on the CPU, chosen
+    explicitly for the test's duration."""
+    tpipeline.use_device("cpu")
+    yield
+    tpipeline.use_device(None)
 
 
 #: (K, m, sequence length or None for a ragged near-full length)
