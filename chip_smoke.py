@@ -8,34 +8,38 @@ Phases, one line of output each (any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions;
 2. build: ``nvcc`` compiles ``lightmotif_tpu_torch/ops/csrc/*.cu`` for
-   ``sm_90a``;
-3. each kernel against its plain PyTorch version on the card
+   ``sm_90a``, one process per source, all at once;
+3. SASS: ``cuobjdump -sass`` of the prefilter library, the tensor-core
+   instructions (``IMMA``) of every instantiation of the tensor-core
+   prefilter, the production one included (each must hold some; the
+   lookup kernel of probe P7 holds none);
+4. K1 and K2 against their plain PyTorch versions on the card
    (``torch.equal``): DNA and protein tables, random sequences with
    wildcards, ragged ``n_scores``, and the main path's own shapes;
-4. the main path at full size: an E. coli-sized genome (4,641,652 bp,
+5. the main path at full size: an E. coli-sized genome (4,641,652 bp,
    seed 0xECC011) against PRODORIC MX000001 -- full-genome bit parity
    of ``pssm.score`` with the sequential host oracle, the known best
    hit (position 3,254,602, f32 bits 0x4197E448, which must win the
    exact tie with position 2,558,379), and the two-pass ``Scanner`` at
    p = 1e-5 against the host brute force, in one segment and in five;
    both kernels must have been launched by this phase;
-5. K3, the multi-motif prefilter, against its plain version
-   (``torch.equal`` on every window that fits): DNA groups of 16, 256
-   (ragged lengths) and 2,048 motif lanes with m_max 2 to 128 (1, 2, 3
-   and 8 contraction blocks), protein groups with m_max 5 and 32,
-   never-pass lanes, sequences with wildcard runs;
-6. K4 (u8) and K5 (u16), the other two prefilters, against their plain
-   versions on the same groups and sequences, and K4 at the shape of
-   ``bench.py:123-130`` (1,024 lanes of m = 15, thresholds 2,400 written
-   by hand) over the genome;
-7. the database path at full size: a seeded synthetic stand-in for
+6. K3, the multi-motif prefilter on the int8 tensor cores, against its
+   plain version (``torch.equal`` on every window that fits): DNA
+   groups of 16, 256 (ragged lengths) and 2,048 motif lanes with m_max
+   2 to 128 (1, 2, 3 and 8 contraction blocks), protein groups with
+   m_max 5 and 32, never-pass lanes, sequences with wildcard runs;
+7. K4 (u8, one byte plane) and K5 (u16, two), the other two
+   prefilters, against their plain versions on the same groups and
+   sequences, and K4 at the shape of ``bench.py:123-130`` (1,024 lanes
+   of m = 15, thresholds 2,400 written by hand) over the genome;
+8. the database path at full size: a seeded synthetic stand-in for
    JASPAR2024 (2,346 DNA motifs of lengths 5-35, 20 Dirichlet(0.5)
    sites each, pseudocount 0.1, both strands = 4,692 PSSMs, thresholds
    at p = 1e-6) scanned over the genome by ``MultiScanner.scan_arrays``
    in one segment and in five, each equal to a per-PSSM brute force on
    the card (K1 + threshold: positions and f32 bits, -0.0 read as
    +0.0); K3 must have been launched by the scan;
-8. the prefilter modes at full size, through the package's
+9. the prefilter modes at full size, through the package's
    ``multi.route_motifs``, ``multi.database_groups`` and
    ``multi.scan_groups``: the same database through the u16 (K5) mode
    in 1 and 5 segments, equal to the K3 mode and the brute force, and
@@ -44,11 +48,11 @@ Phases, one line of output each (any failure exits non-zero):
    per group and segment.  In each mode the segment entry
    ``multi.scan_multi_segment_fused``, given the first group's JAX
    filters, must give that group's hits with one launch;
-9. the dense path (four DNA motifs of m 129-257) and a protein database
-   (200 motifs of m 5-40 over 1,000,000 residues) against the same
-   brute force; each scan must have launched K1 once per dense motif
-   and K3 once per motif group;
-10. batched records: the genome cut into seeded records of 50-2,000 bp
+10. the dense path (four DNA motifs of m 129-257) and a protein database
+    (200 motifs of m 5-40 over 1,000,000 residues) against the same
+    brute force; each scan must have launched K1 once per dense motif
+    and K3 once per motif group;
+11. batched records: the genome cut into seeded records of 50-2,000 bp
     (some shorter than the motif) through ``BatchReducer`` (against the
     per-record host oracle), ``BatchScanner`` at p = 1e-5 (against
     per-record Scanners) and ``MultiBatchScanner`` with the database
@@ -56,7 +60,7 @@ Phases, one line of output each (any failure exits non-zero):
     record); each class's launches are counted from 0 over its own call
     and must be K1 once, K2 once per segment and K3 once per motif group
     and segment;
-11. times on the card (CUDA events, median of 15 samples after a
+12. times on the card (CUDA events, median of 15 samples after a
     warm-up), each kernel beside its plain version, its bound (the least
     time the card could take: bytes over HBM's rate or operations over
     the card's peak) and a ``conv1d`` library yardstick: device time per
@@ -65,12 +69,21 @@ Phases, one line of output each (any failure exits non-zero):
     K4 and K5 at their shapes, the database scan's steady-state wall in
     the K3 and u16 modes and, from one more run through the scanner's
     timing hook and ``torch.profiler``, its split by stage, device-busy
-    time and host time; the batch classes' walls.
+    time and host time; the batch classes' walls;
+13. the prefilter probes (``lightmotif_tpu_torch.probes.prefilter``),
+    each checked once against its plain version with its launches
+    counted from 0, then timed: P6, the tensor cores' u8 and bf16 rates
+    at the prefilter's operand shapes (2,048 lanes x depth 128 x 262,144
+    positions) as a share of the card's peak; P7, the lookup kernel the
+    tensor-core prefilter replaced, at database group 0; P8 and P10, the
+    tensor-core instantiations in each orientation at the bench shape
+    (and at group 0).
 
 The line before the last is a JSON object with one entry per kernel
 (launches counted on the path that runs it, with the counts reset just
-before it); the last line is ``{"ok": true, "device": {...}}``.  There is no CPU
-path: without a CUDA device the script fails.
+before it; for a probe, in its own check); the last line is ``{"ok":
+true, "device": {...}}``.  There is no CPU path: without a CUDA device
+the script fails.
 """
 
 from __future__ import annotations
@@ -98,6 +111,14 @@ K3_SOURCE = "lightmotif_tpu_torch/ops/csrc/prefilter.cu"
 K3_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:300"
 K4_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:163"
 K5_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:213"
+PROBE_SOURCE = "lightmotif_tpu_torch/ops/csrc/probes.cu"
+P6_REPLACES = "experiments/int8_probe.py:54"
+P7_REPLACES = "experiments/int8_probe2.py:98"
+P8_REPLACES = "experiments/multi_opt.py:106"
+P10_REPLACES = "experiments/multi_opt2.py:95"
+
+#: P6's positions: 256 tiles of 1,024 (the JAX probe's tile)
+P6_POSITIONS = 1024 * 256
 
 DB_MOTIFS = 2346  # JASPAR2024 CORE, as tests/test_io.py pins it
 DB_SEED = 0x1A5BA2
@@ -183,6 +204,54 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+
+
+def sass_mma_counts(path) -> dict:
+    """Tensor-core instructions (``IMMA``, ``HMMA``, ``HGMMA``, ``IGMMA``) of
+    each kernel in a built library's SASS (``cuobjdump -sass``), by mangled
+    name."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and any(op in line for op in ("IMMA", "HMMA", "HGMMA", "IGMMA")):
+            counts[name] += 1
+    return counts
+
+
+def phase_sass() -> int:
+    """The prefilter library's SASS: every tensor-core instantiation, the
+    production one included, must hold tensor-core instructions; the lookup
+    kernel (P7's baseline) holds none.  Returns the production kernel's
+    count."""
+    from lightmotif_tpu_torch.ops import build
+    from lightmotif_tpu_torch.probes import prefilter as probes
+
+    lib = next(p for p in build.build_info()["paths"] if "prefilter" in p.name)
+    counts = sass_mma_counts(lib)
+    v = build.library().lm_prefilter_production()
+    orient, cpp, pw, warps = probes.VARIANTS[v]
+    mangled = f"mma_kernelILb{int(orient == 'm')}ELi{cpp}ELi{pw}ELi{warps}EEE"
+    production = [n for n in counts if mangled in n]
+    per_variant = {n.split("mma_kernel")[1].split("EEvPKh")[0]: c
+                   for n, c in counts.items() if "mma_kernel" in n}
+    lookup = sum(c for n, c in counts.items() if "lookup_kernel" in n)
+    if (len(production) != 1 or counts[production[0]] < 1
+            or len(per_variant) != len(probes.VARIANTS) or min(per_variant.values()) < 1):
+        raise SystemExit(f"sass: a tensor-core instantiation without IMMA: {counts}")
+    log("sass", library=lib.name, tool="cuobjdump -sass",
+        production=f"variant {v} {probes.VARIANTS[v]}", production_imma=counts[production[0]],
+        total_tensor_core=sum(counts.values()), lookup_kernel=lookup,
+        per_instantiation=per_variant)
+    return counts[production[0]]
 
 
 def check_kernel(name, wrapper, plain, seq, table, n_scores) -> float:
@@ -823,16 +892,16 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def prefilter_bound(seq, table, chunk_m, t_eff, planes: int) -> tuple:
+def prefilter_bound(seq, planes, chunk_m, t_eff) -> tuple:
     """A prefilter's bound on this run's inputs: the int8 tensor-core form
-    of its sums (one-hot windows x ``planes`` byte planes, 2 operations
-    per multiply-add) over the rows each lane chunk needs (``chunk_m``),
-    against one byte in and four out per position and its tables."""
+    of its sums (one-hot windows x its byte planes, 2 operations per
+    multiply-add) over the rows each lane chunk needs (``chunk_m``),
+    against one byte in and four out per position and its planes."""
     from lightmotif_tpu_torch.ops import multi_kernel
 
-    lp, k = seq.shape[0], table.shape[2]
-    nbytes = 5 * lp + table.nbytes + chunk_m.nbytes + t_eff.nbytes
-    ops = 2 * planes * lp * k * multi_kernel.K3_LANES * int(chunk_m.sum())
+    lp, n_planes, k = seq.shape[0], planes.shape[0], planes.shape[4]
+    nbytes = 5 * lp + planes.nbytes + chunk_m.nbytes + t_eff.nbytes
+    ops = 2 * n_planes * lp * k * multi_kernel.K3_LANES * int(chunk_m.sum())
     return bound(nbytes, ops, "int8")
 
 
@@ -867,15 +936,18 @@ def library_ms(fn, check) -> tuple:
     return ms, equal
 
 
-def library_prefilter(seq, table, t_eff, got) -> tuple:
+def library_prefilter(seq, planes, t_eff, got) -> tuple:
     """A prefilter as PyTorch computes it: ``conv1d`` of the one-hot
     sequence with every lane's cells as a filter and ``-t_eff`` as the
     bias, then ``amax`` over the lanes (two calls)."""
     import torch.nn.functional as F
 
-    chunks, m, k, lanes = table.shape
+    from lightmotif_tpu_torch.ops import torch_ops
+
+    cells = torch_ops.plane_cells(planes)  # [lanes, rows, K]
+    m, k = cells.shape[1], cells.shape[2]
     x = windows_onehot(seq, k, m)
-    weight = table.permute(0, 3, 2, 1).reshape(chunks * lanes, k, m).float()
+    weight = cells.permute(0, 2, 1).float().contiguous()
     bias = -t_eff.float()
     n = seq.shape[0] - m + 1
     fn = lambda: F.conv1d(x, weight, bias).amax(dim=1)  # noqa: E731
@@ -999,7 +1071,7 @@ def phase_database_times(ms, seq) -> tuple:
     k2 = time_cuda(kernel, repeat=3)
     p2 = time_cuda(plain, runs=3)
     ms_k3, plain_k3 = min(k1, k2), min(p1, p2)
-    bound_ms, bound_by = prefilter_bound(chunk, *args, planes=2)
+    bound_ms, bound_by = prefilter_bound(chunk, *args)
     lib_ms, lib_equal = library_prefilter(chunk, args[0], args[2], kernel())
     entry = {"ms": ms_k3, "plain_ms": plain_k3, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": lib_ms}
@@ -1061,7 +1133,7 @@ def phase_database_times(ms, seq) -> tuple:
     return entry
 
 
-def time_prefilter(name, seq, args, m, planes: int, what: str) -> dict:
+def time_prefilter(name, seq, args, m, what: str) -> dict:
     """A prefilter kernel beside its plain version (in turns: plain,
     kernel, kernel, plain), its bound and its library computation."""
     from lightmotif_tpu_torch.ops import multi_kernel, torch_ops
@@ -1077,7 +1149,7 @@ def time_prefilter(name, seq, args, m, planes: int, what: str) -> dict:
     k2 = time_cuda(kernel, repeat=3)
     p2 = time_cuda(plain, runs=3)
     ms, plain_ms = min(k1, k2), min(p1, p2)
-    bound_ms, bound_by = prefilter_bound(seq, *args, planes=planes)
+    bound_ms, bound_by = prefilter_bound(seq, *args)
     lib_ms, lib_equal = library_prefilter(seq, args[0], args[2], got)
     lanes = args[2].shape[0]
     log("times", kernel=name, shape=what, equal=True, ms=f"{ms:.4f}",
@@ -1107,7 +1179,7 @@ def phase_mode_times(ms, seq, db, groups5) -> dict:
     out = {}
     data, table, m = bench_k4_inputs(seq)
     out["prefilter_any"] = time_prefilter(
-        "prefilter_any", data, table, m, 1,
+        "prefilter_any", data, table, m,
         f"bench: {data.shape[0]}x{BENCH_K4_LANES} lanes, m={m}")
     dseq = db.dseq
     group = groups5[0]
@@ -1115,7 +1187,7 @@ def phase_mode_times(ms, seq, db, groups5) -> dict:
     chunk = dseq.data[: int(n_valid[group["ids"]].max()) + group["m_max"] - 1]
     lanes = group["t_eff"].shape[0]
     out["prefilter_any16"] = time_prefilter(
-        "prefilter_any16", chunk, group["k5"], group["m_max"], 2,
+        "prefilter_any16", chunk, group["k5"], group["m_max"],
         f"database group 0: {chunk.shape[0]}x{lanes} lanes, m={group['m_max']}")
 
     segment = len(seq)
@@ -1154,6 +1226,89 @@ def phase_batch_times(pssm, records, br, mbs) -> None:
         ms=f"{med(multi):.4f}", p90_ms=f"{sorted(multi)[int(0.9 * RUNS)]:.4f}")
 
 
+def phase_probes(ms, seq, times) -> dict:
+    """P6, P7, P8 and P10 (``lightmotif_tpu_torch.probes.prefilter``): each
+    probe kernel checked once against its plain version (``torch.equal``)
+    with its launches counted from 0 around that check, then timed.  P7
+    runs at database group 0 (K3's shape), P8 and P10 at K4's bench shape,
+    whose bound, plain and library times (measured earlier in this run on
+    the same inputs) they share; P8 and P10 also sweep group 0.  Returns
+    the ``kernels`` entries of the probes."""
+    from lightmotif_tpu_torch.probes import prefilter as probes
+
+    group = ms._groups[0]
+    n_valid = np.maximum(ms._dseq.length - ms.lengths + 1, 0)
+    chunk = ms._dseq.data[: int(n_valid[group["ids"]].max()) + group["m_max"] - 1]
+    data, table, m = bench_k4_inputs(seq)
+    filt, x = (torch.from_numpy(a).to(DEVICE) for a in probes.mma_inputs(P6_POSITIONS))
+
+    def checked(what, fn, want):
+        probes.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        launches = dict(probes.LAUNCHES)
+        if not torch.equal(got, want):
+            raise SystemExit(f"{what}: probe kernel != plain")
+        return launches
+
+    from lightmotif_tpu_torch.ops import torch_ops
+
+    launches = {}
+    want = probes.mma_max_plain(filt, x)
+    for kind in ("u8", "bf16"):
+        launches[f"probe_mma_{kind}"] = checked(
+            f"P6 {kind}", lambda: probes.mma_max(filt, x, kind), want)[f"probe_mma_{kind}"]
+    table7 = probes.lookup_table(group["k3"][0])
+    launches["prefilter_lookup"] = checked(
+        "P7", lambda: probes.prefilter_lookup(chunk, table7, *group["k3"][1:]),
+        torch_ops.prefilter_any8(chunk, *group["k3"]))["prefilter_lookup"]
+    want = torch_ops.prefilter_any8(data, *table)
+    for orient in ("m", "n"):
+        n_launched = 0
+        for v, row in enumerate(probes.VARIANTS):
+            if row[0] == orient:
+                n_launched += checked(f"variant {v}",
+                                      lambda: probes.prefilter_variant(v, data, *table),
+                                      want)["prefilter_variant"]
+        launches[f"prefilter_variant_{orient}"] = n_launched
+
+    p6 = probes.run_p6(filt, x)
+    for row in p6:
+        log("probes", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in row.items()})
+    p7 = probes.run_p7(chunk, *group["k3"])
+    log("probes", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in p7.items()})
+    sweeps = {}
+    for orient in ("m", "n"):
+        rows = probes.run_sweep(data, *table, orient)
+        rows0 = probes.run_sweep(chunk, *group["k3"], orient)
+        for r, r0 in zip(rows, rows0):
+            log("probes", probe=r["probe"], variant=r["variant"], orientation=orient,
+                chunks_per_pass=r["chunks_per_pass"], warps=r["warps"],
+                positions_per_block=r["positions_per_block"], production=r["production"],
+                equal=True, bench_ms=f"{r['ms']:.4f}", group0_ms=f"{r0['ms']:.4f}")
+        sweeps[orient] = min(rows, key=lambda r: r["ms"])
+
+    k4, k3 = times["prefilter_any"], times["prefilter_any8"]
+    out = {}
+    for row in p6:
+        out[row["name"]] = {"source": PROBE_SOURCE, "replaces": P6_REPLACES,
+                            "launches": launches[row["name"]], "max_abs_err": 0.0,
+                            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms")}}
+    out["prefilter_lookup"] = {"source": K3_SOURCE, "replaces": P7_REPLACES,
+                               "launches": launches["prefilter_lookup"], "max_abs_err": 0.0,
+                               **k3, "ms": p7["lookup_ms"]}
+    for orient, rep in (("m", P8_REPLACES), ("n", P10_REPLACES)):
+        out[f"prefilter_variant_{orient}"] = {
+            "source": K3_SOURCE, "replaces": rep,
+            "launches": launches[f"prefilter_variant_{orient}"], "max_abs_err": 0.0,
+            **k4, "ms": sweeps[orient]["ms"]}
+    log("probes", launches=launches,
+        best_m=f"variant {sweeps['m']['variant']} {sweeps['m']['ms']:.4f} ms",
+        best_n=f"variant {sweeps['n']['variant']} {sweeps['n']['ms']:.4f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1161,6 +1316,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     phase_card()
     phase_build()
+    phase_sass()
     pssm, seq = build_inputs()
     errs = phase_kernels(pssm, seq)
     cases = list(prefilter_cases())
@@ -1177,14 +1333,21 @@ def main() -> int:
     times["prefilter_any8"] = phase_database_times(ms, seq)
     times.update(phase_mode_times(ms, seq, db, groups5))
     phase_batch_times(pssm, records, br, mbs)
+    probe_entries = phase_probes(ms, seq, times)
     sources = {"score_f32": (SOURCE, REPLACES), "score_u8": (SOURCE, REPLACES),
                "prefilter_any8": (K3_SOURCE, K3_REPLACES),
                "prefilter_any": (K3_SOURCE, K4_REPLACES),
                "prefilter_any16": (K3_SOURCE, K5_REPLACES)}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name], **times[name]}
-        for name, (src, rep) in sources.items()]}), flush=True)
+         "launches": launches[name], "max_abs_err": errs[name],
+         **{key: times[name][key] for key in keys}}
+        for name, (src, rep) in sources.items()] + [
+        {"name": name, "route": "cuda", "source": e["source"], "replaces": e["replaces"],
+         "launches": e["launches"], "max_abs_err": e["max_abs_err"],
+         **{key: e[key] for key in keys}}
+        for name, e in probe_entries.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

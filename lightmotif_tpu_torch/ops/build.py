@@ -48,14 +48,25 @@ _SIGNATURES = {
     "lm_score_f32": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
     "lm_score_u8": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
     "lm_prefilter_lanes": ([], _INT),
-    "lm_prefilter_tile": ([], _INT),
-    "lm_prefilter_row_bytes": ([], _INT),
+    "lm_prefilter_variants": ([], _INT),
+    "lm_prefilter_production": ([], _INT),
+    "lm_prefilter_variant_info": ([_INT], _INT),
+    "lm_prefilter_smem": ([_INT, _INT, _INT, _INT], _I64),
     "lm_prefilter_any8": (
-        [_P, _I64, _P, _P, _P, _INT, _INT, _INT, _P, _P], _INT),
+        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
     "lm_prefilter_any": (
-        [_P, _I64, _P, _P, _P, _INT, _INT, _INT, _P, _P], _INT),
+        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
     "lm_prefilter_any16": (
+        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
+    "lm_prefilter_variant": (
+        [_INT, _P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
+    "lm_prefilter_lookup_smem": ([_INT, _INT], _I64),
+    "lm_prefilter_lookup": (
         [_P, _I64, _P, _P, _P, _INT, _INT, _INT, _P, _P], _INT),
+    "lm_probe_lanes": ([], _INT),
+    "lm_probe_depth": ([], _INT),
+    "lm_probe_mma_u8": ([_P, _P, _INT, _P, _P], _INT),
+    "lm_probe_mma_bf16": ([_P, _P, _INT, _P, _P], _INT),
 }
 
 

@@ -38,6 +38,8 @@ without wildcards).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -241,22 +243,57 @@ def pack_filters_fine_i8(data16, t16, k: int, widths):
     return hi.astype(np.int8), lo.astype(np.int8), adj
 
 
-def _k_table(cells, t_eff):
-    """The table of the port's prefilter kernel from per-lane cells.
+def _plane_table(cells, t_eff):
+    """The byte planes of the port's prefilter kernel from per-lane cells.
 
     ``cells``: integer ``[m_pad, m, K]``, ``m_pad`` a multiple of
-    :data:`.multi_kernel.K3_LANES`.  Returns ``table`` int32 ``[chunks, m,
-    K, K3_LANES]`` (``table[c, j, s, l] = cells[c * K3_LANES + l, j,
-    s]``), ``chunk_m`` int32 ``[chunks]`` (one past the last row with a
-    nonzero cell in the chunk: the kernel sums no row past it, and those
-    rows are zero, so no sum changes) and ``t_eff`` as int32."""
+    :data:`.multi_kernel.K3_LANES`; ``t_eff``: ``[m_pad]``.  Each (lane,
+    row) is shifted by its minimum over the symbols and the sum of a
+    lane's shifts is taken off its threshold: a window reads exactly one
+    symbol of every row, so every value ``sum_j cell - t_eff`` stays the
+    same, and the shifted cells are unsigned.  They go into the fewest
+    byte planes that hold them (at most :data:`.multi_kernel.MAX_PLANES`);
+    cells whose window sums could leave int32 are refused.
+
+    Returns ``planes`` uint8 ``[P, chunks, K3_LANES, rows, K]`` with
+    ``planes[q, c, l, j, s] = (shifted[c * K3_LANES + l, j, s] >> 8q) &
+    255`` (``rows``: ``m`` padded with zero rows until ``rows * K`` is a
+    multiple of :data:`.multi_kernel.ROW_BYTES`), ``chunk_m`` int32
+    ``[chunks]`` (one past the last row with a nonzero shifted cell in
+    the chunk: the kernel runs no k-step past it, and those rows are
+    zero, so no sum changes) and the shifted ``t_eff`` as int32.  Host
+    numpy only: the plane count and bytes are fixed here, once, and a
+    launch reads nothing back from the device to learn them."""
+    cells = np.asarray(cells, np.int64)
     m_pad, m, k = cells.shape
     lanes = multi_kernel.K3_LANES
-    table = np.ascontiguousarray(np.asarray(cells, np.int32).reshape(
-        m_pad // lanes, lanes, m, k).transpose(0, 2, 3, 1))
-    rows = (table != 0).any(axis=(2, 3))  # [chunks, m]
-    chunk_m = np.where(rows.any(axis=1), m - np.argmax(rows[:, ::-1], axis=1), 0)
-    return table, chunk_m.astype(np.int32), np.asarray(t_eff).astype(np.int32)
+    shift = cells.min(axis=2) if cells.size else np.zeros((m_pad, m), np.int64)
+    shifted = cells - shift[:, :, None]
+    t = np.asarray(t_eff, np.int64).reshape(-1) - shift.sum(axis=1)
+    top = int(shifted.max()) if shifted.size else 0
+    n_planes = max(1, -(-top.bit_length() // 8))
+    # every value and partial sum must be an exact int32
+    bound = shifted.max(axis=2, initial=0).sum(axis=1) + np.abs(t)
+    if n_planes > multi_kernel.MAX_PLANES or bound.max(initial=0) >= 1 << 31:
+        raise ValueError("prefilter cells or thresholds out of the kernel's int32 range")
+    unit = multi_kernel.ROW_BYTES // math.gcd(k, multi_kernel.ROW_BYTES)
+    rows = -(-m // unit) * unit
+    full = np.zeros((m_pad, rows, k), np.int64)
+    full[:, :m] = shifted
+    planes = np.stack([(full >> (8 * q)) & 255 for q in range(n_planes)]).astype(
+        np.uint8).reshape(n_planes, m_pad // lanes, lanes, rows, k)
+    nz = (full != 0).any(axis=2).reshape(m_pad // lanes, lanes, rows).any(axis=1)
+    chunk_m = np.where(nz.any(axis=1), rows - np.argmax(nz[:, ::-1], axis=1), 0)
+    return planes, chunk_m.astype(np.int32), t.astype(np.int32)
+
+
+def _k3_thresholds(t16, m_pad: int, never: int) -> np.ndarray:
+    """int64 ``[m_pad]``: ``clip(t16, 0, 65535)``, or ``never`` for
+    never-pass (``t16 > 65535``) and padded lanes."""
+    tt = np.asarray(t16, np.int64)
+    t_eff = np.full(m_pad, never, np.int64)
+    t_eff[: tt.size] = np.where(tt > 65535, never, np.clip(tt, 0, 65535))
+    return t_eff
 
 
 def pack_filters_k3(data16, t16, never: int = K3_NEVER):
@@ -264,25 +301,22 @@ def pack_filters_k3(data16, t16, never: int = K3_NEVER):
 
     ``data16``: ``[M, m, K]`` u16 cells; ``t16``: ``[M]`` u16 thresholds
     (65536 = never pass).  Lanes pad to :data:`.multi_kernel.
-    BITS_PER_WORD` like the JAX filters.  Returns ``(table, chunk_m,
-    t_eff)`` of :func:`_k_table`, with ``t_eff = clip(t16, 0, 65535)``,
-    or ``never`` for never-pass and padded lanes -- the JAX kernel's
-    values exactly (``adj`` minus its byte-plane shift).
+    BITS_PER_WORD` like the JAX filters.  Returns ``(planes, chunk_m,
+    t_eff)`` of :func:`_plane_table` for the thresholds ``clip(t16, 0,
+    65535)``, or ``never`` for never-pass and padded lanes -- the JAX
+    kernel's values exactly (``adj`` minus its byte-plane shift).
     """
     mcount, m, k = data16.shape
     bpw = multi_kernel.BITS_PER_WORD
     m_pad = -(-mcount // bpw) * bpw
-    d = np.zeros((m_pad, m, k), np.int32)
+    d = np.zeros((m_pad, m, k), np.int64)
     d[:mcount] = data16
-    tt = np.asarray(t16, np.int64)
-    t_eff = np.full(m_pad, never, np.int64)
-    t_eff[:mcount] = np.where(tt > 65535, never, np.clip(tt, 0, 65535))
-    return _k_table(d, t_eff)
+    return _plane_table(d, _k3_thresholds(t16, m_pad, never))
 
 
 def pack_filters_k5(data16, t16):
     """The filters of the port's K5 (:func:`.multi_kernel.prefilter_any16`):
-    K3's table, with never-pass and padded lanes at 262144, the value
+    K3's planes, with never-pass and padded lanes at 262144, the value
     the JAX u16 filters' -1024 hi guard gives (:func:`pack_filters_fine`).
     A never-pass lane's ``sum16 - 262144`` can reach 0 on long wildcard
     runs (wildcard cells may exceed the body maximum); the value is the
@@ -379,12 +413,13 @@ def pack_filters_k4(filters_t, k: int):
 
     The filters round through bf16 as the JAX kernel casts them; cells
     that are not integers then are refused, and so are filters whose
-    window sums could reach ``2**24``.  Returns ``(table, chunk_m, t4)``
-    of :func:`_k_table` with ``t4 = -filters_t[lanes - 1]``: the scaled
-    threshold, 65536 for never-pass and padded lanes.  Trailing rows
-    with no nonzero cell are cut (they add nothing)."""
+    window sums could reach ``2**24``.  Returns ``(planes, chunk_m, t4)``
+    of :func:`_plane_table` for ``t4 = -filters_t[lanes - 1]``: the
+    scaled threshold, 65536 for never-pass and padded lanes (less the
+    lane's row shifts).  Trailing rows with no nonzero cell are cut
+    (they add nothing)."""
     cells, t4 = _cells_k4(filters_t, k)
-    return _k_table(_trim_rows(cells), t4)
+    return _plane_table(_trim_rows(cells), t4)
 
 
 def _trim_rows(cells) -> np.ndarray:
@@ -447,7 +482,8 @@ def pack_motif_group(ids, gm: int, m_bucket: int, pssm_stack,
     ``adj``, ``pssm``, ``th``, ``m_max``, ``count``, ``widths``,
     ``rsplits``, ``pre4``), each byte-identical to the JAX packer's,
     and the port's: ``k3`` (:func:`pack_filters_k3`), ``fine``
-    (:func:`phase_c_filters`) and ``t_eff`` (``k3``'s thresholds).
+    (:func:`phase_c_filters`) and ``t_eff`` (phase C's u16 thresholds:
+    ``k3``'s before its row shifts).
     """
     mw = min(m_bucket, pssm_stack.shape[1])
     th_g = np.full(gm, np.inf, np.float32)
@@ -485,7 +521,6 @@ def pack_motif_group(ids, gm: int, m_bucket: int, pssm_stack,
                       (3, codes % k)):
             pre4 = pre4 + pssm_g[:, j, :][:, sj]
         pre4 = pre4.reshape(-1)
-    k3 = pack_filters_k3(d16, t16)
     return {
         "f_hi": f_hi,
         "f_lo": f_lo,
@@ -499,9 +534,9 @@ def pack_motif_group(ids, gm: int, m_bucket: int, pssm_stack,
         "widths": widths,
         "rsplits": tuple(rsplits),
         "pre4": pre4,
-        "k3": k3,
+        "k3": pack_filters_k3(d16, t16),
         "fine": phase_c_filters(d16),
-        "t_eff": k3[2],
+        "t_eff": _k3_thresholds(t16, f_hi.shape[1], K3_NEVER).astype(np.int32),
     }
 
 
@@ -704,7 +739,7 @@ def group_from_filters(pssms, thresholds, m_max: int, k: int, device,
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
     return {
-        mode: tuple(dev(a) for a in _k_table(_trim_rows(cells), t_pre)),
+        mode: tuple(dev(a) for a in _plane_table(_trim_rows(cells), t_pre)),
         "fine": dev(planes),
         "byte_planes": byte_planes,
         "t_eff": dev(np.asarray(t_c, np.int32)),

@@ -27,11 +27,22 @@ pass (padded lanes have zero cells and the never-pass threshold):
 On the TPU the sums ride the MXU through a one-hot window matrix; the
 constant slot, the byte planes, their -128 shift and the ragged widths
 are layout devices of the MXU.  Every sum is an integer below ``2**24``,
-exact in the TPU's f32 or int32 accumulators, so one CUDA kernel
-(``any8_kernel`` in ``csrc/prefilter.cu``) that sums table lookups in
-int32 gives all three, each from its own table and thresholds
+exact in the TPU's f32 or int32 accumulators.  Here one CUDA kernel
+(``mma_kernel`` in ``csrc/prefilter.cu``) gives all three on the card's
+int8 tensor cores: the one-hot windows times unsigned byte planes of
+the cells, ``sum_q 256**q (X @ B_q) - t_eff`` (one plane for u8 cells,
+two for u16), each from its own planes and thresholds
 (:func:`.multi.pack_filters_k3`, :func:`.multi.pack_filters_k5`,
 :func:`.multi.pack_filters_k4`), through its own C entry point.
+
+The packed form is ``(planes, chunk_m, t_eff)``: ``planes`` uint8
+``[P, chunks, K3_LANES, rows, K]`` (``rows * K`` a multiple of
+:data:`ROW_BYTES`), the cells of every lane shifted per row by the
+row's minimum and split into ``P <=`` :data:`MAX_PLANES` byte planes;
+``chunk_m`` int32 ``[chunks]``, the rows each chunk needs; ``t_eff``
+int32 ``[chunks * K3_LANES]``, the thresholds less the lanes' shifts.
+The kernel's geometry comes from the shapes alone, so a launch reads
+nothing back from the device.
 
 A tensor on the CPU runs the plain version (:mod:`.torch_ops`); a tensor
 on a CUDA device launches the kernel, and anything the kernel does not
@@ -61,6 +72,8 @@ __all__ = [
     "MAX_M_ROWS",
     "NEG_GUARD",
     "K3_LANES",
+    "MAX_PLANES",
+    "ROW_BYTES",
     "LAUNCHES",
     "reset_launches",
     "pack_slots",
@@ -94,11 +107,19 @@ MAX_M_ROWS = MAX_BLOCKS * ROWS_PER_BLOCK
 #: Finite "+inf threshold" of the JAX threshold-folded filters.
 NEG_GUARD = 65536.0
 
-#: Motif lanes per chunk of the CUDA kernel's table (``CH`` in
+#: Motif lanes per chunk of the CUDA kernel's planes (``CH`` in
 #: ``csrc/prefilter.cu``), for K3, K4 and K5 alike.  Lane counts pad to
 #: :data:`BITS_PER_WORD`, a multiple of it, so every group splits into
 #: whole chunks.
 K3_LANES = 16
+
+#: Byte planes the kernel takes at most: the JAX filters' sums stay below
+#: ``2**24`` (:func:`.multi._exact_sums`), so shifted cells need at most 4.
+MAX_PLANES = 4
+
+#: A lane's bytes per plane (``rows * K``) are a multiple of this, the
+#: size of the kernel's asynchronous copies.
+ROW_BYTES = 16
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"prefilter_any8": 0, "prefilter_any": 0, "prefilter_any16": 0}
@@ -175,94 +196,104 @@ def supports_fused(m_max: int, k: int, n_motifs: int) -> bool:
     return -(-m_max // rpb) <= MAX_BLOCKS
 
 
-def _check(name, seq, table, chunk_m, t_eff):
+def _check(name, seq, planes, chunk_m, t_eff):
     if seq.dtype != torch.uint8 or seq.dim() != 1:
         raise TypeError(f"{name}: seq must be a 1-D uint8 tensor, got {seq.dtype} "
                         f"{tuple(seq.shape)}")
-    if table.dtype != torch.int32 or table.dim() != 4 or table.shape[3] != K3_LANES:
+    if planes.dtype != torch.uint8 or planes.dim() != 5 or planes.shape[2] != K3_LANES:
         raise TypeError(
-            f"{name}: table must be an int32 [chunks, m, K, {K3_LANES}] tensor, "
-            f"got {table.dtype} {tuple(table.shape)}")
-    n_chunks, m, k, _ = table.shape
-    if n_chunks < 1 or m < 1 or not 2 <= k <= 256:
-        raise ValueError(f"{name}: bad table shape {tuple(table.shape)}")
+            f"{name}: planes must be a uint8 [P, chunks, {K3_LANES}, rows, K] tensor, "
+            f"got {planes.dtype} {tuple(planes.shape)}")
+    n_planes, n_chunks, _, rows, k = planes.shape
+    if (not 1 <= n_planes <= MAX_PLANES or n_chunks < 1 or rows < 1
+            or not 2 <= k <= 256 or rows * k % ROW_BYTES):
+        raise ValueError(f"{name}: bad planes shape {tuple(planes.shape)}")
     if chunk_m.dtype != torch.int32 or tuple(chunk_m.shape) != (n_chunks,):
         raise TypeError(f"{name}: chunk_m must be int32 [{n_chunks}], got "
                         f"{chunk_m.dtype} {tuple(chunk_m.shape)}")
     if t_eff.dtype != torch.int32 or tuple(t_eff.shape) != (n_chunks * K3_LANES,):
         raise TypeError(f"{name}: t_eff must be int32 [{n_chunks * K3_LANES}], got "
                         f"{t_eff.dtype} {tuple(t_eff.shape)}")
-    for what, t in (("table", table), ("chunk_m", chunk_m), ("t_eff", t_eff)):
+    for what, t in (("planes", planes), ("chunk_m", chunk_m), ("t_eff", t_eff)):
         if t.device != seq.device:
             raise ValueError(f"{name}: seq on {seq.device} but {what} on {t.device}")
     if seq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {seq.device}")
 
 
-def _launch(name, seq, table, chunk_m, t_eff) -> torch.Tensor:
+def launch(name, variant: int | None, seq, planes, chunk_m, t_eff) -> torch.Tensor:
+    """Launch instantiation ``variant`` of the kernel (``lm_prefilter_variant``;
+    ``None``: the production one through the entry point ``lm_{name}``) on
+    checked CUDA tensors.  Every argument comes from the tensors' shapes
+    and pointers; nothing is read back from the device."""
     from . import build
 
-    for t in (seq, table, chunk_m, t_eff):
+    for t in (seq, planes, chunk_m, t_eff):
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
     lib = build.library()
     if lib.lm_prefilter_lanes() != K3_LANES:
         raise RuntimeError("csrc/prefilter.cu and K3_LANES disagree")
-    n_chunks, m, k, _ = table.shape
-    smem = m * k * lib.lm_prefilter_row_bytes() + lib.lm_prefilter_tile() + m - 1
-    if smem > _MAX_SMEM:
+    n_planes, n_chunks, _, rows, k = planes.shape
+    v = lib.lm_prefilter_production() if variant is None else variant
+    smem = lib.lm_prefilter_smem(v, rows, k, n_planes)
+    if not 0 < smem <= _MAX_SMEM:
         raise ValueError(
-            f"{name}: an m={m}, K={k} chunk needs {smem} bytes of shared memory "
-            f"(max {_MAX_SMEM})")
+            f"{name}: {rows} rows of K={k} need {smem} bytes of shared memory "
+            f"(max {_MAX_SMEM}) in instantiation {v}")
     lp = seq.shape[0]
     out = torch.empty(lp, dtype=torch.int32, device=seq.device)
     if lp == 0:
         return out
+    args = (seq.data_ptr(), lp, planes.data_ptr(), n_planes, n_chunks, rows, k,
+            chunk_m.data_ptr(), t_eff.data_ptr(), out.data_ptr())
     with torch.cuda.device(seq.device):
         stream = torch.cuda.current_stream(seq.device).cuda_stream
-        err = getattr(lib, f"lm_{name}")(
-            seq.data_ptr(), lp, table.data_ptr(), chunk_m.data_ptr(),
-            t_eff.data_ptr(), n_chunks, m, k, out.data_ptr(), stream)
+        if variant is None:
+            err = getattr(lib, f"lm_{name}")(*args, stream)
+        else:
+            err = lib.lm_prefilter_variant(variant, *args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _prefilter(name, seq, planes, chunk_m, t_eff) -> torch.Tensor:
+    _check(name, seq, planes, chunk_m, t_eff)
+    if seq.device.type == "cpu":
+        return getattr(torch_ops, name)(seq, planes, chunk_m, t_eff)
+    out = launch(name, None, seq, planes, chunk_m, t_eff)
     LAUNCHES[name] += 1
     return out
 
 
-def _prefilter(name, seq, table, chunk_m, t_eff) -> torch.Tensor:
-    _check(name, seq, table, chunk_m, t_eff)
-    if seq.device.type == "cpu":
-        return getattr(torch_ops, name)(seq, table, chunk_m, t_eff)
-    return _launch(name, seq, table, chunk_m, t_eff)
-
-
-def prefilter_any8(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+def prefilter_any8(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
                    t_eff: torch.Tensor) -> torch.Tensor:
     """``max_mo (sum16 - t_eff)`` of every window start as int32 ``[Lp]`` (K3).
 
-    ``seq``: uint8 ``[Lp]``; ``table``, ``chunk_m``, ``t_eff``: the K3
+    ``seq``: uint8 ``[Lp]``; ``planes``, ``chunk_m``, ``t_eff``: the K3
     filters of :func:`.multi.pack_filters_k3`.  Windows that run past
     the end of ``seq`` read the wildcard, so the value is the JAX
     kernel's on every ``p < Lp - m + 1``.
     """
-    return _prefilter("prefilter_any8", seq, table, chunk_m, t_eff)
+    return _prefilter("prefilter_any8", seq, planes, chunk_m, t_eff)
 
 
-def prefilter_any(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+def prefilter_any(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
                   t_eff: torch.Tensor) -> torch.Tensor:
     """``max_mo (sum_j dm - t_eff)`` of every window start as int32
     ``[Lp]`` (K4, the u8 prefilter).
 
     The inputs are those of :func:`prefilter_any8`, with the u8 cells
-    and thresholds of :func:`.multi.pack_filters_k4`."""
-    return _prefilter("prefilter_any", seq, table, chunk_m, t_eff)
+    and thresholds of :func:`.multi.pack_filters_k4` (one byte plane)."""
+    return _prefilter("prefilter_any", seq, planes, chunk_m, t_eff)
 
 
-def prefilter_any16(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+def prefilter_any16(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
                     t_eff: torch.Tensor) -> torch.Tensor:
     """``max_mo (sum16 - t_eff)`` of every window start as int32 ``[Lp]``
     (K5, the u16 byte-plane prefilter).
 
     The inputs are those of :func:`prefilter_any8`, with the thresholds
     of :func:`.multi.pack_filters_k5` (never-pass lanes at 262144)."""
-    return _prefilter("prefilter_any16", seq, table, chunk_m, t_eff)
+    return _prefilter("prefilter_any16", seq, planes, chunk_m, t_eff)

@@ -21,8 +21,8 @@ rank ``>= K``.
 
 :func:`prefilter_any8`, :func:`prefilter_any` and :func:`prefilter_any16`
 are the plain versions of the multi-motif prefilters K3, K4 and K5
-(``csrc/prefilter.cu``): one function of their tables, as the kernel is
-one kernel (see :mod:`.multi_kernel`).
+(``csrc/prefilter.cu``): one function of their byte planes, as the
+kernel is one kernel (see :mod:`.multi_kernel`).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 __all__ = [
     "score_f32",
     "score_u8",
+    "plane_cells",
     "prefilter_any8",
     "prefilter_any",
     "prefilter_any16",
@@ -90,20 +91,31 @@ def score_u8(seq: torch.Tensor, dm: torch.Tensor, n_scores: int) -> torch.Tensor
 _K3_BLOCK_ELEMS = 1 << 24
 
 
-def prefilter_any8(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
-                   t_eff: torch.Tensor) -> torch.Tensor:
-    """``max_mo (sum_j d16[mo, j, s[p+j]] - t_eff[mo])`` of every window
-    start as int32 ``[Lp]``.
+def plane_cells(planes: torch.Tensor) -> torch.Tensor:
+    """The cells of the prefilters' byte planes: int32 ``[lanes, rows, K]``
+    with ``cells[c * L + l, j, s] = sum_q 256**q planes[q, c, l, j, s]``
+    (``planes``: uint8 ``[P, chunks, L, rows, K]``)."""
+    n_planes, chunks, lanes, rows, k = planes.shape
+    cells = torch.zeros((chunks, lanes, rows, k), dtype=torch.int64, device=planes.device)
+    for q in range(n_planes):
+        cells += planes[q].to(torch.int64) << (8 * q)
+    return cells.reshape(chunks * lanes, rows, k).to(torch.int32)
 
-    ``table``: int32 ``[chunks, m, K, lanes]`` with ``table[c, j, s, l]
-    = d16[c * lanes + l, j, s]``; ``t_eff``: int32 ``[chunks * lanes]``.
-    Every row ``j < m`` is summed: ``chunk_m`` is the CUDA kernel's loop
-    bound, and the rows past it are zero, so it changes no sum and is
-    not read here.  Integer sums are exact in any order.
+
+def prefilter_any8(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
+                   t_eff: torch.Tensor) -> torch.Tensor:
+    """``max_mo (sum_j cell[mo, j, s[p+j]] - t_eff[mo])`` of every window
+    start as int32 ``[Lp]``, with the cells of :func:`plane_cells`.
+
+    ``planes``: uint8 ``[P, chunks, lanes, rows, K]``; ``t_eff``: int32
+    ``[chunks * lanes]``.  Every row ``j < rows`` is summed: ``chunk_m``
+    is the CUDA kernel's k-step bound, and the rows past it are zero, so
+    it changes no sum and is not read here.  Integer sums are exact in
+    any order.
     """
-    n_chunks, m, k, lanes = table.shape
-    m_pad = n_chunks * lanes
-    d = table.permute(1, 2, 0, 3).reshape(m, k, m_pad)  # d[j, s, mo]
+    cells = plane_cells(planes)
+    m_pad, m, k = cells.shape
+    d = cells.permute(1, 2, 0).contiguous()  # d[j, s, mo]
     lp = seq.shape[0]
     s = _window_ranks(seq, m, k)
     out = torch.empty(lp, dtype=torch.int32, device=seq.device)
@@ -117,16 +129,16 @@ def prefilter_any8(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor
     return out
 
 
-def prefilter_any(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+def prefilter_any(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
                   t_eff: torch.Tensor) -> torch.Tensor:
-    """K4's plain version: :func:`prefilter_any8` of the u8 table."""
-    return prefilter_any8(seq, table, chunk_m, t_eff)
+    """K4's plain version: :func:`prefilter_any8` of the u8 plane."""
+    return prefilter_any8(seq, planes, chunk_m, t_eff)
 
 
-def prefilter_any16(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tensor,
+def prefilter_any16(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
                     t_eff: torch.Tensor) -> torch.Tensor:
-    """K5's plain version: :func:`prefilter_any8` of the K5 table."""
-    return prefilter_any8(seq, table, chunk_m, t_eff)
+    """K5's plain version: :func:`prefilter_any8` of the K5 planes."""
+    return prefilter_any8(seq, planes, chunk_m, t_eff)
 
 
 def max_last(scores: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ import torch
 
 from lightmotif_tpu_torch import DNA, PROTEIN, CountMatrix, EncodedSequence, batch
 from lightmotif_tpu_torch.ops import multi, multi_kernel, torch_ops
+from lightmotif_tpu_torch.probes import prefilter as probes
 from lightmotif_tpu_torch.scanner import MultiScanner
 
 pytestmark = pytest.mark.cuda
@@ -160,3 +161,100 @@ def test_batch_reducer_on_the_card_matches_the_cpu(cuda):
     want = batch.BatchReducer(pssm, records, device="cpu")
     assert np.array_equal(got.max().view(np.uint32), want.max().view(np.uint32))
     assert np.array_equal(got.argmax()[0], want.argmax()[0])
+
+
+#: (name, K, motif rows) of the tensor-core prefilter's extreme cases
+PLANE_SHAPES = [("dna_m2", 5, 2), ("dna_m128", 5, 128), ("protein_m32", 21, 32)]
+
+
+def _extreme_planes(rng, k, m, n_planes, lanes=40):
+    """Planes of ``n_planes`` bytes at their extremes: many cells at the
+    largest value that plane count holds (window sums kept inside int32),
+    thresholds near each lane's best sum, a never-pass lane, padded lanes."""
+    top = min(256 ** n_planes - 1, ((1 << 31) - 1 - (1 << 25)) // (2 * m + 2))
+    cells = rng.integers(0, top + 1, size=(lanes, m, k))
+    cells[rng.random((lanes, m, k)) < 0.3] = top
+    # row 0 of every lane spans the top byte after its shift
+    cells[:, 0, 0] = max(top, 256 ** (n_planes - 1))
+    cells[:, 0, 1] = 0
+    best = cells.max(axis=2).sum(axis=1)
+    t = best - rng.integers(0, best // 8 + 1)
+    t[3] = 1 << 26
+    m_pad = -(-lanes // 16) * 16
+    full = np.zeros((m_pad, m, k), np.int64)
+    full[:lanes] = cells
+    t_eff = np.full(m_pad, 1 << 26, np.int64)
+    t_eff[:lanes] = t
+    return multi._plane_table(full, t_eff)
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
+@pytest.mark.parametrize("name,k,m", PLANE_SHAPES, ids=[c[0] for c in PLANE_SHAPES])
+def test_tensor_core_prefilter_matches_plain_at_the_extremes(cuda, name, k, m, n_planes):
+    rng = np.random.default_rng(10 * n_planes + m)
+    packed = _extreme_planes(rng, k, m, n_planes)
+    assert packed[0].shape[0] == n_planes
+    seq = rng.integers(0, k, size=30_000).astype(np.uint8)
+    seq[1000:1400] = k - 1  # a wildcard run
+    s = torch.from_numpy(seq).to(cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in packed]
+    want = torch_ops.prefilter_any8(s, *args)
+    n = seq.size - m + 1
+    # the three entry points (the production instantiation)
+    for fn in ("prefilter_any8", "prefilter_any", "prefilter_any16"):
+        before = multi_kernel.LAUNCHES[fn]
+        got = getattr(multi_kernel, fn)(s, *args)
+        torch.cuda.synchronize()
+        assert multi_kernel.LAUNCHES[fn] == before + 1
+        assert torch.equal(got[:n], want[:n]), fn
+    # every instantiation that fits the card's shared memory, both orientations
+    ran = set()
+    for v, (orient, *_rest) in enumerate(probes.VARIANTS):
+        try:
+            got = probes.prefilter_variant(v, s, *args)
+        except ValueError as err:  # shared memory past the card's limit
+            assert "shared memory" in str(err)
+            continue
+        torch.cuda.synchronize()
+        assert torch.equal(got[:n], want[:n]), probes.VARIANTS[v]
+        ran.add(orient)
+    assert ran == {"m", "n"}
+    assert want[:n].unique().numel() > (4 if m == 2 else 100)  # not vacuous
+
+
+def test_prefilter_launch_reads_nothing_back_from_the_card(cuda):
+    # a launch takes its geometry from the tensors' shapes: under the sync
+    # debug mode any read of a device value back to the host would raise
+    rng = np.random.default_rng(2)
+    packed = _extreme_planes(rng, 5, 16, 2, lanes=300)
+    s = torch.from_numpy(rng.integers(0, 5, 50_000).astype(np.uint8)).to(cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in packed]
+    torch.cuda.synchronize()
+    saved = torch.cuda.get_sync_debug_mode()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        outs = [getattr(multi_kernel, fn)(s, *args)
+                for fn in ("prefilter_any8", "prefilter_any", "prefilter_any16")]
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
+    want = torch_ops.prefilter_any8(s, *args)
+    assert all(torch.equal(o[: 50_000 - 15], want[: 50_000 - 15]) for o in outs)
+
+
+def test_probe_kernels_match_plain_on_the_card(cuda):
+    filt, x = (torch.from_numpy(a).to(cuda) for a in probes.mma_inputs(5000, seed=3))
+    want = probes.mma_max_plain(filt, x)
+    probes.reset_launches()
+    for kind in ("u8", "bf16"):
+        got = probes.mma_max(filt, x, kind)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kind
+    rng = np.random.default_rng(4)
+    packed = [torch.from_numpy(a).to(cuda) for a in _extreme_planes(rng, 5, 20, 2)]
+    s = torch.from_numpy(rng.integers(0, 5, 40_000).astype(np.uint8)).to(cuda)
+    got = probes.prefilter_lookup(s, probes.lookup_table(packed[0]), *packed[1:])
+    torch.cuda.synchronize()
+    want = torch_ops.prefilter_any8(s, *packed)
+    assert torch.equal(got[: 40_000 - 19], want[: 40_000 - 19])
+    assert probes.LAUNCHES == {"probe_mma_u8": 1, "probe_mma_bf16": 1,
+                               "prefilter_lookup": 1, "prefilter_variant": 0}

@@ -166,7 +166,9 @@ def test_prefilter_any_threshold_row_written_by_hand():
         jnp.asarray(seq.astype(np.int8)), jnp.asarray(filters_t), m, k,
         tile=LP)).reshape(-1)
     table = multi.pack_filters_k4(filters_t, k)
-    assert (table[2] == 2400).all() and table[0].shape[1] == m
+    # one plane; the zero wildcard column leaves every row unshifted; every
+    # chunk needs all m rows
+    assert table[0].shape[0] == 1 and (table[2] == 2400).all() and (table[1] == m).all()
     got = _plain("prefilter_any", seq, table)
     n = LP - m + 1
     assert np.array_equal(got[:n], want[:n])
@@ -178,9 +180,13 @@ def test_pack_filters_k4_rounds_through_bf16_and_refuses_what_jax_cannot_sum():
     filters_t = jmk.pack_filters_any(np.full((3, 4, k), 7.0, np.float32),
                                      np.asarray([10, 20, 400]), k)
     filters_t[0, 0] = 257.0  # bf16 rounds it to 256, as the JAX kernel does
-    table, chunk_m, t4 = multi.pack_filters_k4(filters_t, k)
-    assert table[0, 0, 0, 0] == 256 and t4[:3].tolist() == [10, 20, 65536]
-    assert chunk_m.tolist() == [4]
+    planes, chunk_m, t4 = multi.pack_filters_k4(filters_t, k)
+    # every (lane, row) is shifted by its minimum, 7, which the thresholds
+    # lose: lane 0's all-A window still scores 256 + 3 * 7 - 10
+    assert planes.shape[0] == 1 and planes[0, 0, 0, 0, 0] == 256 - 7
+    assert t4[:3].tolist() == [10 - 28, 20 - 28, 65536 - 28]
+    assert int(planes[0, 0, 0, :, 0].astype(np.int64).sum()) - t4[0] == 256 + 3 * 7 - 10
+    assert chunk_m.tolist() == [1]  # rows 1-3 of every lane shift to zero
     bad = filters_t.copy()
     bad[1, 1] = 0.5
     with pytest.raises(ValueError, match="integers"):
@@ -245,7 +251,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(name, bad):
     elif bad == "table_dtype":
         table = table.to(torch.int64)
     elif bad == "table_lanes":
-        table = table[..., :8]
+        table = table[:, :, :8]  # 8 of the 16 lanes of a chunk
     elif bad == "chunk_m":
         chunk_m = torch.cat([chunk_m, chunk_m])
     elif bad == "t_eff":

@@ -88,22 +88,33 @@ def test_port_layouts_hold_the_jax_numbers(name):
     g = multi.pack_motif_group(ids, gm, m_bucket, stack, ths, k)
     d16, f16, off16 = jmulti.fine_discretize(g["pssm"])
     m_pad = g["adj"].shape[0]
-    table, chunk_m, t_eff = g["k3"]
+    planes, chunk_m, t_k3 = g["k3"]
     lanes = multi_kernel.K3_LANES
-    assert table.dtype == np.int32 and table.shape == (m_pad // lanes, m_bucket, k, lanes)
+    n_planes, rows = planes.shape[0], planes.shape[3]
+    assert planes.dtype == np.uint8
+    assert planes.shape == (n_planes, m_pad // lanes, lanes, rows, k)
+    assert rows >= m_bucket and rows * k % multi_kernel.ROW_BYTES == 0
     full = np.zeros((m_pad, m_bucket, k), np.int64)
     full[:gm] = d16
-    assert np.array_equal(table.transpose(0, 3, 1, 2).reshape(m_pad, m_bucket, k), full)
+    # the planes hold d16 less each (lane, row)'s minimum, in the fewest bytes
+    shift = full.min(axis=2)
+    cells = sum(planes[q].astype(np.int64) << (8 * q) for q in range(n_planes))
+    cells = cells.reshape(m_pad, rows, k)
+    assert np.array_equal(cells[:, :m_bucket], full - shift[:, :, None])
+    assert not cells[:, m_bucket:].any()
+    assert n_planes == max(1, -(-int(cells.max()).bit_length() // 8))
     # every row at or past a chunk's bound is zero
+    by_chunk = cells.reshape(m_pad // lanes, lanes, rows, k)
     for c, mc in enumerate(chunk_m):
-        assert not table[c, mc:].any() and (mc == 0 or table[c, mc - 1].any())
-    # t_eff is the JAX adj without its byte-plane shift
+        assert not by_chunk[c, :, mc:].any() and (mc == 0 or by_chunk[c, :, mc - 1].any())
+    # t_eff (phase C's) is the JAX adj without its byte-plane shift; K3's
+    # thresholds lose the row shifts too
     rpb = jmk.MAX_MK // jmk._lanes_for(k)
     r_mo = np.zeros(m_pad, np.int64)
     for wd in g["widths"]:
         r_mo[m_pad - wd:] += rpb
-    assert np.array_equal(t_eff, 128 * 257 * r_mo - g["adj"][:, 0])
-    assert g["t_eff"] is t_eff
+    assert np.array_equal(g["t_eff"], 128 * 257 * r_mo - g["adj"][:, 0])
+    assert np.array_equal(t_k3, g["t_eff"] - shift.sum(axis=1))
     # phase-C planes: 256 * hi + lo == d16
     fine = g["fine"]
     planes = fine.T.reshape(2, m_pad, m_bucket, k).astype(np.int64)
