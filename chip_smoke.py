@@ -11,11 +11,15 @@ Phases, one line of output each (any failure exits non-zero):
    ``sm_90a``, one process per source, all at once;
 3. SASS: ``cuobjdump -sass`` of the prefilter library, the tensor-core
    instructions (``IMMA``) of every instantiation of the tensor-core
-   prefilter, the production one included (each must hold some; the
-   lookup kernel of probe P7 holds none);
+   prefilter, the production one and P9's bits form included (each must
+   hold some; the lookup kernel of probe P7 holds none); of the scoring
+   library, K1's production instantiation adds with ``FADD`` and has no
+   ``FFMA`` (no contraction), K2's looks up with ``PRMT``;
 4. K1 and K2 against their plain PyTorch versions on the card
-   (``torch.equal``): DNA and protein tables, random sequences with
-   wildcards, ragged ``n_scores``, and the main path's own shapes;
+   (``torch.equal``): DNA (through the production instantiations, and the
+   generic one past K2's m = 257), protein, k = 7 and k = 256 tables,
+   random sequences with ranks >= K and wildcard runs, ragged
+   ``n_scores``, and the main path's own shapes;
 5. the main path at full size: an E. coli-sized genome (4,641,652 bp,
    seed 0xECC011) against PRODORIC MX000001 -- full-genome bit parity
    of ``pssm.score`` with the sequential host oracle, the known best
@@ -70,14 +74,26 @@ Phases, one line of output each (any failure exits non-zero):
     the K3 and u16 modes and, from one more run through the scanner's
     timing hook and ``torch.profiler``, its split by stage, device-busy
     time and host time; the batch classes' walls;
-13. the prefilter probes (``lightmotif_tpu_torch.probes.prefilter``),
+13. the host's part of one ``kernels.score_f32`` call (median enqueue
+    time of 400 calls) beside the earlier wrapper's per-call work and the
+    kernel's device time;
+14. the prefilter probes (``lightmotif_tpu_torch.probes.prefilter``),
     each checked once against its plain version with its launches
     counted from 0, then timed: P6, the tensor cores' u8 and bf16 rates
     at the prefilter's operand shapes (2,048 lanes x depth 128 x 262,144
     positions) as a share of the card's peak; P7, the lookup kernel the
     tensor-core prefilter replaced, at database group 0; P8 and P10, the
     tensor-core instantiations in each orientation at the bench shape
-    (and at group 0).
+    (and at group 0);
+15. the scoring probes (``lightmotif_tpu_torch.probes.scoring``) and P9,
+    each checked once against its plain version with its launches counted
+    from 0, then timed: family A, every instantiation of the scoring
+    kernel in each mode it takes at the genome (the first kernel, variant 0,
+    among them);
+    family B, the diagnostic bodies (io only, floor, nosel, noroll, add,
+    K2 writing uint8); family C, the op chains over 4,718,592 bytes; P13's
+    host parity (the pairwise association changes windows, the prefix
+    forms none); P9, the per-lane pass bits beside K3 at database group 0.
 
 The line before the last is a JSON object with one entry per kernel
 (launches counted on the path that runs it, with the counts reset just
@@ -116,6 +132,7 @@ P6_REPLACES = "experiments/int8_probe.py:54"
 P7_REPLACES = "experiments/int8_probe2.py:98"
 P8_REPLACES = "experiments/multi_opt.py:106"
 P10_REPLACES = "experiments/multi_opt2.py:95"
+P9_REPLACES = "experiments/multi_opt.py:193"
 
 #: P6's positions: 256 tiles of 1,024 (the JAX probe's tile)
 P6_POSITIONS = 1024 * 256
@@ -206,32 +223,56 @@ def phase_build() -> None:
             print("  ptxas:", line.strip(), flush=True)
 
 
-def sass_mma_counts(path) -> dict:
-    """Tensor-core instructions (``IMMA``, ``HMMA``, ``HGMMA``, ``IGMMA``) of
-    each kernel in a built library's SASS (``cuobjdump -sass``), by mangled
+def sass_opcodes(path) -> dict:
+    """The opcodes (``FADD``, ``IMMA``, ...; modifiers dropped) of each
+    kernel in a built library's SASS (``cuobjdump -sass``), by mangled
     name."""
     import os
+    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
-    counts, name = {}, None
+    ops, name = {}, None
+    instr = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name and any(op in line for op in ("IMMA", "HMMA", "HGMMA", "IGMMA")):
-            counts[name] += 1
-    return counts
+            ops[name] = []
+        elif name and (hit := instr.search(line)):
+            ops[name].append(hit.group(1))
+    return ops
+
+
+def sass_mma_counts(path) -> dict:
+    """Tensor-core instructions (``IMMA``, ``HMMA``, ``HGMMA``, ``IGMMA``) of
+    each kernel in a built library, by mangled name."""
+    return {name: sum(op in ("IMMA", "HMMA", "HGMMA", "IGMMA") for op in ops)
+            for name, ops in sass_opcodes(path).items()}
+
+
+def score_mangled(variant: int, discrete: bool) -> str:
+    """The mangled-name part of a scoring instantiation's template
+    arguments (``score_kernel<DISCRETE, LK, P, NT, TP, HALO, LAZY, PERSIST,
+    MINB, KC, G>`` in ``score.cu``)."""
+    from lightmotif_tpu_torch.probes import scoring
+
+    lookup, p, nt, tp, halo, lazy, persist, minb, kc, grp = scoring.VARIANTS[variant]
+    lk = scoring._LOOKUPS.index(lookup)
+    return (f"score_kernelILb{int(discrete)}ELi{lk}ELi{p}ELi{nt}ELi{tp}"
+            f"ELi{scoring._HALOS.index(halo)}ELb{lazy}ELi{persist}ELi{minb}ELi{kc}"
+            f"ELi{grp}EE")
 
 
 def phase_sass() -> int:
     """The prefilter library's SASS: every tensor-core instantiation, the
-    production one included, must hold tensor-core instructions; the lookup
-    kernel (P7's baseline) holds none.  Returns the production kernel's
-    count."""
+    production one and P9's bits form included, must hold tensor-core
+    instructions; the lookup kernel (P7's baseline) holds none.  The
+    scoring library's: K1's production instantiation adds with FADD and
+    never with FFMA (no contraction), K2's looks up with PRMT.  Returns
+    the production prefilter's IMMA count."""
     from lightmotif_tpu_torch.ops import build
     from lightmotif_tpu_torch.probes import prefilter as probes
 
@@ -239,18 +280,40 @@ def phase_sass() -> int:
     counts = sass_mma_counts(lib)
     v = build.library().lm_prefilter_production()
     orient, cpp, pw, warps = probes.VARIANTS[v]
-    mangled = f"mma_kernelILb{int(orient == 'm')}ELi{cpp}ELi{pw}ELi{warps}EEE"
+    mangled = f"mma_kernelILb{int(orient == 'm')}ELi{cpp}ELi{pw}ELi{warps}ELb0EE"
     production = [n for n in counts if mangled in n]
-    per_variant = {n.split("mma_kernel")[1].split("EEvPKh")[0]: c
-                   for n, c in counts.items() if "mma_kernel" in n}
+    per_variant = {n.split("mma_kernel")[1].split("ELb0EEEvPKh")[0]: c
+                   for n, c in counts.items() if "mma_kernel" in n and "ELb0EEEvPKh" in n}
+    bits = [c for n, c in counts.items() if "mma_kernel" in n and "ELb1EEEvPKh" in n]
     lookup = sum(c for n, c in counts.items() if "lookup_kernel" in n)
-    if (len(production) != 1 or counts[production[0]] < 1
+    if (len(production) != 1 or counts[production[0]] < 1 or len(bits) != 1 or bits[0] < 1
             or len(per_variant) != len(probes.VARIANTS) or min(per_variant.values()) < 1):
         raise SystemExit(f"sass: a tensor-core instantiation without IMMA: {counts}")
     log("sass", library=lib.name, tool="cuobjdump -sass",
         production=f"variant {v} {probes.VARIANTS[v]}", production_imma=counts[production[0]],
-        total_tensor_core=sum(counts.values()), lookup_kernel=lookup,
+        p9_bits_imma=bits[0], total_tensor_core=sum(counts.values()), lookup_kernel=lookup,
         per_instantiation=per_variant)
+
+    lib = next(p for p in build.build_info()["paths"] if "score" in p.name)
+    ops = sass_opcodes(lib)
+    found = {}
+    for discrete in (False, True):
+        v_prod = build.library().lm_score_production(int(discrete))
+        names = [n for n in ops if score_mangled(v_prod, discrete) in n]
+        if len(names) != 1:
+            raise SystemExit(f"sass: production scoring instantiation {v_prod} not found")
+        found[discrete] = (v_prod, ops[names[0]])
+    v_f32, f32_ops = found[False]
+    v_u8, u8_ops = found[True]
+    n_fadd, n_ffma = f32_ops.count("FADD"), f32_ops.count("FFMA")
+    if n_fadd < 1 or n_ffma != 0:
+        raise SystemExit(f"sass: lm_score_f32's kernel has {n_fadd} FADD and {n_ffma} FFMA")
+    if u8_ops.count("PRMT") < 1:
+        raise SystemExit("sass: lm_score_u8's kernel has no PRMT")
+    log("sass", library=lib.name, score_f32=f"variant {v_f32}", fadd=n_fadd, ffma=n_ffma,
+        lds=f32_ops.count("LDS"), instructions=len(f32_ops),
+        score_u8=f"variant {v_u8}", prmt=u8_ops.count("PRMT"), u8_lds=u8_ops.count("LDS"),
+        u8_instructions=len(u8_ops))
     return counts[production[0]]
 
 
@@ -275,10 +338,14 @@ def phase_kernels(pssm, seq) -> dict:
 
     rng = np.random.default_rng(0x5EED)
     errs = {"score_f32": 0.0, "score_u8": 0.0}
-    cases = [(5, 1), (5, 15), (5, 33), (5, 129), (21, 10), (21, 40)]
+    # DNA through the production instantiations (k = 5 fixed) and, past m =
+    # 257 for K2, the generic one; protein, k = 7 and k = 256 through the
+    # generic one
+    cases = [(5, 1), (5, 15), (5, 33), (5, 129), (5, 300), (21, 10), (21, 40), (7, 12),
+             (256, 3)]
     for k, m in cases:
         length = int(rng.integers(50_000, 120_000))
-        s = rng.integers(0, k, size=length).astype(np.uint8)
+        s = rng.integers(0, min(k + 2, 256), size=length).astype(np.uint8)  # ranks >= k too
         for start in rng.integers(0, length - 300, size=20):  # wildcard runs
             s[start : start + int(rng.integers(1, 300))] = k - 1
         w = rng.normal(size=(m, k)).astype(np.float32)
@@ -980,6 +1047,71 @@ def time_cuda(fn, repeat: int = 1, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
+def launch_earlier(seq, table, n_scores):
+    """K1 through the per-call host work of the earlier wrapper (the library
+    lookup, a ctypes call for the tile size, the shared-memory arithmetic,
+    the device context and the stream lookup), for the host-cost
+    comparison; the launch itself is the same."""
+    from lightmotif_tpu_torch.ops import build, kernels
+
+    kernels._check(seq, table, torch.float32, n_scores)
+    if not (seq.is_contiguous() and table.is_contiguous()):
+        raise ValueError("seq and table must be contiguous")
+    lib = build.library()
+    m, k = table.shape
+    smem = m * k * 4 + lib.lm_score_variants() + m - 1
+    if smem > kernels._MAX_SMEM:
+        raise ValueError("table too large")
+    lp = seq.shape[0]
+    out = torch.empty(lp, dtype=torch.float32, device=seq.device)
+    with torch.cuda.device(seq.device):
+        stream = torch.cuda.current_stream(seq.device).cuda_stream
+        err = getattr(lib, "lm_score_f32")(seq.data_ptr(), lp, table.data_ptr(), m, k,
+                                           n_scores, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed: {err}")
+    return out
+
+
+def host_us(fn, calls: int = 400) -> float:
+    """Median host microseconds of one ``fn()`` (the enqueue, no
+    synchronisation) over 5 runs of ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def phase_host_cost(pssm, seq) -> None:
+    """The host's part of one ``kernels.score_f32`` call beside its device
+    time: this wrapper and the earlier one's per-call work, in turns
+    (earlier, now, now, earlier), each the median enqueue time of 400
+    calls."""
+    from lightmotif_tpu_torch.ops import kernels
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+
+    dseq = DeviceSequence(seq, DEVICE)
+    n = len(seq) - len(pssm) + 1
+    w = torch.from_numpy(pssm.data).to(DEVICE)
+    if not torch.equal(launch_earlier(dseq.data, w, n), kernels.score_f32(dseq.data, w, n)):
+        raise SystemExit("host cost: the two wrappers disagree")
+    a1 = host_us(lambda: launch_earlier(dseq.data, w, n))
+    b1 = host_us(lambda: kernels.score_f32(dseq.data, w, n))
+    b2 = host_us(lambda: kernels.score_f32(dseq.data, w, n))
+    a2 = host_us(lambda: launch_earlier(dseq.data, w, n))
+    device_ms = time_cuda(lambda: kernels.score_f32(dseq.data, w, n), repeat=20)
+    log("host", op="kernels.score_f32 host part per call (enqueue, median of 400)",
+        now_us=f"{min(b1, b2):.2f}", earlier_wrapper_us=f"{min(a1, a2):.2f}",
+        runs_us=f"earlier={a1:.2f},{a2:.2f} now={b1:.2f},{b2:.2f}",
+        device_us=f"{device_ms * 1e3:.2f}")
+
+
 def phase_times(pssm, seq) -> dict:
     import torch.nn.functional as F
 
@@ -1309,6 +1441,154 @@ def phase_probes(ms, seq, times) -> dict:
     return out
 
 
+def checked_launches(checks) -> int:
+    """Run each ``(what, fn, want)`` once with the probe counts at 0, fail
+    unless ``fn()`` equals ``want``; returns the launches the checks made."""
+    from lightmotif_tpu_torch.probes import prefilter as pprobes
+    from lightmotif_tpu_torch.probes import scoring
+
+    scoring.reset_launches()
+    pprobes.reset_launches()
+    for what, fn, want in checks:
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"{what}: probe kernel != plain")
+    return sum(scoring.LAUNCHES.values()) + sum(pprobes.LAUNCHES.values())
+
+
+def fmt(row: dict) -> dict:
+    return {k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in row.items()}
+
+
+def phase_score_probes(pssm, seq, ms, times) -> dict:
+    """The scoring probes (``lightmotif_tpu_torch.probes.scoring``) and P9,
+    each checked against its plain version with its launches counted from
+    0, then timed on the card: family A, every instantiation of the
+    scoring kernel in each mode it takes, at the genome (its plain,
+    bound and library times are K1's or K2's, measured earlier in this
+    run on the same inputs); family B, the diagnostic bodies; family C,
+    the op chains over 4,718,592 bytes; P13's host parity; P9, the
+    per-lane pass bits beside K3 at database group 0.  Returns the
+    ``kernels`` entries of the probes."""
+    from lightmotif_tpu_torch.ops import torch_ops
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+    from lightmotif_tpu_torch.probes import prefilter as pprobes
+    from lightmotif_tpu_torch.probes import scoring
+
+    dseq = DeviceSequence(seq, DEVICE)
+    data = dseq.data
+    n = len(seq) - len(pssm) + 1
+    m = len(pssm)
+    w = torch.from_numpy(pssm.data).to(DEVICE)
+    d = torch.from_numpy(pssm.to_discrete().data).to(DEVICE)
+    tables = {"f32": w, "u8": d}
+    plains = {"f32": torch_ops.score_f32(data, w, n), "u8": torch_ops.score_u8(data, d, n)}
+    diag_want = {mode: scoring.diag_plain(mode, data, d if mode == "u8out" else w, n)
+                 for mode in scoring.DIAG_MODES}
+    x = scoring.chain_input(DEVICE)
+    chain_tables = [scoring.chain_table(op, DEVICE) for op, _, _ in scoring.CHAINS]
+
+    def variant_checks(vs):
+        out = []
+        for v in vs:
+            for mode, table in tables.items():
+                if scoring.accepts(v, mode == "u8", m, table.shape[1]):
+                    out.append((f"score variant {v} {mode}",
+                                lambda v=v, t=table: scoring.score_variant(v, data, t, n),
+                                plains[mode]))
+        return out
+
+    def diag_checks(modes):
+        return [(f"diag {mode}", lambda mode=mode: scoring.score_diag(
+            mode, data, d if mode == "u8out" else w, n), diag_want[mode]) for mode in modes]
+
+    def chain_checks(vs):
+        return [(f"chain {v} {scoring.CHAINS[v]}",
+                 lambda v=v: scoring.op_chain(v, x, chain_tables[v]),
+                 scoring.chain_plain(v, x, chain_tables[v])) for v in vs]
+
+    diag_of = {"P2": ["floor"], "P4": ["io"], "P5": ["u8out"], "P15": ["nosel", "noroll"],
+               "P23": ["add"]}
+    launches = {}
+    for pid, (_, vs) in scoring.PROBE_VARIANTS.items():
+        launches[pid] = checked_launches(variant_checks(vs) + diag_checks(diag_of.get(pid, [])))
+    launches["P5"] = checked_launches(diag_checks(diag_of["P5"]))
+    for pid, (_, vs) in scoring.CHAIN_PROBES.items():
+        launches[pid] = checked_launches(chain_checks(vs))
+
+    rows_a = scoring.run_variants(data, w, d, n)
+    for row in rows_a:
+        log("probes", **fmt(row))
+    rows_b = {r["mode"]: r for r in scoring.run_diag(data, w, d, n)}
+    for row in rows_b.values():
+        log("probes", **fmt(row))
+    rows_c = scoring.run_chains(x)
+    for row in rows_c:
+        log("probes", **fmt(row))
+    parity = scoring.pair_parity(pssm.data, seq.data)
+    if any(parity["prefix"].values()) or not parity["pairwise"]:
+        raise SystemExit(f"P13 pair_parity: {parity}")
+    log("probes", probe="P13", host="pair_parity", **parity)
+
+    out = {}
+    keys = ("plain_ms", "bound_ms", "bound_by", "library_ms")
+    for pid, (rep, vs) in scoring.PROBE_VARIANTS.items():
+        rows = [r for r in rows_a if r["variant"] in vs]
+        mode = "f32" if any(r["mode"] == "f32" for r in rows) else "u8"
+        best = min((r for r in rows if r["mode"] == mode), key=lambda r: r["ms"])
+        ref = times["score_f32" if mode == "f32" else "score_u8"]
+        out[f"score_variant_{pid.lower()}"] = {
+            "source": SOURCE, "replaces": rep, "launches": launches[pid], "max_abs_err": 0.0,
+            "ms": best["ms"], **{key: ref[key] for key in keys}}
+    lp = data.shape[0]
+    io_lib, io_equal = library_ms(lambda: torch.add(data, w[0, 0]),
+                                  lambda o: bool(torch.equal(o, diag_want["io"])))
+    for pid, mode, nbytes, lib in (("P4", "io", 5 * lp + w.nbytes, io_lib),
+                                   ("P5", "u8out", 2 * lp + d.nbytes, None)):
+        bound_ms, bound_by = bound(nbytes, 0, "f32")
+        out[f"score_diag_{pid.lower()}"] = {
+            "source": PROBE_SOURCE, "replaces": scoring.DIAG_PROBES[mode][1],
+            "launches": launches[pid], "max_abs_err": 0.0, "ms": rows_b[mode]["ms"],
+            "plain_ms": rows_b[mode]["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib}
+    log("probes", probe="P4", library="torch.add(seq, w[0, 0])", library_ms=f"{io_lib:.4f}",
+        library_equal=io_equal)
+    for pid, (rep, vs) in scoring.CHAIN_PROBES.items():
+        row = next(r for r in rows_c if r["variant"] == vs[0])
+        op, steps, chains = scoring.CHAINS[vs[0]]
+        flops = steps * chains * x.shape[0] if op in scoring._FLOAT_OPS else 0
+        bound_ms, bound_by = bound(5 * x.shape[0], flops, "f32")
+        out[f"op_chain_{pid.lower()}"] = {
+            "source": PROBE_SOURCE, "replaces": rep, "launches": launches[pid],
+            "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+    # P9 at database group 0, K3's inputs and the lanes' valid windows
+    group = ms._groups[0]
+    n_valid = np.maximum(ms._dseq.length - ms.lengths + 1, 0)
+    chunk = ms._dseq.data[: int(n_valid[group["ids"]].max()) + group["m_max"] - 1]
+    lanes = np.zeros(group["t_eff"].shape[0], np.int32)
+    lanes[: len(group["ids"])] = n_valid[group["ids"]]
+    nv = torch.from_numpy(lanes).to(DEVICE)
+    args = group["k3"]
+    launches["P9"] = checked_launches([("P9", lambda: pprobes.prefilter_bits(chunk, *args, nv),
+                                        pprobes.prefilter_bits_plain(chunk, *args, nv))])
+    p9 = pprobes.run_p9(chunk, *args, nv)
+    log("probes", **fmt(p9))
+    # K3's bound on the same inputs, or the bits' bytes (one int32 word per
+    # position and 16 lanes) if they take longer
+    k3_bound = prefilter_bound(chunk, *args)
+    bits_bytes = chunk.shape[0] * (1 + 4 * group["t_eff"].shape[0] // 16)
+    bound_ms, bound_by = max(k3_bound, (bits_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    out["prefilter_bits"] = {"source": K3_SOURCE, "replaces": P9_REPLACES,
+                             "launches": launches["P9"], "max_abs_err": 0.0,
+                             "ms": p9["bits_ms"], "plain_ms": p9["plain_ms"],
+                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    log("probes", launches=launches)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1333,7 +1613,9 @@ def main() -> int:
     times["prefilter_any8"] = phase_database_times(ms, seq)
     times.update(phase_mode_times(ms, seq, db, groups5))
     phase_batch_times(pssm, records, br, mbs)
+    phase_host_cost(pssm, seq)
     probe_entries = phase_probes(ms, seq, times)
+    probe_entries.update(phase_score_probes(pssm, seq, ms, times))
     sources = {"score_f32": (SOURCE, REPLACES), "score_u8": (SOURCE, REPLACES),
                "prefilter_any8": (K3_SOURCE, K3_REPLACES),
                "prefilter_any": (K3_SOURCE, K4_REPLACES),

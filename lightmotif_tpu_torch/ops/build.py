@@ -44,9 +44,15 @@ _INT = ctypes.c_int
 
 #: ``name: (argtypes, restype)`` of every exported C function.
 _SIGNATURES = {
-    "lm_score_tile": ([], _INT),
+    "lm_score_variants": ([], _INT),
+    "lm_score_production": ([_INT], _INT),
+    "lm_score_variant_info": ([_INT, _INT], _INT),
+    "lm_score_pick": ([_INT, _INT, _INT], _INT),
+    "lm_score_smem": ([_INT, _INT, _INT], _I64),
     "lm_score_f32": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
     "lm_score_u8": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
+    "lm_score_variant": (
+        [_INT, _INT, _P, _I64, _P, _INT, _P, _INT, _INT, _I64, _P, _P], _INT),
     "lm_prefilter_lanes": ([], _INT),
     "lm_prefilter_variants": ([], _INT),
     "lm_prefilter_production": ([], _INT),
@@ -67,6 +73,14 @@ _SIGNATURES = {
     "lm_probe_depth": ([], _INT),
     "lm_probe_mma_u8": ([_P, _P, _INT, _P, _P], _INT),
     "lm_probe_mma_bf16": ([_P, _P, _INT, _P, _P], _INT),
+    "lm_probe_diag_modes": ([], _INT),
+    "lm_probe_diag_smem": ([_INT, _INT], _I64),
+    "lm_probe_score_diag": ([_INT, _P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
+    "lm_probe_chains": ([], _INT),
+    "lm_probe_chain_info": ([_INT, _INT], _INT),
+    "lm_probe_op_chain": ([_INT, _P, _I64, _P, _P, _P], _INT),
+    "lm_prefilter_bits": (
+        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P], _INT),
 }
 
 

@@ -90,6 +90,14 @@
 // The first design, a lookup of one int32 per (position, lane, row)
 // in shared memory, stays below as lookup_kernel: no path of the package
 // launches it; it is the baseline of probe P7 (lm_prefilter_lookup).
+//
+// Probe P9 (lm_prefilter_bits) is the production instantiation with another
+// epilogue (BITS): instead of folding a pass into the running max it writes
+// the pass's per-lane pass bits, (score >= t) & (p < n_valid[lane]), 16 lanes
+// per int32 word -- one lane chunk is one word, the layout of the JAX probe
+// experiments/multi_opt.py::prefilter_bits2 (bits[p][mo / 16] bit mo % 16).
+// A warp ORs the bits of a chunk's 16 lanes across its eight lane groups with
+// __shfl_xor_sync and one thread per position stores the word.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -358,12 +366,14 @@ __host__ __device__ constexpr int blocks_per_sm(int warps, int pw, int cpp) {
   return warps <= 8 && pw * cpp <= 64 ? 2 : 1;
 }
 
-template <bool POS_M, int CPP, int PW, int NW>
+template <bool POS_M, int CPP, int PW, int NW, bool BITS = false>
 __global__ void __launch_bounds__(32 * NW, blocks_per_sm(NW, PW, CPP))
 mma_kernel(const uint8_t* __restrict__ seq, long long lp,
            const uint8_t* __restrict__ planes, int n_planes, int n_chunks,
            int rows, int k, const int* __restrict__ chunk_m,
-           const int* __restrict__ t_eff, int* __restrict__ out) {
+           const int* __restrict__ t_eff, int* __restrict__ out,
+           const int* __restrict__ n_valid) {
+  static_assert(!BITS || !POS_M, "the bits epilogue reads the positions-as-columns fragments");
   constexpr int NTHREADS = 32 * NW;
   constexpr int TP = NW * PW;                   // positions per block
   constexpr int NF = POS_M ? PW / 16 : PW / 8;  // X fragments per warp
@@ -554,8 +564,37 @@ mma_kernel(const uint8_t* __restrict__ seq, long long lp,
                   acc[f][cc][nt][r] = acc[f][cc][nt][r] * 256 + (q == 1 ? tv[cc][nt][r] : 0);
         }
       }
-      fold<POS_M, CPP, NF>(best, acc, live);
+      if constexpr (BITS) {
+        // positions 8f + 2tig + (r & 1) of the warp; lanes grp (r < 2) and
+        // grp + 8 (r >= 2) of each chunk
+#pragma unroll
+        for (int cc = 0; cc < CPP; ++cc) {
+          if (cc < live) {
+            const int c = c_stage + c0 + cc;
+            const int nv_lo = __ldg(n_valid + c * CH + grp);
+            const int nv_hi = __ldg(n_valid + c * CH + grp + 8);
+#pragma unroll
+            for (int f = 0; f < NF; ++f)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const long long p = base + warp * PW + 8 * f + 2 * tig + r;
+                const int* a = acc[f][cc][0];
+                unsigned word = (a[r] >= 0 && p < nv_lo ? 1u << grp : 0u) |
+                                (a[r + 2] >= 0 && p < nv_hi ? 1u << (grp + 8) : 0u);
+                word |= __shfl_xor_sync(0xffffffffu, word, 4);
+                word |= __shfl_xor_sync(0xffffffffu, word, 8);
+                word |= __shfl_xor_sync(0xffffffffu, word, 16);
+                if (grp == 0 && p < lp) out[p * n_chunks + c] = static_cast<int>(word);
+              }
+          }
+        }
+      } else {
+        fold<POS_M, CPP, NF>(best, acc, live);
+      }
     }
+  }
+  if constexpr (BITS) {
+    return;
   }
 
 #pragma unroll
@@ -614,14 +653,14 @@ constexpr int N_VARIANTS = sizeof(VARIANTS) / sizeof(VARIANTS[0]);
 // 700 W (PERF.md, section 6)
 constexpr int PRODUCTION = 7;
 
-template <bool POS_M, int CPP, int PW, int NW>
+template <bool POS_M, int CPP, int PW, int NW, bool BITS = false>
 int launch_variant(const void* seq, long long lp, const void* planes,
                    int n_planes, int n_chunks, int rows, int k,
                    const void* chunk_m, const void* t_eff, void* out,
-                   void* stream) {
+                   void* stream, const void* n_valid = nullptr) {
   constexpr int TP = NW * PW;
   const Geom g = geom(TP, CPP, rows, k, n_planes, blocks_per_sm(NW, PW, CPP));
-  auto kernel = mma_kernel<POS_M, CPP, PW, NW>;
+  auto kernel = mma_kernel<POS_M, CPP, PW, NW, BITS>;
   if (g.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -635,7 +674,8 @@ int launch_variant(const void* seq, long long lp, const void* planes,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(seq), lp, static_cast<const uint8_t*>(planes),
       n_planes, n_chunks, rows, k, static_cast<const int*>(chunk_m),
-      static_cast<const int*>(t_eff), static_cast<int*>(out));
+      static_cast<const int*>(t_eff), static_cast<int*>(out),
+      static_cast<const int*>(n_valid));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -819,6 +859,23 @@ int lm_prefilter_variant(int v, const void* seq, long long lp,
                          const void* t_eff, void* out, void* stream) {
   return launch(v, seq, lp, planes, n_planes, n_chunks, rows, k, chunk_m,
                 t_eff, out, stream);
+}
+
+// Probe P9: the production instantiation with the bits epilogue; n_valid:
+// int32 [n_chunks * 16]; out: int32 [lp][n_chunks], bit l of word c the pass
+// bit of lane 16c + l.
+int lm_prefilter_bits(const void* seq, long long lp, const void* planes,
+                      int n_planes, int n_chunks, int rows, int k,
+                      const void* chunk_m, const void* t_eff, const void* n_valid,
+                      void* out, void* stream) {
+  constexpr Variant x = VARIANTS[PRODUCTION];
+  static_assert(!x.pos_m && x.cpp == 1 && x.pw == 128 && x.warps == 8,
+                "the bits probe instantiates the production variant");
+  if (n_planes < 1 || n_planes > MAX_PLANES || (rows * k) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_variant<false, 1, 128, 8, true>(seq, lp, planes, n_planes, n_chunks, rows, k,
+                                                chunk_m, t_eff, out, stream, n_valid);
 }
 
 // Probe P7's baseline, the lookup kernel: table int32 [n_chunks][m][k][16].

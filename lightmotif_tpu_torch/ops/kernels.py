@@ -16,17 +16,22 @@ kernel launches of each wrapper.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 from . import torch_ops
 
-__all__ = ["score_f32", "score_u8", "LAUNCHES", "reset_launches"]
+__all__ = ["score_f32", "score_u8", "LAUNCHES", "reset_launches", "smem_bytes"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"score_f32": 0, "score_u8": 0}
 
 #: Shared memory a block may use on Hopper (bytes).
 _MAX_SMEM = 232_448
+
+_SAME_DEVICE = contextlib.nullcontext()
 
 
 def reset_launches() -> None:
@@ -51,26 +56,41 @@ def _check(seq: torch.Tensor, table: torch.Tensor, table_dtype, n_scores: int):
         raise ValueError(f"unsupported device {seq.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def smem_bytes(discrete: bool, m: int, k: int) -> int:
+    """Dynamic shared memory of the instantiation an entry point launches
+    for an ``m x k`` table (``csrc/score.cu``: ``lm_score_pick`` and
+    ``lm_score_smem``).  Raises when it exceeds what a block may use."""
+    from . import build
+
+    lib = build.library()
+    smem = lib.lm_score_smem(lib.lm_score_pick(int(discrete), m, k), m, k)
+    if not 0 < smem <= _MAX_SMEM:
+        raise ValueError(
+            f"a {m}x{k} table needs {smem} bytes of shared memory (max {_MAX_SMEM})")
+    return smem
+
+
 def _launch(name: str, seq, table, n_scores: int, out_dtype) -> torch.Tensor:
     from . import build
 
     if not (seq.is_contiguous() and table.is_contiguous()):
         raise ValueError("seq and table must be contiguous")
-    lib = build.library()
     m, k = table.shape
-    smem = m * k * 4 + lib.lm_score_tile() + m - 1
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"a {m}x{k} table needs {smem} bytes of shared memory (max {_MAX_SMEM})")
+    smem_bytes(name == "score_u8", m, k)
     lp = seq.shape[0]
     out = torch.empty(lp, dtype=out_dtype, device=seq.device)
     if lp == 0:
         return out
-    with torch.cuda.device(seq.device):
-        stream = torch.cuda.current_stream(seq.device).cuda_stream
-        err = getattr(lib, f"lm_{name}")(
-            seq.data_ptr(), lp, table.data_ptr(), m, k, n_scores,
-            out.data_ptr(), stream)
+    index = seq.device.index
+    # the kernel runs on the thread's current device: switch only when the
+    # tensors are elsewhere.  The current stream's handle comes from the
+    # accessor PyTorch's own generated code uses: building a
+    # torch.cuda.Stream for it costs about as much as the launch
+    with torch.cuda.device(index) if index != torch.cuda.current_device() else _SAME_DEVICE:
+        err = getattr(build.library(), f"lm_{name}")(
+            seq.data_ptr(), lp, table.data_ptr(), m, k, n_scores, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

@@ -21,6 +21,12 @@ kernel in ``ops/csrc/`` with a plain version, checked with
   windows) -- over lane chunks per pass and positions per block, at the
   shape of ``bench.py``'s u8 (K4) row.  The best point is the one the
   kernel's entry points launch (``PRODUCTION`` in ``csrc/prefilter.cu``).
+* **P9** (``experiments/multi_opt.py:193``, ``prefilter_bits2``): per-lane
+  pass bits, ``(score >= t) & (p < n_valid)``, 16 lanes per int32 word,
+  from the production instantiation with another epilogue
+  (``lm_prefilter_bits``), timed against K3 on the same group, so that
+  what per-lane bits cost beside the running max is known.  Plain
+  version: :func:`prefilter_bits_plain`.
 
 None of these runs on a path of the package; :data:`LAUNCHES` counts
 their launches apart from :data:`..ops.multi_kernel.LAUNCHES`.  Every
@@ -52,15 +58,18 @@ __all__ = [
     "lookup_table",
     "prefilter_lookup",
     "prefilter_variant",
+    "prefilter_bits",
+    "prefilter_bits_plain",
     "time_cuda",
     "run_p6",
     "run_p7",
     "run_sweep",
+    "run_p9",
 ]
 
 #: Kernel launches of each probe wrapper since :func:`reset_launches`.
 LAUNCHES = {"probe_mma_u8": 0, "probe_mma_bf16": 0, "prefilter_lookup": 0,
-            "prefilter_variant": 0}
+            "prefilter_variant": 0, "prefilter_bits": 0}
 
 #: The tensor-core kernel's instantiations, in the order of ``LM_VARIANTS``
 #: in ``csrc/prefilter.cu``: (orientation, lane chunks per pass, positions
@@ -232,6 +241,73 @@ def prefilter_variant(variant: int, seq: torch.Tensor, planes: torch.Tensor,
     return out
 
 
+# -- P9 -----------------------------------------------------------------------
+
+
+def prefilter_bits_plain(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
+                         t_eff: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """P9's plain version: int32 ``[Lp, chunks]``, bit ``l`` of word ``c``
+    set where lane ``16c + l``'s window sum reaches its threshold
+    (``sum - t_eff >= 0``) at a position below its ``n_valid``.  The
+    cells are :func:`..ops.torch_ops.plane_cells` of the planes, as in
+    :func:`..ops.torch_ops.prefilter_any8`."""
+    cells = torch_ops.plane_cells(planes)
+    lanes, m, k = cells.shape
+    d = cells.permute(1, 2, 0).contiguous()  # d[j, s, lane]
+    lp = seq.shape[0]
+    s = torch_ops._window_ranks(seq, m, k)
+    weights = (1 << torch.arange(multi_kernel.K3_LANES, device=seq.device)).repeat(
+        lanes // multi_kernel.K3_LANES)
+    out = torch.empty((lp, lanes // multi_kernel.K3_LANES), dtype=torch.int32,
+                      device=seq.device)
+    blk = max(1, torch_ops._K3_BLOCK_ELEMS // lanes)
+    for p0 in range(0, lp, blk):
+        p1 = min(p0 + blk, lp)
+        acc = d[0][s[p0:p1]]
+        for j in range(1, m):
+            acc += d[j][s[p0 + j:p1 + j]]
+        pos = torch.arange(p0, p1, device=seq.device)[:, None]
+        bit = (acc - t_eff >= 0) & (pos < n_valid)
+        out[p0:p1] = (bit.to(torch.int64) * weights).reshape(p1 - p0, -1, 16).sum(2).to(
+            torch.int32)
+    return out
+
+
+def prefilter_bits(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
+                   t_eff: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """P9: the per-lane pass bits of :func:`prefilter_bits_plain` from the
+    production tensor-core instantiation with the bits epilogue; the
+    inputs are those of :func:`..ops.multi_kernel.prefilter_any8` and
+    ``n_valid``, int32 ``[lanes]``."""
+    from ..ops import build
+
+    multi_kernel._check("prefilter_bits", seq, planes, chunk_m, t_eff)
+    if n_valid.dtype != torch.int32 or tuple(n_valid.shape) != tuple(t_eff.shape):
+        raise TypeError(f"n_valid must be int32 {tuple(t_eff.shape)}, got "
+                        f"{n_valid.dtype} {tuple(n_valid.shape)}")
+    if _device_kind(seq, n_valid) == "cpu":
+        return prefilter_bits_plain(seq, planes, chunk_m, t_eff, n_valid)
+    if not n_valid.is_contiguous():
+        raise ValueError("n_valid must be contiguous")
+    lib = build.library()
+    n_planes, chunks, _, rows, k = planes.shape
+    smem = lib.lm_prefilter_smem(lib.lm_prefilter_production(), rows, k, n_planes)
+    if not 0 < smem <= multi_kernel._MAX_SMEM:
+        raise ValueError(f"prefilter_bits: {smem} bytes of shared memory")
+    lp = seq.shape[0]
+    out = torch.empty((lp, chunks), dtype=torch.int32, device=seq.device)
+    if lp == 0:
+        return out
+    with torch.cuda.device(seq.device):
+        err = lib.lm_prefilter_bits(seq.data_ptr(), lp, planes.data_ptr(), n_planes, chunks,
+                                    rows, k, chunk_m.data_ptr(), t_eff.data_ptr(),
+                                    n_valid.data_ptr(), out.data_ptr(), _stream(seq))
+    if err != 0:
+        raise RuntimeError(f"prefilter_bits launch failed: CUDA error {err}")
+    LAUNCHES["prefilter_bits"] += 1
+    return out
+
+
 def production_variant() -> int:
     """The index of the instantiation the entry points launch."""
     from ..ops import build
@@ -351,6 +427,29 @@ def run_sweep(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
                     "equal": True, "ms": ms,
                     "production": v == production_variant()})
     return out
+
+
+def run_p9(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
+           t_eff: torch.Tensor, n_valid: torch.Tensor) -> dict:
+    """P9 on the card: the bits equal to the plain version, and their time
+    beside K3's running max on the same inputs, in turns (K3, bits, bits,
+    K3)."""
+    want = prefilter_bits_plain(seq, planes, chunk_m, t_eff, n_valid)
+    got = prefilter_bits(seq, planes, chunk_m, t_eff, n_valid)
+    torch.cuda.synchronize()
+    _equal(got.reshape(-1), want.reshape(-1), "P9 bits")
+    k3 = lambda: multi_kernel.prefilter_any8(seq, planes, chunk_m, t_eff)  # noqa: E731
+    bits = lambda: prefilter_bits(seq, planes, chunk_m, t_eff, n_valid)  # noqa: E731
+    a1 = time_cuda(k3, repeat=3)
+    b1 = time_cuda(bits, repeat=3)
+    b2 = time_cuda(bits, repeat=3)
+    a2 = time_cuda(k3, repeat=3)
+    plain_ms = time_cuda(lambda: prefilter_bits_plain(seq, planes, chunk_m, t_eff, n_valid),
+                         runs=3)
+    return {"probe": "P9", "name": "prefilter_bits", "equal": True,
+            "positions": seq.shape[0], "lanes": t_eff.shape[0],
+            "words_nonzero": int((got != 0).sum()), "bits_ms": min(b1, b2), "k3_ms": min(a1, a2),
+            "plain_ms": plain_ms, "runs": [a1, b1, b2, a2]}
 
 
 def _genome_planes(device):

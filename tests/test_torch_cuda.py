@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from lightmotif_tpu_torch import DNA, PROTEIN, CountMatrix, EncodedSequence, batch
-from lightmotif_tpu_torch.ops import multi, multi_kernel, torch_ops
+from lightmotif_tpu_torch.ops import kernels, multi, multi_kernel, torch_ops
 from lightmotif_tpu_torch.probes import prefilter as probes
+from lightmotif_tpu_torch.probes import scoring
 from lightmotif_tpu_torch.scanner import MultiScanner
 
 pytestmark = pytest.mark.cuda
@@ -257,4 +258,110 @@ def test_probe_kernels_match_plain_on_the_card(cuda):
     want = torch_ops.prefilter_any8(s, *packed)
     assert torch.equal(got[: 40_000 - 19], want[: 40_000 - 19])
     assert probes.LAUNCHES == {"probe_mma_u8": 1, "probe_mma_bf16": 1,
-                               "prefilter_lookup": 1, "prefilter_variant": 0}
+                               "prefilter_lookup": 1, "prefilter_variant": 0,
+                               "prefilter_bits": 0}
+
+
+def _scoring_cases(rng):
+    """(what, seq, f32 table, u8 table, n_scores): the bench genome with
+    MX000001, and edge cases -- DNA m 15, 130 and 300, protein, K = 7 and
+    K = 256 -- with wildcard runs, ranks >= K, ragged n_scores, lengths
+    that fill no block, and a sequence that starts off its alignment."""
+    (pssm,) = [CountMatrix.from_sequences(EncodedSequence.encode(p) for p in (
+        "GTTGACCTTATCAAC", "GTTGATCCAGTCAAC")).to_freq(0.1).to_weight(None).to_scoring()]
+    genome = np.random.default_rng(0xECC011).integers(0, 4, 4_641_652, dtype=np.int8)
+    yield ("genome", genome.astype(np.uint8), pssm.data, pssm.to_discrete().data,
+           genome.size - 14)
+    for k, m in ((5, 15), (5, 130), (5, 300), (21, 10), (7, 12), (256, 3)):
+        length = int(rng.integers(20_000, 40_000))
+        s = rng.integers(0, min(k + 3, 256), size=length + 3).astype(np.uint8)
+        for start in rng.integers(0, length - 300, size=8):
+            s[start : start + int(rng.integers(1, 200))] = k - 1
+        w = rng.normal(size=(m, k)).astype(np.float32)
+        w[rng.random((m, k)) < 0.05] = -np.inf
+        d = rng.integers(0, 256, size=(m, k)).astype(np.uint8)
+        yield (f"k{k}m{m}", s, w, d, max(length - m + 1 - int(rng.integers(0, 900)), 0))
+
+
+def test_scoring_instantiations_match_plain_on_the_card(cuda):
+    rng = np.random.default_rng(21)
+    scoring.reset_launches()
+    checked = 0
+    for what, s, w, d, n in _scoring_cases(rng):
+        base = torch.from_numpy(s).to(cuda)
+        for seq in (base, base[3:]):  # aligned, and 3 bytes off
+            m, k = w.shape
+            for table in (torch.from_numpy(w).to(cuda), torch.from_numpy(d).to(cuda)):
+                discrete = table.dtype == torch.uint8
+                plain = (torch_ops.score_u8 if discrete else torch_ops.score_f32)(seq, table, n)
+                entry = (kernels.score_u8 if discrete else kernels.score_f32)(seq, table, n)
+                torch.cuda.synchronize()
+                assert torch.equal(entry, plain), (what, discrete)
+                for v in range(len(scoring.VARIANTS)):
+                    if scoring.accepts(v, discrete, m, k):
+                        got = scoring.score_variant(v, seq, table, n)
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, plain), (what, v, scoring.VARIANTS[v], discrete)
+                        checked += 1
+    assert scoring.LAUNCHES["score_variant"] == checked > 100
+
+
+def test_k1_k2_launch_reads_nothing_back_from_the_card(cuda):
+    rng = np.random.default_rng(3)
+    seq = torch.from_numpy(rng.integers(0, 6, 100_003).astype(np.uint8)).to(cuda)
+    tables = [torch.from_numpy(rng.normal(size=(15, 5)).astype(np.float32)).to(cuda),
+              torch.from_numpy(rng.integers(0, 256, (15, 5)).astype(np.uint8)).to(cuda),
+              torch.from_numpy(rng.normal(size=(40, 21)).astype(np.float32)).to(cuda)]
+    for t in tables:  # the first call of a shape asks the library its shared memory
+        (kernels.score_u8 if t.dtype == torch.uint8 else kernels.score_f32)(seq, t, 99_000)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    saved = torch.cuda.get_sync_debug_mode()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        outs = [(kernels.score_u8 if t.dtype == torch.uint8 else kernels.score_f32)(seq, t, 99_000)
+                for t in tables]
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
+    assert kernels.LAUNCHES == {"score_f32": 2, "score_u8": 1}
+    for t, o in zip(tables, outs):
+        plain = (torch_ops.score_u8 if t.dtype == torch.uint8 else torch_ops.score_f32)
+        assert torch.equal(o, plain(seq, t, 99_000))
+
+
+def test_scoring_probe_kernels_match_plain_on_the_card(cuda):
+    rng = np.random.default_rng(6)
+    seq = torch.from_numpy(rng.integers(0, 7, 300_001).astype(np.uint8)).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(15, 5)).astype(np.float32)).to(cuda)
+    d = torch.from_numpy(rng.integers(0, 256, (15, 5)).astype(np.uint8)).to(cuda)
+    scoring.reset_launches()
+    for mode in scoring.DIAG_MODES:
+        t = d if mode == "u8out" else w
+        got = scoring.score_diag(mode, seq, t, 299_000)
+        torch.cuda.synchronize()
+        assert torch.equal(got, scoring.diag_plain(mode, seq, t, 299_000)), mode
+    x = torch.from_numpy(rng.integers(0, 256, 32 * 9_999).astype(np.uint8)).to(cuda)
+    for v, (op, _, _) in enumerate(scoring.CHAINS):
+        table = scoring.chain_table(op, cuda)
+        got = scoring.op_chain(v, x, table)
+        torch.cuda.synchronize()
+        assert torch.equal(got, scoring.chain_plain(v, x, table)), scoring.CHAINS[v]
+    assert scoring.LAUNCHES == {"score_variant": 0,
+                                "probe_score_diag": len(scoring.DIAG_MODES),
+                                "probe_op_chain": len(scoring.CHAINS)}
+
+
+def test_p9_bits_match_plain_on_the_card(cuda):
+    rng = np.random.default_rng(19)
+    packed = _extreme_planes(rng, 5, 16, 2, lanes=300)
+    lanes = packed[2].shape[0]
+    s = torch.from_numpy(rng.integers(0, 5, 60_000).astype(np.uint8)).to(cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in packed]
+    n_valid = torch.from_numpy(rng.integers(0, 60_000, lanes).astype(np.int32)).to(cuda)
+    probes.reset_launches()
+    got = probes.prefilter_bits(s, *args, n_valid)
+    torch.cuda.synchronize()
+    want = probes.prefilter_bits_plain(s, *args, n_valid)
+    assert probes.LAUNCHES["prefilter_bits"] == 1
+    assert got.shape == (60_000, lanes // 16) and torch.equal(got, want)
+    assert (want != 0).sum() > 1000  # not vacuous
