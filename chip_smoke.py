@@ -8,7 +8,9 @@ Phases, one line of output each (any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions;
 2. build: ``nvcc`` compiles ``lightmotif_tpu_torch/ops/csrc/*.cu`` for
-   ``sm_90a``, one process per source, all at once;
+   ``sm_90a``, one process per source, all at once: first the production
+   build (``score.cu``, ``prefilter.cu``), then the probe build
+   (``probes.cu``), each with its own seconds;
 3. SASS: ``cuobjdump -sass`` of the prefilter library, the tensor-core
    instructions (``IMMA``) of every instantiation of the tensor-core
    prefilter, the production one and P9's bits form included (each must
@@ -64,7 +66,18 @@ Phases, one line of output each (any failure exits non-zero):
     record); each class's launches are counted from 0 over its own call
     and must be K1 once, K2 once per segment and K3 once per motif group
     and segment;
-12. times on the card (CUDA events, median of 15 samples after a
+12. the FIMO-like CLI through its files: the database written as a
+    JASPAR16 file, the genome and the records as FASTA, MX000001 as a
+    one-motif file.  In this process (``cli.main``, launch counts reset
+    before each run): database x genome at p = 1e-6 on both strands equal
+    to the brute force of phase 8 through the prefilter; database x
+    records in one flight and in several, byte-identical TSVs equal to
+    the batch phase's ``MultiBatchScanner`` hits, the prefilter launched
+    once per group and flight segment; MX000001 x genome at p = 1e-5 equal
+    to phase 5's Scanner hits through K2.  Then ``python -m
+    lightmotif_tpu_torch.cli`` cold (a fresh build directory) and warm:
+    no ``probes.cu`` in the cold build, no JAX imported, the same TSV;
+13. times on the card (CUDA events, median of 15 samples after a
     warm-up), each kernel beside its plain version, its bound (the least
     time the card could take: bytes over HBM's rate or operations over
     the card's peak) and a ``conv1d`` library yardstick: device time per
@@ -74,10 +87,10 @@ Phases, one line of output each (any failure exits non-zero):
     the K3 and u16 modes and, from one more run through the scanner's
     timing hook and ``torch.profiler``, its split by stage, device-busy
     time and host time; the batch classes' walls;
-13. the host's part of one ``kernels.score_f32`` call (median enqueue
+14. the host's part of one ``kernels.score_f32`` call (median enqueue
     time of 400 calls) beside the earlier wrapper's per-call work and the
     kernel's device time;
-14. the prefilter probes (``lightmotif_tpu_torch.probes.prefilter``),
+15. the prefilter probes (``lightmotif_tpu_torch.probes.prefilter``),
     each checked once against its plain version with its launches
     counted from 0, then timed: P6, the tensor cores' u8 and bf16 rates
     at the prefilter's operand shapes (2,048 lanes x depth 128 x 262,144
@@ -85,7 +98,7 @@ Phases, one line of output each (any failure exits non-zero):
     tensor-core prefilter replaced, at database group 0; P8 and P10, the
     tensor-core instantiations in each orientation at the bench shape
     (and at group 0);
-15. the scoring probes (``lightmotif_tpu_torch.probes.scoring``) and P9,
+16. the scoring probes (``lightmotif_tpu_torch.probes.scoring``) and P9,
     each checked once against its plain version with its launches counted
     from 0, then timed: family A, every instantiation of the scoring
     kernel in each mode it takes at the genome (the first kernel, variant 0,
@@ -160,6 +173,11 @@ RECORD_SEED = 0xBA7C4
 RECORD_LENGTHS = (50, 2000)
 RECORD_SHORT_EVERY = 97
 
+# the CLI phase: the TSV's header, and the flight size of its several-flight
+# run (the records file is about 4.8 MB)
+CLI_HEADER = "seq_index\tseq_name\tmotif_index\tmotif_name\tpos\tstrand\tscore\tpvalue"
+CLI_FLIGHT_BYTES = 1 << 20
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W),
 # for the least time a kernel's work could take
 HBM_BYTES_PER_S = 3.35e12
@@ -210,17 +228,52 @@ def phase_card() -> None:
 
 
 def phase_build() -> None:
+    """The production build (``score.cu``, ``prefilter.cu``: what a scan
+    waits for), then the probe build (``probes.cu`` added), each with its
+    own nvcc seconds."""
     from lightmotif_tpu_torch.ops import build
 
-    t0 = time.perf_counter()
-    info = build.build_info()
-    build.library()
-    log("build", seconds=f"{time.perf_counter() - t0:.3f}",
-        nvcc_seconds=f"{info['seconds']:.3f}",
-        libraries=",".join(p.name for p in info["paths"]))
+    for what, probes, load in (("production", False, build.library),
+                               ("probes", True, build.probe_library)):
+        t0 = time.perf_counter()
+        info = build.build_info(probes)
+        load()
+        log("build", build=what, directory=build.build_dir(),
+            seconds=f"{time.perf_counter() - t0:.3f}",
+            nvcc_seconds=f"{info['seconds']:.3f}",
+            compiled=",".join(p.name for p in info["compiled"]) or "none",
+            libraries=",".join(p.name for p in info["paths"]))
     for line in info["log"].splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+    # fresh builds in subprocesses, each into an empty build directory:
+    # every source at once (what a scan waited for before the split), then
+    # the production sources alone
+    for what, probes in (("whole", True), ("production", False)):
+        log("build", fresh=what, nvcc_seconds=f"{fresh_build_seconds(probes):.3f}")
+
+
+def fresh_build_seconds(probes: bool) -> float:
+    """nvcc seconds of ``build.build_info(probes)`` in a new process with
+    an empty build directory."""
+    import os
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = tempfile.mkdtemp(prefix="chip-smoke-build-")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", "from lightmotif_tpu_torch.ops import build; "
+             f"print(build.build_info(probes={probes})['seconds'])"],
+            cwd=root, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, LIGHTMOTIF_TPU_COMPILE_CACHE=cache,
+                     PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", "")))
+        if proc.returncode != 0:
+            raise SystemExit(f"build: fresh build failed\n{proc.stderr[-4000:]}")
+        return float(proc.stdout.split()[-1])
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
 
 
 def sass_opcodes(path) -> dict:
@@ -298,7 +351,7 @@ def phase_sass() -> int:
     ops = sass_opcodes(lib)
     found = {}
     for discrete in (False, True):
-        v_prod = build.library().lm_score_production(int(discrete))
+        v_prod = build.probe_library().lm_score_production(int(discrete))
         names = [n for n in ops if score_mangled(v_prod, discrete) in n]
         if len(names) != 1:
             raise SystemExit(f"sass: production scoring instantiation {v_prod} not found")
@@ -378,7 +431,9 @@ def phase_kernels(pssm, seq) -> dict:
     return errs
 
 
-def phase_main_path(pssm, seq) -> dict:
+def phase_main_path(pssm, seq) -> tuple:
+    """The main path on the genome; returns its launches and the
+    Scanner's hits at p = 1e-5 (positions, f32 bits)."""
     from lightmotif_tpu_torch import Scanner
     from lightmotif_tpu_torch.ops import kernels
     from lightmotif_tpu_torch.ops.pipeline import Pipeline
@@ -422,13 +477,13 @@ def phase_main_path(pssm, seq) -> dict:
     if min(launches.values()) < 1:
         raise SystemExit(f"a kernel of the main path never launched: {launches}")
     log("main", launches=launches)
-    return launches
+    return launches, (want_pos, want_bits)
 
 
-def synthetic_motifs(rng, alphabet, lengths, sites: int = 20):
-    """Scoring matrices of ``sites`` aligned sites each: every column's
+def synthetic_counts(rng, alphabet, lengths, sites: int = 20):
+    """Count matrices of ``sites`` aligned sites each: every column's
     symbol probabilities are drawn from Dirichlet(0.5) and its counts
-    from them; pseudocount 0.1, uniform background."""
+    from them; the wildcard column is zero."""
     from lightmotif_tpu_torch import CountMatrix
 
     k = len(alphabet.symbols)
@@ -437,24 +492,31 @@ def synthetic_motifs(rng, alphabet, lengths, sites: int = 20):
         probs = rng.dirichlet(np.full(k - 1, 0.5), size=int(m))
         counts = np.zeros((int(m), k), np.int64)
         counts[:, : k - 1] = [rng.multinomial(sites, row) for row in probs]
-        out.append(CountMatrix(alphabet, counts).to_freq(0.1)
-                   .to_weight(None).to_scoring())
+        out.append(CountMatrix(alphabet, counts))
     return out
+
+
+def synthetic_motifs(rng, alphabet, lengths, sites: int = 20):
+    """The scoring matrices of :func:`synthetic_counts`: pseudocount 0.1,
+    uniform background."""
+    return [c.to_freq(0.1).to_weight(None).to_scoring()
+            for c in synthetic_counts(rng, alphabet, lengths, sites)]
 
 
 def synthetic_database(n: int, seed: int):
     """A JASPAR2024-sized DNA database on both strands: (pssms, thresholds
-    at DB_PVALUE).  Lengths 5-20 for about 92% of the motifs, 21-35 for
-    the rest."""
+    at DB_PVALUE, the forward strands' count matrices).  Lengths 5-20 for
+    about 92% of the motifs, 21-35 for the rest."""
     from lightmotif_tpu_torch import DNA
 
     rng = np.random.default_rng(seed)
     lengths = np.where(rng.random(n) < 0.92, rng.integers(5, 21, n),
                        rng.integers(21, 36, n))
-    fwd = synthetic_motifs(rng, DNA, lengths)
+    counts = synthetic_counts(rng, DNA, lengths)
+    fwd = [c.to_freq(0.1).to_weight(None).to_scoring() for c in counts]
     ths = [p.score_distribution().score(DB_PVALUE) for p in fwd]
     return (fwd + [p.reverse_complement() for p in fwd],
-            np.asarray(ths + ths, np.float32))
+            np.asarray(ths + ths, np.float32), counts)
 
 
 def k3_group(pssms, thresholds):
@@ -607,13 +669,13 @@ def check_scan(name, got, want) -> None:
 
 def phase_database(seq):
     """The database path at full size; returns (scanner, its launches,
-    the brute force's hits)."""
+    the brute force's hits, the forward strands' count matrices)."""
     from lightmotif_tpu_torch.ops import kernels, multi_kernel
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
     from lightmotif_tpu_torch.scanner import MultiScanner
 
     t0 = time.perf_counter()
-    pssms, ths = synthetic_database(DB_MOTIFS, DB_SEED)
+    pssms, ths, counts = synthetic_database(DB_MOTIFS, DB_SEED)
     log("database", pssms=len(pssms), build_s=f"{time.perf_counter() - t0:.3f}",
         lengths=f"{min(len(p) for p in pssms)}-{max(len(p) for p in pssms)}")
 
@@ -645,7 +707,7 @@ def phase_database(seq):
     check_scan("database, 5 segments", five.scan_arrays(seq), want)
     log("database", check="scan_arrays == brute force", segments=5,
         segment=five.SEGMENT)
-    return ms, launches["prefilter_any8"], want
+    return ms, launches["prefilter_any8"], want, counts
 
 
 class ModeDatabase:
@@ -834,7 +896,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     counted from 0 over its own call, before its oracle runs: K1 once
     for the reducer, K2 once per segment for the scanner, K3 once per
     motif group and segment for the database.  Returns (records, the
-    BatchReducer, the MultiBatchScanner)."""
+    BatchReducer, the MultiBatchScanner, its hit arrays)."""
     from lightmotif_tpu_torch import Scanner
     from lightmotif_tpu_torch.batch import BatchReducer, BatchScanner, MultiBatchScanner
     from lightmotif_tpu_torch.ops import kernels, multi, multi_kernel
@@ -911,7 +973,302 @@ def phase_batch(pssm, seq, ms) -> tuple:
     log("batch", check="MultiBatchScanner == brute force inside records",
         pssms=len(ms.pssms), hits=len(mo), dropped_across_records=int((~keep).sum()),
         groups=-(-short.size // size), launches=launches_mbs)
-    return records, br, mbs
+    return records, br, mbs, (rec, mo, local, sc)
+
+
+def write_jaspar16(path, counts, prefix: str) -> None:
+    """Count matrices as a JASPAR16 file, one record ``{prefix}{i}`` each."""
+    from lightmotif_tpu_torch import DNA
+
+    with open(path, "w") as fh:
+        for i, c in enumerate(counts):
+            fh.write(f">{prefix}{i:05d}.1\tsynthetic {i}\n")
+            for sym in "ACGT":
+                col = np.asarray(c.data)[:, DNA.symbols.index(sym)]
+                fh.write(f"{sym}  [ {' '.join(str(int(v)) for v in col)} ]\n")
+
+
+def write_fasta(path, records) -> None:
+    """``(name, EncodedSequence)`` records as FASTA, 80 symbols a line."""
+    with open(path, "w") as fh:
+        for name, s in records:
+            text = str(s)
+            fh.write(f">{name}\n")
+            fh.writelines(text[i : i + 80] + "\n" for i in range(0, len(text), 80))
+
+
+def cli_rows(path):
+    """The rows of a CLI TSV as arrays: (seq_index - 1, motif_index - 1,
+    strand is "-", pos, score as f32 bits with -0.0 read as +0.0)."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    if lines[0] != CLI_HEADER:
+        raise SystemExit(f"cli: bad TSV header {lines[0]!r}")
+    cols = list(zip(*(line.split("\t") for line in lines[1:]))) or [()] * 8
+    score = np.asarray([float(v) for v in cols[6]], np.float64).astype(np.float32)
+    return (np.asarray(cols[0], np.int64) - 1, np.asarray(cols[2], np.int64) - 1,
+            np.asarray([s == "-" for s in cols[5]], bool), np.asarray(cols[4], np.int64),
+            (score + np.float32(0.0)).view(np.uint32))
+
+
+def cli_flights(lengths, gap: int, flight_bytes: int) -> list:
+    """The record lengths of each flight the CLI's reader makes
+    (``lightmotif_tpu_torch.cli._read_flights``): batched flights of at
+    most ``flight_bytes`` encoded bytes with their gaps, a record too big
+    for one alone."""
+    flights, cur, total = [], [], 0
+    for n in lengths:
+        need = int(n) + gap
+        if cur and total + need > flight_bytes:
+            flights.append(cur)
+            cur, total = [], 0
+        if need > flight_bytes:
+            flights.append([int(n)])
+        else:
+            cur.append(int(n))
+            total += need
+    return flights + ([cur] if cur else [])
+
+
+def run_cli(args: list, what: str) -> tuple:
+    """``cli.main(args)`` in this process with the launch counts reset
+    just before and read just after; returns (launches, wall seconds, the
+    ``cli_timing`` fields)."""
+    import contextlib
+    import io
+
+    from lightmotif_tpu_torch import cli
+    from lightmotif_tpu_torch.ops import kernels, multi_kernel
+
+    err = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main([*args, "-q"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**kernels.LAUNCHES, **multi_kernel.LAUNCHES}
+    if rc != 0:
+        raise SystemExit(f"cli {what}: exit {rc}")
+    timing = [json.loads(line) for line in err.getvalue().splitlines()
+              if line.startswith('{"event": "cli_timing"')]
+    return launches, wall, timing[-1] if timing else None
+
+
+def cli_subprocess(args: list, cache, what: str) -> dict:
+    """``python -X importtime -m lightmotif_tpu_torch.cli`` from the
+    checkout with ``LIGHTMOTIF_TPU_COMPILE_CACHE`` at ``cache``; fails if
+    it imports JAX or the JAX package.  Returns its wall and
+    ``cli_timing``."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, LIGHTMOTIF_TPU_COMPILE_CACHE=str(cache),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "lightmotif_tpu_torch.cli", *args],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"cli {what}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    modules = {line.rsplit("|", 1)[-1].strip() for line in proc.stderr.splitlines()
+               if line.startswith("import time:") and "|" in line}
+    bad = sorted(m for m in modules if m.split(".")[0] in ("jax", "jaxlib", "lightmotif_tpu"))
+    if bad or "lightmotif_tpu_torch" not in modules:
+        raise SystemExit(f"cli {what}: imported {bad or 'no lightmotif_tpu_torch'}")
+    timing = [json.loads(line) for line in proc.stderr.splitlines()
+              if line.startswith('{"event": "cli_timing"')]
+    return {"wall_s": wall, "timing": timing[-1] if timing else None,
+            "modules": len(modules)}
+
+
+def cli_split(db_file, seq) -> None:
+    """Where the CLI's database x genome run spends its host time, stage
+    by stage through the CLI's own functions: motif preparation, the
+    first ``_scan_all`` (the scanner, its packing, the scan and a
+    ``MultiHit`` per hit), a second one on the packed database, the scan's
+    arrays alone, a p-value per hit and the TSV rows."""
+    from lightmotif_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        ["-m", db_file, "--format", "jaspar16", "-s", "-", "-o", "-",
+         "-P", str(DB_PVALUE), "--reverse"])
+    split = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[key] = time.perf_counter() - t0
+        return out
+
+    jobs = timed("prepare_motifs_s", lambda: cli.prepare_motifs(args))
+    cache = {}
+    timed("first_scan_all_s", lambda: list(cli._scan_all(jobs, seq, args, DEVICE, cache)))
+    rows = timed("second_scan_all_s",
+                 lambda: list(cli._scan_all(jobs, seq, args, DEVICE, cache)))
+    timed("scan_arrays_s", lambda: cache["single"].scan_arrays(seq))
+    pvs = timed("pvalues_s", lambda: [job.dist.pvalue(hit.score) for job, _, hit in rows])
+    timed("rows_s", lambda: [
+        f"1\tgenome\t{job.index + 1}\t{job.name}\t{hit.position}\t{strand}\t"
+        f"{np.float32(hit.score)}\t{pv:e}\n" for (job, strand, hit), pv in zip(rows, pvs)])
+    log("cli", split="database x genome through the CLI's functions", rows=len(rows),
+        **{k: f"{v:.3f}" for k, v in split.items()})
+
+
+def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -> None:
+    """The FIMO-like CLI on the card, through its files: the synthetic
+    database written as a JASPAR16 file, the genome and the batch phase's
+    records as FASTA, MX000001 as a one-motif JASPAR16 file.
+
+    In this process (``cli.main``, the launch counts reset before each run
+    and read after): database x genome at p = 1e-6 on both strands, equal
+    to the per-PSSM brute force (positions and f32 bits) through the
+    prefilter; database x records in one flight and in several (the reader
+    thread, one flight in flight), the two TSVs byte-identical and equal
+    to the batch phase's MultiBatchScanner hits, the prefilter launched
+    once per group and flight segment; MX000001 x genome at the default
+    p = 1e-5, equal to the main path's Scanner hits through K2.  Then
+    ``python -m lightmotif_tpu_torch.cli`` in subprocesses, database x
+    genome, cold (a fresh build directory: nvcc and the packing) and warm
+    (the same directory): the cold build must not compile ``probes.cu``,
+    neither process may import JAX, and each TSV equals the in-process one."""
+    import os
+    import shutil
+    import tempfile
+
+    from lightmotif_tpu_torch import CountMatrix, EncodedSequence
+    from lightmotif_tpu_torch.ops import multi
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    try:
+        db_file = os.path.join(work, "database.jaspar16")
+        write_jaspar16(db_file, counts, "SY")
+        genome_fa = os.path.join(work, "genome.fa")
+        write_fasta(genome_fa, [("genome", seq)])
+        records_fa = os.path.join(work, "records.fa")
+        write_fasta(records_fa, [(f"rec{i}", r) for i, r in enumerate(records)])
+        mx_file = os.path.join(work, "MX000001.jaspar16")
+        write_jaspar16(mx_file, [CountMatrix.from_sequences(
+            EncodedSequence.encode(p) for p in PATTERNS)], "MX")
+
+        # the motifs as the CLI loads them, against the synthetic ones
+        from lightmotif_tpu_torch import load
+
+        loaded = [m.counts.to_freq(0.1).to_scoring(None) for m in load(db_file)]
+        differ = sum(not np.array_equal(np.asarray(a.data).view(np.uint32),
+                                        np.asarray(b.data).view(np.uint32))
+                     for a, b in zip(loaded, ms.pssms))
+        log("cli", motifs=len(loaded), pssms_differing_in_bits_from_synthetic=differ,
+            files=",".join(f"{os.path.basename(f)}={os.path.getsize(f)}" for f in
+                           (db_file, genome_fa, records_fa, mx_file)))
+
+        k = ms.pssms[0].alphabet.size
+        short, _ = multi.route_motifs(ms.pssm_stack, ms.lengths, ms.thresholds, k,
+                                      MultiScanner.dense_m_limit(k))
+        size = MultiScanner.GROUP_MOTIFS
+        group_min_m = [int(ms.lengths[short[s:s + size]].min())
+                       for s in range(0, short.size, size)]
+
+        def k3_launches(length):
+            return sum(-(-max(length - m + 1, 0) // MultiScanner.SEGMENT)
+                       for m in group_min_m)
+
+        def to_ids(motif, reverse):
+            return motif + DB_MOTIFS * reverse
+
+        # database x genome, one solo record through MultiScanner
+        out = os.path.join(work, "genome.tsv")
+        launches, wall, timing = run_cli(
+            ["-m", db_file, "--format", "jaspar16", "-s", genome_fa, "-o", out,
+             "-P", str(DB_PVALUE), "--reverse"], "database x genome")
+        si, mo, rev, pos, bits = cli_rows(out)
+        ids = to_ids(mo, rev)
+        order = np.lexsort((pos, ids))
+        if not (np.array_equal(ids[order], brute[0]) and np.array_equal(pos[order], brute[1])
+                and np.array_equal(bits[order], brute[2]) and not si.any()):
+            raise SystemExit(f"cli database x genome != brute force "
+                             f"({len(pos)} rows vs {len(brute[0])})")
+        want_k3 = k3_launches(len(seq))
+        if launches["prefilter_any8"] != want_k3 or launches["score_u8"]:
+            raise SystemExit(f"cli database x genome: launches {launches}, "
+                             f"expected prefilter_any8={want_k3}")
+        log("cli", run="database x genome", rows=len(pos), equal_brute_force=True,
+            launches=launches, wall_s=f"{wall:.3f}", cli_timing=json.dumps(timing))
+        genome_tsv = open(out).read()
+        cli_split(db_file, seq)
+
+        # database x records, one flight and several
+        rec_b, mo_b, local_b, sc_b = batch_hits
+        order = np.lexsort((local_b, mo_b, rec_b))
+        want_b = (rec_b[order], mo_b[order], local_b[order],
+                  (sc_b[order] + np.float32(0.0)).view(np.uint32))
+        gap = int(ms.lengths.max()) - 1
+        tsvs = []
+        for flight_bytes in (None, CLI_FLIGHT_BYTES):
+            out = os.path.join(work, f"records-{flight_bytes}.tsv")
+            extra = [] if flight_bytes is None else ["--flight-bytes", str(flight_bytes)]
+            launches, wall, timing = run_cli(
+                ["-m", db_file, "--format", "jaspar16", "-s", records_fa, "-o", out,
+                 "-P", str(DB_PVALUE), "--reverse", *extra], "database x records")
+            si, mo, rev, pos, bits = cli_rows(out)
+            ids = to_ids(mo, rev)
+            order = np.lexsort((pos, ids, si))
+            got = (si[order], ids[order], pos[order], bits[order])
+            if not all(np.array_equal(a, b) for a, b in zip(got, want_b)):
+                raise SystemExit(f"cli database x records ({flight_bytes}): rows != "
+                                 f"MultiBatchScanner ({len(pos)} vs {len(want_b[0])})")
+            flights = cli_flights([len(r) for r in records], gap,
+                                  flight_bytes or (16 << 20))
+            want_k3 = sum(k3_launches(sum(n + gap for n in f) if len(f) > 1 else f[0])
+                          for f in flights)
+            if launches["prefilter_any8"] != want_k3:
+                raise SystemExit(f"cli database x records ({flight_bytes}): launches "
+                                 f"{launches}, expected prefilter_any8={want_k3} over "
+                                 f"{len(flights)} flights")
+            tsvs.append(open(out).read())
+            log("cli", run="database x records", flight_bytes=flight_bytes or "default",
+                flights=len(flights), rows=len(pos), equal_multibatchscanner=True,
+                launches=launches, wall_s=f"{wall:.3f}", cli_timing=json.dumps(timing))
+        if tsvs[0] != tsvs[1]:
+            raise SystemExit("cli database x records: one flight and several differ")
+        log("cli", check="database x records: TSV of one flight == TSV of several flights")
+
+        # MX000001 x genome at the default p = 1e-5, through the Scanner
+        out = os.path.join(work, "mx.tsv")
+        launches, wall, timing = run_cli(
+            ["-m", mx_file, "--format", "jaspar16", "-s", genome_fa, "-o", out],
+            "MX000001 x genome")
+        si, mo, rev, pos, bits = cli_rows(out)
+        if not (np.array_equal(pos, scanner_hits[0]) and np.array_equal(bits, scanner_hits[1])
+                and not (si.any() or mo.any() or rev.any())):
+            raise SystemExit(f"cli MX000001 x genome != Scanner ({len(pos)} rows vs "
+                             f"{len(scanner_hits[0])})")
+        if launches["score_u8"] < 1 or launches["prefilter_any8"]:
+            raise SystemExit(f"cli MX000001 x genome: launches {launches}")
+        log("cli", run="MX000001 x genome", rows=len(pos), equal_scanner=True,
+            launches=launches, wall_s=f"{wall:.3f}", cli_timing=json.dumps(timing))
+
+        # subprocesses: cold (a fresh build directory), then warm
+        cache = os.path.join(work, "build")
+        for what in ("cold", "warm"):
+            out = os.path.join(work, f"genome-{what}.tsv")
+            run = cli_subprocess(["-m", db_file, "--format", "jaspar16", "-s", genome_fa,
+                                  "-o", out, "-P", str(DB_PVALUE), "--reverse"], cache, what)
+            built = sorted(os.listdir(cache))
+            if any(name.startswith("liblm-probes") for name in built):
+                raise SystemExit(f"cli {what}: the build compiled probes.cu: {built}")
+            if open(out).read() != genome_tsv:
+                raise SystemExit(f"cli {what}: TSV != the in-process run's")
+            log("cli", run=f"python -m lightmotif_tpu_torch.cli, database x genome, {what}",
+                wall_s=f"{run['wall_s']:.3f}", rows=genome_tsv.count("\n") - 1,
+                cli_timing=json.dumps(run["timing"]), jax_imported=False,
+                modules_imported=run["modules"],
+                build_dir=",".join(n for n in built if n.endswith(".so")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def phase_other_paths(seq) -> None:
@@ -1057,7 +1414,7 @@ def launch_earlier(seq, table, n_scores):
     kernels._check(seq, table, torch.float32, n_scores)
     if not (seq.is_contiguous() and table.is_contiguous()):
         raise ValueError("seq and table must be contiguous")
-    lib = build.library()
+    lib = build.probe_library()
     m, k = table.shape
     smem = m * k * 4 + lib.lm_score_variants() + m - 1
     if smem > kernels._MAX_SMEM:
@@ -1603,12 +1960,13 @@ def main() -> int:
     errs["prefilter_any8"] = phase_k3(cases)
     errs.update(phase_k4k5(cases, seq))
     del cases
-    launches = phase_main_path(pssm, seq)
-    ms, launches["prefilter_any8"], brute = phase_database(seq)
+    launches, scanner_hits = phase_main_path(pssm, seq)
+    ms, launches["prefilter_any8"], brute, counts = phase_database(seq)
     db, groups5, launches["prefilter_any16"], launches["prefilter_any"] = phase_modes(
         ms, seq, brute)
     phase_other_paths(seq)
-    records, br, mbs = phase_batch(pssm, seq, ms)
+    records, br, mbs, batch_hits = phase_batch(pssm, seq, ms)
+    phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute)
     times = phase_times(pssm, seq)
     times["prefilter_any8"] = phase_database_times(ms, seq)
     times.update(phase_mode_times(ms, seq, db, groups5))

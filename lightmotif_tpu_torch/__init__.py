@@ -5,8 +5,11 @@ kernels written by hand in CUDA C++ for NVIDIA Hopper.  This package
 holds the count -> frequency -> weight -> scoring -> discrete matrix
 chain, exact-f32 scoring with max / argmax reductions, the two-pass
 thresholded ``Scanner``, the MEME score distribution, the motif-database
-scan (``scanner.MultiScanner``) and batched records (``batch``).  It
-imports ``torch`` and numpy, never JAX.
+scan (``scanner.MultiScanner``), batched records (``batch``), the five
+motif formats (``io``, ``load``), FASTA ingest with the native encoder
+(``fasta``, ``native``) and the FIMO-like CLI
+(``python -m lightmotif_tpu_torch.cli``).  It imports ``torch`` and numpy,
+never JAX.
 
 On a CUDA device the scans run the kernels of ``ops/csrc/``; on the CPU,
 when a caller asks for it (``device="cpu"`` or
@@ -37,7 +40,13 @@ from .dist import ScoreDistribution
 from .scores import MatrixCoordinates, Scores, StripedScores
 from .sequence import EncodedSequence, StripedSequence
 from .scanner import Hit, Scanner
-from .motif import Motif
+from .motif import (
+    JasparMotif,
+    MemeMotif,
+    Motif,
+    TransfacMotif,
+    UniprobeMotif,
+)
 
 __all__ = [
     "DNA",
@@ -60,11 +69,38 @@ __all__ = [
     "StripedSequence",
     "Hit",
     "Scanner",
-    "Motif",
     "create",
     "stripe",
     "scan",
+    "load",
+    "Loader",
+    "Motif",
+    "JasparMotif",
+    "TransfacMotif",
+    "MemeMotif",
+    "UniprobeMotif",
 ]
+
+
+def load(file=None, format: str = "jaspar16", protein: bool = False, *,
+         data=None):
+    """Load motifs from a file (see :func:`lightmotif_tpu_torch.io.load`)."""
+    from .io import load as _load
+
+    return _load(file, format=format, protein=protein, data=data)
+
+
+class Loader:
+    """Iterator over motifs in a file (reference ``io.rs:206-315``)."""
+
+    def __init__(self, file, format: str = "jaspar16", protein: bool = False):
+        self._it = load(file, format=format, protein=protein)
+
+    def __iter__(self):
+        return self._it
+
+    def __next__(self):
+        return next(self._it)
 
 
 def create(sequences, protein: bool = False, name: str | None = None) -> Motif:

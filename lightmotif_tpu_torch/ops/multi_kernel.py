@@ -221,17 +221,22 @@ def _check(name, seq, planes, chunk_m, t_eff):
         raise ValueError(f"{name}: unsupported device {seq.device}")
 
 
-def launch(name, variant: int | None, seq, planes, chunk_m, t_eff) -> torch.Tensor:
-    """Launch instantiation ``variant`` of the kernel (``lm_prefilter_variant``;
-    ``None``: the production one through the entry point ``lm_{name}``) on
-    checked CUDA tensors.  Every argument comes from the tensors' shapes
-    and pointers; nothing is read back from the device."""
+def launch(name, variant: int | None, seq, planes, chunk_m, t_eff,
+           lib=None) -> torch.Tensor:
+    """Launch instantiation ``variant`` of the kernel (``lm_prefilter_variant``,
+    from ``lib``, the probe library the probes pass; ``None``: the
+    production one through the entry point ``lm_{name}`` of
+    :func:`.build.library`) on checked CUDA tensors.  Every argument comes
+    from the tensors' shapes and pointers; nothing is read back from the
+    device."""
     from . import build
 
     for t in (seq, planes, chunk_m, t_eff):
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
-    lib = build.library()
+    if variant is not None and lib is None:
+        raise ValueError(f"{name}: instantiation {variant} needs the probe library")
+    lib = build.library() if lib is None else lib
     if lib.lm_prefilter_lanes() != K3_LANES:
         raise RuntimeError("csrc/prefilter.cu and K3_LANES disagree")
     n_planes, n_chunks, _, rows, k = planes.shape

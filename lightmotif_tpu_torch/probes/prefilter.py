@@ -156,7 +156,7 @@ def mma_max(filt: torch.Tensor, x: torch.Tensor, kind: str = "u8") -> torch.Tens
         return mma_max_plain(filt, x)
     if not (filt.is_contiguous() and x.is_contiguous()):
         raise ValueError("mma_max takes contiguous tensors")
-    lib = build.library()
+    lib = build.probe_library()
     if (lib.lm_probe_lanes(), lib.lm_probe_depth()) != (P6_LANES, P6_DEPTH):
         raise RuntimeError("csrc/probes.cu and the P6 shapes disagree")
     if kind == "bf16":
@@ -201,7 +201,7 @@ def prefilter_lookup(seq: torch.Tensor, table: torch.Tensor, chunk_m: torch.Tens
         planes = table.permute(0, 3, 1, 2).to(torch.int64)
         cells = torch.stack([(planes >> (8 * q)) & 255 for q in range(4)]).to(torch.uint8)
         return torch_ops.prefilter_any8(seq, cells, chunk_m, t_eff)
-    lib = build.library()
+    lib = build.probe_library()
     smem = lib.lm_prefilter_lookup_smem(rows, k)
     if smem > multi_kernel._MAX_SMEM:
         raise ValueError(f"lookup kernel: {smem} bytes of shared memory for {rows} rows")
@@ -231,12 +231,13 @@ def prefilter_variant(variant: int, seq: torch.Tensor, planes: torch.Tensor,
     multi_kernel._check("prefilter_variant", seq, planes, chunk_m, t_eff)
     if seq.device.type == "cpu":
         return torch_ops.prefilter_any8(seq, planes, chunk_m, t_eff)
-    lib = build.library()
+    lib = build.probe_library()
     orient, cpp, pw, warps = VARIANTS[variant]
     if lib.lm_prefilter_variant_info(variant) != (warps << 24 | (orient == "m") << 16
                                                   | cpp << 8 | pw):
         raise RuntimeError("csrc/prefilter.cu and VARIANTS disagree")
-    out = multi_kernel.launch("prefilter_variant", variant, seq, planes, chunk_m, t_eff)
+    out = multi_kernel.launch("prefilter_variant", variant, seq, planes, chunk_m, t_eff,
+                              lib=lib)
     LAUNCHES["prefilter_variant"] += 1
     return out
 
@@ -289,7 +290,7 @@ def prefilter_bits(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tenso
         return prefilter_bits_plain(seq, planes, chunk_m, t_eff, n_valid)
     if not n_valid.is_contiguous():
         raise ValueError("n_valid must be contiguous")
-    lib = build.library()
+    lib = build.probe_library()
     n_planes, chunks, _, rows, k = planes.shape
     smem = lib.lm_prefilter_smem(lib.lm_prefilter_production(), rows, k, n_planes)
     if not 0 < smem <= multi_kernel._MAX_SMEM:
@@ -312,7 +313,7 @@ def production_variant() -> int:
     """The index of the instantiation the entry points launch."""
     from ..ops import build
 
-    return build.library().lm_prefilter_production()
+    return build.probe_library().lm_prefilter_production()
 
 
 # -- measurement (the card only) ----------------------------------------------

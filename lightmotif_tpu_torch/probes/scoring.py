@@ -197,7 +197,7 @@ def reset_launches() -> None:
 def _library():
     from ..ops import build
 
-    return build.library()
+    return build.probe_library()
 
 
 # -- family A -------------------------------------------------------------

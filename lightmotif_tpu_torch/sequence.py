@@ -30,7 +30,26 @@ DEFAULT_COLUMNS = 32
 
 
 def _encode_bytes(data: bytes, alphabet: Alphabet, lossy: bool) -> np.ndarray:
-    """ASCII -> rank encode using the alphabet's 256-entry LUT."""
+    """ASCII -> rank encode using the alphabet's 256-entry LUT.
+
+    Host-runtime equivalent of the reference's SIMD ``encode_into``
+    (``pli/platform/avx2.rs:40-99``): the C++ extension (:mod:`.native`)
+    does one table lookup per byte with the GIL released; the NumPy path
+    is the fallback, with the same bytes.
+    """
+    from . import native
+
+    mod = native.get()
+    if mod is not None:
+        try:
+            out = mod.encode(
+                data, alphabet.lut.tobytes(), lossy, alphabet.default_index
+            )
+        except ValueError as e:
+            pos = int(str(e).rsplit(" ", 1)[-1])
+            raise InvalidSymbolError(chr(data[pos])) from None
+        return np.frombuffer(out, dtype=np.uint8)
+
     raw = np.frombuffer(data, dtype=np.uint8)
     encoded = alphabet.lut[raw]
     invalid = encoded == 255
@@ -144,6 +163,13 @@ class EncodedSequence:
         return int(np.count_nonzero(self.data == symbol))
 
     def count_symbols(self) -> np.ndarray:
+        from . import native
+
+        mod = native.get()
+        if mod is not None and self.data.flags["C_CONTIGUOUS"]:
+            return np.asarray(
+                mod.count_symbols(self.data, self.alphabet.size),
+                dtype=np.int64)
         return np.bincount(self.data, minlength=self.alphabet.size).astype(np.int64)
 
     def reverse_complement(self) -> "EncodedSequence":

@@ -18,6 +18,8 @@ def test_import_leaves_jax_out(tmp_path):
         "import lightmotif_tpu_torch.ops.build, lightmotif_tpu_torch.convert\n"
         "import lightmotif_tpu_torch.ops.multi, lightmotif_tpu_torch.scanner\n"
         "import lightmotif_tpu_torch.batch\n"
+        "import lightmotif_tpu_torch.io, lightmotif_tpu_torch.fasta\n"
+        "import lightmotif_tpu_torch.native, lightmotif_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'lightmotif_tpu'))\n"
         "assert not bad, bad\n"
@@ -44,3 +46,10 @@ def test_sources_import_neither_jax_nor_the_jax_package():
 def test_kernel_sources_ship_with_the_package():
     for name in ("score.cu", "prefilter.cu"):
         assert (PACKAGE / "ops" / "csrc" / name).is_file()
+
+
+def test_native_source_ships_with_the_package():
+    assert (PACKAGE / "_native" / "lightmotif_native.cpp").is_file()
+    pyproject = (ROOT / "pyproject.toml").read_text()
+    assert '"lightmotif_tpu_torch._native" = ["*.cpp"]' in pyproject
+    assert 'lightmotif-tpu-torch = "lightmotif_tpu_torch.cli:main"' in pyproject

@@ -2,6 +2,8 @@
 and ``lightmotif_tpu``: the same numpy inputs, made from a seed, built
 into each package's objects."""
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -10,6 +12,14 @@ import lightmotif_tpu as jlm
 import lightmotif_tpu_torch as tlm
 from lightmotif_tpu.ops import kernels as jax_kernels
 from lightmotif_tpu_torch.ops import pipeline as tpipeline
+
+# Every test process (each imports this module while collecting) keeps
+# JAX's persistent compilation cache and the port's build directory out
+# of the user's cache: the JAX CLI (tests/test_cli.py) would point JAX's
+# cache there, and JAX sets its cache up once per process, at the first
+# compile that sees a directory, so tests/test_cache.py fails when it
+# runs later in the same worker.  Tests that need the variable set it.
+os.environ["LIGHTMOTIF_TPU_COMPILE_CACHE"] = "off"
 
 
 def bits(values) -> np.ndarray:
