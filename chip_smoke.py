@@ -6,7 +6,7 @@
 Phases, one line of output each (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions;
+   versions; every module of the port imported, with no JAX;
 2. build: ``nvcc`` compiles ``lightmotif_tpu_torch/ops/csrc/*.cu`` for
    ``sm_90a``, one process per source, all at once: first the production
    build (``score.cu``, ``prefilter.cu``), then the probe build
@@ -77,7 +77,34 @@ Phases, one line of output each (any failure exits non-zero):
     to phase 5's Scanner hits through K2.  Then ``python -m
     lightmotif_tpu_torch.cli`` cold (a fresh build directory) and warm:
     no ``probes.cu`` in the cold build, no JAX imported, the same TSV;
-13. times on the card (CUDA events, median of 15 samples after a
+    and ``--mesh`` (the default mesh), database x genome and MX000001 x
+    genome, each TSV equal to the solo run's;
+13. exact TFM-PVALUE: MX000001's score at p = 1e-5 by TFM-PVALUE and by
+    the MEME distribution, with their host seconds;
+14. the host Gibbs sampler (``sampler.Sampler``): 16 sequences of 40,000
+    bp and 16 of 500 bp with MX000001's first site planted, 200 OOPS
+    steps on the card and on the CPU from one numpy seed: identical
+    trajectories (hold-out, starts, active set, counts) at every step,
+    K1 launched once per long hold-out drawn and equal there to its
+    plain version and ``score_host``; seconds per step on each device;
+15. the batched sampler (``sampler_batch``) on the card, OOPS and ZOOPS,
+    64 chains over 200 seeded peak-like sequences of 100-500 bp with a
+    width-10 site planted: 100 steps and a resume of 100 bit-identical
+    to 200, the planted site recovered by a 1,200-step run (about six
+    sweeps of the sequences), seconds per step;
+16. the sharded scans (``parallel``) at full width on 8 shards of the
+    card: ``ShardedScanner`` equal to phase 5's Scanner hits, its
+    ``max`` and ``sharded_argmax`` the known best hit, which wins its tie
+    across shards 4 and 5; ``ShardedMultiScanner`` with the database, on
+    the 8 shards and on the default mesh, equal to ``MultiScanner`` and
+    the brute force (K3 once per group and shard); the dense motifs of
+    phase 10 through the mesh (K1 once per motif and shard); each wall
+    beside the single-device wall of the same call;
+17. two processes joined with ``torch.distributed`` (gloo), both on the
+    card, four shards each, over the genome and the database: their
+    merged hits equal the single-process hits, and both report the known
+    argmax and the same per-shard counts.
+18. times on the card (CUDA events, median of 15 samples after a
     warm-up), each kernel beside its plain version, its bound (the least
     time the card could take: bytes over HBM's rate or operations over
     the card's peak) and a ``conv1d`` library yardstick: device time per
@@ -87,10 +114,10 @@ Phases, one line of output each (any failure exits non-zero):
     the K3 and u16 modes and, from one more run through the scanner's
     timing hook and ``torch.profiler``, its split by stage, device-busy
     time and host time; the batch classes' walls;
-14. the host's part of one ``kernels.score_f32`` call (median enqueue
+19. the host's part of one ``kernels.score_f32`` call (median enqueue
     time of 400 calls) beside the earlier wrapper's per-call work and the
     kernel's device time;
-15. the prefilter probes (``lightmotif_tpu_torch.probes.prefilter``),
+20. the prefilter probes (``lightmotif_tpu_torch.probes.prefilter``),
     each checked once against its plain version with its launches
     counted from 0, then timed: P6, the tensor cores' u8 and bf16 rates
     at the prefilter's operand shapes (2,048 lanes x depth 128 x 262,144
@@ -98,7 +125,7 @@ Phases, one line of output each (any failure exits non-zero):
     tensor-core prefilter replaced, at database group 0; P8 and P10, the
     tensor-core instantiations in each orientation at the bench shape
     (and at group 0);
-16. the scoring probes (``lightmotif_tpu_torch.probes.scoring``) and P9,
+21. the scoring probes (``lightmotif_tpu_torch.probes.scoring``) and P9,
     each checked once against its plain version with its launches counted
     from 0, then timed: family A, every instantiation of the scoring
     kernel in each mode it takes at the genome (the first kernel, variant 0,
@@ -178,6 +205,30 @@ RECORD_SHORT_EVERY = 97
 CLI_HEADER = "seq_index\tseq_name\tmotif_index\tmotif_name\tpos\tstrand\tscore\tpvalue"
 CLI_FLIGHT_BYTES = 1 << 20
 
+# the host Gibbs sampler: SAMPLER_COUNT sequences of each length, MX000001's
+# first site planted once in each, SAMPLER_STEPS OOPS steps
+SAMPLER_SEED = 0x5A3D1
+SAMPLER_COUNT = 16
+SAMPLER_LONG = 40_000
+SAMPLER_SHORT = 500
+SAMPLER_STEPS = 200
+
+# the batched sampler: BATCH_SEQS peak-like sequences of 100-500 bp with a
+# width-10 site planted once in each, BATCH_CHAINS chains.  BATCH_STEPS
+# (one step per sequence) is the resumed run; recovering the site takes
+# about six sweeps of the 200 sequences (BATCH_RECOVERY_STEPS)
+BATCH_SEED = 0xB5A
+BATCH_SEQS = 200
+BATCH_LENGTHS = (100, 500)
+BATCH_MOTIF = "TGACTCAGCA"
+BATCH_CHAINS = 64
+BATCH_STEPS = 200
+BATCH_RECOVERY_STEPS = 1200
+BATCH_ZOOPS_SEEDS = 4
+
+# the sharded scans: shards on the one card
+MESH_SHARDS = 8
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W),
 # for the least time a kernel's work could take
 HBM_BYTES_PER_S = 3.35e12
@@ -215,6 +266,13 @@ def reset_launches() -> None:
 
     kernels.reset_launches()
     multi_kernel.reset_launches()
+
+
+def launch_counts() -> dict:
+    """The launches of every kernel wrapper since the last reset."""
+    from lightmotif_tpu_torch.ops import kernels, multi_kernel
+
+    return {**kernels.LAUNCHES, **multi_kernel.LAUNCHES}
 
 
 def phase_card() -> None:
@@ -670,7 +728,6 @@ def check_scan(name, got, want) -> None:
 def phase_database(seq):
     """The database path at full size; returns (scanner, its launches,
     the brute force's hits, the forward strands' count matrices)."""
-    from lightmotif_tpu_torch.ops import kernels, multi_kernel
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
     from lightmotif_tpu_torch.scanner import MultiScanner
 
@@ -685,7 +742,7 @@ def phase_database(seq):
     got = ms.scan_arrays(seq)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {**kernels.LAUNCHES, **multi_kernel.LAUNCHES}
+    launches = launch_counts()
     if launches["prefilter_any8"] < 1:
         raise SystemExit(f"the database scan never launched K3: {launches}")
     routing = ms._route()
@@ -899,11 +956,8 @@ def phase_batch(pssm, seq, ms) -> tuple:
     BatchReducer, the MultiBatchScanner, its hit arrays)."""
     from lightmotif_tpu_torch import Scanner
     from lightmotif_tpu_torch.batch import BatchReducer, BatchScanner, MultiBatchScanner
-    from lightmotif_tpu_torch.ops import kernels, multi, multi_kernel
+    from lightmotif_tpu_torch.ops import multi
     from lightmotif_tpu_torch.scanner import DEFAULT_SEGMENT, MultiScanner
-
-    def counts():
-        return {**kernels.LAUNCHES, **multi_kernel.LAUNCHES}
 
     def expect(what, launches, want):
         if {k: v for k, v in launches.items() if v} != want:
@@ -916,7 +970,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     reset_launches()
     am, mx = br.argmax()
     torch.cuda.synchronize()
-    launches_br = counts()
+    launches_br = launch_counts()
     expect("BatchReducer.argmax", launches_br, {"score_f32": 1})
     for i, r in enumerate(records):
         if len(r) < m:
@@ -935,7 +989,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     bs = BatchScanner(pssm, records, threshold=t, device=DEVICE)
     reset_launches()
     got = bs.collect()
-    launches_bs = counts()
+    launches_bs = launch_counts()
     # one concatenation of the records with m - 1 separators each
     n_windows = sum(map(len, records)) + len(records) * (m - 1) - m + 1
     expect("BatchScanner.collect", launches_bs,
@@ -953,7 +1007,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     mbs.rebind_prepared(prepared)
     reset_launches()
     rec, mo, local, sc = mbs.collect_arrays()
-    launches_mbs = counts()
+    launches_mbs = launch_counts()
     # K3 once per group and segment; every motif of this database is short
     k = ms.pssms[0].alphabet.size
     short, _ = multi.route_motifs(ms.pssm_stack, ms.lengths, ms.thresholds, k,
@@ -1038,7 +1092,6 @@ def run_cli(args: list, what: str) -> tuple:
     import io
 
     from lightmotif_tpu_torch import cli
-    from lightmotif_tpu_torch.ops import kernels, multi_kernel
 
     err = io.StringIO()
     reset_launches()
@@ -1047,7 +1100,7 @@ def run_cli(args: list, what: str) -> tuple:
         rc = cli.main([*args, "-q"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**kernels.LAUNCHES, **multi_kernel.LAUNCHES}
+    launches = launch_counts()
     if rc != 0:
         raise SystemExit(f"cli {what}: exit {rc}")
     timing = [json.loads(line) for line in err.getvalue().splitlines()
@@ -1251,6 +1304,23 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
         log("cli", run="MX000001 x genome", rows=len(pos), equal_scanner=True,
             launches=launches, wall_s=f"{wall:.3f}", cli_timing=json.dumps(timing))
 
+        # --mesh (the default mesh: every card): the same TSVs through the
+        # sharded scanners, the prefilter and K2 launched
+        for what, mfile, extra, want_tsv, kernel in (
+                ("database x genome", db_file, ["-P", str(DB_PVALUE), "--reverse"], genome_tsv,
+                 "prefilter_any8"),
+                ("MX000001 x genome", mx_file, [], open(out).read(), "score_u8")):
+            mesh_out = os.path.join(work, "mesh.tsv")
+            launches, wall, timing = run_cli(
+                ["-m", mfile, "--format", "jaspar16", "-s", genome_fa, "-o", mesh_out, *extra,
+                 "--mesh"], f"{what} --mesh")
+            if open(mesh_out).read() != want_tsv:
+                raise SystemExit(f"cli {what} --mesh: TSV != the solo TSV")
+            if launches[kernel] < 1:
+                raise SystemExit(f"cli {what} --mesh: launches {launches}")
+            log("cli", run=f"{what} --mesh", rows=want_tsv.count("\n") - 1,
+                equal_solo_tsv=True, launches=launches, wall_s=f"{wall:.3f}")
+
         # subprocesses: cold (a fresh build directory), then warm
         cache = os.path.join(work, "build")
         for what in ("cold", "warm"):
@@ -1276,7 +1346,6 @@ def phase_other_paths(seq) -> None:
     each scan must have launched K1 once per dense motif and K3 once per
     motif group."""
     from lightmotif_tpu_torch import DNA, PROTEIN, EncodedSequence
-    from lightmotif_tpu_torch.ops import kernels, multi_kernel
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
     from lightmotif_tpu_torch.scanner import MultiScanner
 
@@ -1293,7 +1362,7 @@ def phase_other_paths(seq) -> None:
         reset_launches()
         got = ms.scan_arrays(s)
         torch.cuda.synchronize()
-        launches = {**kernels.LAUNCHES, **multi_kernel.LAUNCHES}
+        launches = launch_counts()
         n_dense, n_groups = len(ms._route()["dense_idx"]), len(ms._groups)
         if launches["score_f32"] < n_dense or launches["prefilter_any8"] < n_groups:
             raise SystemExit(f"{name}: {n_dense} dense motifs and {n_groups} groups, "
@@ -1304,6 +1373,414 @@ def phase_other_paths(seq) -> None:
             launches=launches)
         if not len(got[0]) or not n_dense:
             raise SystemExit(f"{name}: no hits or no dense motif, the check is vacuous")
+
+
+def phase_imports() -> None:
+    """Every module of the port imports without JAX and without the JAX
+    package."""
+    import importlib
+    import pkgutil
+
+    import lightmotif_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(lightmotif_tpu_torch.__path__,
+                                                   "lightmotif_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lightmotif_tpu"))
+    if bad:
+        raise SystemExit(f"imports: the port imported {bad}")
+    log("imports", modules=len(names), jax_imported=False,
+        new=",".join(n.split(".", 1)[1] for n in names if n.split(".")[1] in (
+            "tfmpvalue", "sampler", "sampler_batch", "parallel", "utils")))
+
+
+def phase_tfmpvalue(pssm) -> None:
+    """MX000001's score at p = 1e-5 by exact TFM-PVALUE and by the MEME
+    distribution, each with its host seconds (fresh objects, no cache)."""
+    from lightmotif_tpu_torch import ScoreDistribution, TfmPvalue
+
+    t0 = time.perf_counter()
+    tfmp = TfmPvalue(pssm)
+    exact = tfmp.score(1e-5)
+    tfmp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meme = ScoreDistribution(pssm).score(1e-5)
+    meme_s = time.perf_counter() - t0
+    p_exact = tfmp.pvalue(exact)
+    if not (np.isfinite(exact) and 0.0 < p_exact < 1.0
+            and exact == pssm.score_for_pvalue(1e-5, method="tfmpvalue")):
+        raise SystemExit(f"tfmpvalue: score {exact} with p-value {p_exact}")
+    log("tfmpvalue", pssm="MX000001", pvalue=1e-5, tfmpvalue_score=exact,
+        tfmpvalue_pvalue_of_score=p_exact, tfmpvalue_host_s=f"{tfmp_s:.4f}",
+        meme_score=meme, meme_host_s=f"{meme_s:.4f}", difference=exact - meme)
+
+
+def planted_strings(rng, lengths, motif: str) -> tuple:
+    """Random DNA strings of the given lengths with ``motif`` planted once
+    in each; returns (strings, planted positions)."""
+    out, where = [], []
+    for n in lengths:
+        s = rng.integers(0, 4, int(n))
+        p = int(rng.integers(0, int(n) - len(motif) + 1))
+        s[p:p + len(motif)] = ["ACGT".index(c) for c in motif]
+        out.append("".join(np.asarray(list("ACGT"))[s]))
+        where.append(p)
+    return out, np.asarray(where)
+
+
+def phase_sampler() -> int:
+    """The host Gibbs sampler: 16 sequences of 40,000 bp and 16 of 500 bp
+    with MX000001's first site planted, 200 OOPS steps on the card and
+    on the CPU from the same numpy seed.  The trajectories must be
+    identical at every step, and K1 must launch once per long hold-out
+    drawn (and nothing else) on the card.  K1 at a long hold-out's shape
+    is timed beside its plain version on the card and on the host CPU
+    (what a CPU step pays per long hold-out).  Returns K1's launches."""
+    from lightmotif_tpu_torch import EncodedSequence
+    from lightmotif_tpu_torch import sampler as smod
+    from lightmotif_tpu_torch.ops import kernels, torch_ops
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+
+    rng = np.random.default_rng(SAMPLER_SEED)
+    lengths = [SAMPLER_LONG] * SAMPLER_COUNT + [SAMPLER_SHORT] * SAMPLER_COUNT
+    strings, planted = planted_strings(rng, lengths, PATTERNS[0])
+    data = smod.SamplerData([EncodedSequence.encode(s) for s in strings])
+
+    def run(device):
+        sampler = smod.Sampler(data, width=len(PATTERNS[0]),
+                               rng=np.random.default_rng(SAMPLER_SEED), device=device)
+        steps = []
+        t0 = time.perf_counter()
+        for _, it in zip(range(SAMPLER_STEPS), sampler):
+            steps.append((it.z, tuple(sampler.starts), sampler.active.tobytes(),
+                          sampler.motif.tobytes(), sampler.background_counts.tobytes()))
+        torch.cuda.synchronize()
+        return steps, (time.perf_counter() - t0) / SAMPLER_STEPS, sampler, it
+
+    reset_launches()
+    card, card_s, sampler, last = run(DEVICE)
+    launches = launch_counts()
+    host, host_s, _, _ = run("cpu")
+    long_drawn = sum(len(data.sequences[z]) >= smod.DEVICE_THRESHOLD for z, *_ in card)
+    if {k: v for k, v in launches.items() if v} != {"score_f32": long_drawn} or not long_drawn:
+        raise SystemExit(f"sampler: launches {launches}, {long_drawn} long hold-outs drawn")
+    bad = next((i for i, (a, b) in enumerate(zip(card, host)) if a != b), None)
+    if bad is not None or len(card) != len(host):
+        raise SystemExit(f"sampler: the card's trajectory leaves the CPU's at step {bad}")
+    # K1 at the hold-outs' shape against its plain version and the host oracle
+    z = next(z for z, *_ in reversed(card) if len(data.sequences[z]) >= smod.DEVICE_THRESHOLD)
+    dseq = DeviceSequence(data.sequences[z], DEVICE)
+    w = torch.from_numpy(np.ascontiguousarray(last.pssm.data)).to(DEVICE)
+    n = len(data.sequences[z]) - len(last.pssm) + 1
+    err = check_kernel("score_f32", kernels.score_f32, torch_ops.score_f32, dseq.data, w, n)
+    got = kernels.score_f32(dseq.data, w, n)[:n].cpu().numpy()
+    if not np.array_equal(got.view(np.uint32),
+                          last.pssm.score_host(data.sequences[z]).view(np.uint32)):
+        raise SystemExit("sampler: K1 != score_host at a hold-out")
+    k1_ms = time_cuda(lambda: kernels.score_f32(dseq.data, w, n), repeat=20)
+    plain_ms = time_cuda(lambda: torch_ops.score_f32(dseq.data, w, n))
+    seq_cpu, w_cpu = dseq.data.cpu(), w.cpu()
+    cpu_plain_ms = statistics.median(wall_ms(lambda: torch_ops.score_f32(seq_cpu, w_cpu, n)))
+    shifts = np.asarray(sampler.starts) - planted
+    log("sampler", sequences=f"{SAMPLER_COUNT}x{SAMPLER_LONG}+{SAMPLER_COUNT}x{SAMPLER_SHORT}",
+        steps=SAMPLER_STEPS, identical_card_cpu=True, long_holdouts=long_drawn,
+        launches=launches, k1_equal_plain_and_host=True, max_abs_err=err,
+        card_s_per_step=f"{card_s:.5f}", cpu_s_per_step=f"{host_s:.5f}",
+        holdout_windows=n, k1_ms=f"{k1_ms:.4f}", k1_plain_ms=f"{plain_ms:.4f}",
+        k1_plain_host_cpu_ms=f"{cpu_plain_ms:.4f}",
+        information_content=f"{last.pssm.information_content():.3f}",
+        # sequences at the planted site, up to the most common shift
+        at_planted_site=f"{max(np.mean(shifts == d) for d in range(-3, 4)):.3f}")
+    return launches["score_f32"]
+
+
+def peak_strings() -> list:
+    """BATCH_SEQS seeded peak-like sequences of 100-500 bp, each with
+    BATCH_MOTIF planted once."""
+    rng = np.random.default_rng(BATCH_SEED)
+    lengths = rng.integers(BATCH_LENGTHS[0], BATCH_LENGTHS[1] + 1, BATCH_SEQS)
+    return planted_strings(rng, lengths, BATCH_MOTIF)[0]
+
+
+def aligned(consensus: str, motif: str, max_shift: int = 2) -> int:
+    """Most positions of ``consensus`` (case ignored) equal to ``motif``
+    shifted by at most ``max_shift``."""
+    consensus = consensus.upper()
+    return max(sum(consensus[i] == motif[i + d] for i in range(len(consensus))
+                   if 0 <= i + d < len(motif))
+               for d in range(-max_shift, max_shift + 1))
+
+
+def phase_batch_sampler() -> None:
+    """The batched sampler on the card, OOPS and ZOOPS, 64 chains over the
+    peak-like sequences: 100 steps and a resume of 100 must be
+    bit-identical to one run of 200; a run of BATCH_RECOVERY_STEPS must
+    recover the planted motif (its best chain's consensus, within a shift
+    of 2)."""
+    from lightmotif_tpu_torch import sampler_batch as bmod
+
+    seqs = peak_strings()
+    for mode, fn, kw in (("oops", bmod.sample_oops_batch, {}),
+                         ("zoops", bmod.sample_zoops_batch, {"seeds": BATCH_ZOOPS_SEEDS})):
+        common = dict(width=len(BATCH_MOTIF), chains=BATCH_CHAINS, seed=BATCH_SEED,
+                      device=DEVICE, **kw)
+        half = BATCH_STEPS // 2
+        part = fn(seqs, steps=half, **common)
+        rest = fn(seqs, steps=BATCH_STEPS - half, state=part.state, **common)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = fn(seqs, steps=BATCH_STEPS, **common)
+        full_s = time.perf_counter() - t0
+        same = (np.array_equal(rest.starts, full.starts) and np.array_equal(rest.active, full.active)
+                and np.array_equal(rest.information_content.view(np.uint32),
+                                   full.information_content.view(np.uint32))
+                and torch.equal(rest.state.key, full.state.key))
+        if not same:
+            raise SystemExit(f"batch_sampler {mode}: {half} + {BATCH_STEPS - half} steps != "
+                             f"{BATCH_STEPS} steps")
+        t0 = time.perf_counter()
+        rec = fn(seqs, steps=BATCH_RECOVERY_STEPS, **common)
+        rec_s = time.perf_counter() - t0
+        consensus = rec.count_matrix().consensus()
+        if aligned(consensus, BATCH_MOTIF) < len(BATCH_MOTIF) - 2:
+            raise SystemExit(f"batch_sampler {mode}: consensus {consensus} of "
+                             f"{BATCH_RECOVERY_STEPS} steps, planted {BATCH_MOTIF}")
+        log("batch_sampler", mode=mode, sequences=len(seqs), chains=BATCH_CHAINS,
+            resume=f"{half}+{BATCH_STEPS - half} == {BATCH_STEPS} steps (bit-identical)",
+            s_per_step=f"{full_s / BATCH_STEPS:.5f}",
+            steps_per_s=f"{BATCH_STEPS / full_s:.1f}",
+            recovery_steps=BATCH_RECOVERY_STEPS,
+            recovery_s_per_step=f"{rec_s / BATCH_RECOVERY_STEPS:.5f}",
+            consensus=consensus, planted=BATCH_MOTIF,
+            best_ic=f"{float(rec.information_content[rec.best]):.3f}",
+            best_active=int(rec.active[rec.best].sum()))
+
+
+def mesh_k3_launches(sm) -> int:
+    """K3 launches of one ``ShardedMultiScanner`` scan of the bound
+    genome: one per motif group, shard and segment with a window of the
+    group."""
+    launches = 0
+    for _, dseq in sm._bound["shards"]:
+        scanner = sm._scanners[dseq.device]
+        for g in scanner._groups:
+            n_valid = int(np.maximum(dseq.length - sm.lengths[g["ids"]] + 1, 0).max())
+            launches += -(-n_valid // scanner.SEGMENT)
+    return launches
+
+
+def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
+    """The sharded scans at full width on MESH_SHARDS x the card and on
+    the default mesh: ShardedScanner (MX000001, the genome, p = 1e-5)
+    equal to the Scanner's hits; sharded_argmax equal to score_max, the
+    known best hit winning its tie across shards; ShardedMultiScanner
+    with the database equal to MultiScanner (K3 once per group and
+    shard); the four long dense motifs of phase_other_paths through the
+    mesh (K1 once per motif and shard).  Walls beside the single-device
+    walls of the same call.  Returns the launches of each kernel."""
+    from lightmotif_tpu_torch import DNA, Scanner
+    from lightmotif_tpu_torch.ops.pipeline import PAD_MULTIPLE, Pipeline
+    from lightmotif_tpu_torch.parallel import (ShardedMultiScanner, ShardedScanner,
+                                               make_genome_mesh, sharded_argmax)
+    from lightmotif_tpu_torch.parallel import mesh as mesh_mod
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    total = {}
+
+    def expect(what, launches, want):
+        if {k: v for k, v in launches.items() if v} != want:
+            raise SystemExit(f"mesh {what}: launches {launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    mesh = make_genome_mesh([DEVICE] * MESH_SHARDS)
+    default = make_genome_mesh()
+    t = pssm.score_distribution().score(1e-5)
+    n = len(seq) - len(pssm) + 1
+
+    reset_launches()
+    sc = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
+    hits = sc.collect()
+    torch.cuda.synchronize()
+    expect("ShardedScanner.collect", launch_counts(), {"score_u8": MESH_SHARDS})
+    shard_hits = sc.shard_hits.tolist()
+    pos = np.asarray([h.position for h in hits], np.int64)
+    bits = np.asarray([f32_bits(h.score) for h in hits], np.uint32)
+    if not (np.array_equal(pos, scanner_hits[0]) and np.array_equal(bits, scanner_hits[1])):
+        raise SystemExit(f"mesh: ShardedScanner != Scanner ({len(hits)} vs {len(scanner_hits[0])})")
+    best = sc.max()
+    if best.position != KNOWN_BEST_POS or f32_bits(best.score) != KNOWN_BEST_BITS:
+        raise SystemExit(f"mesh: ShardedScanner.max {best}")
+    log("mesh", check="ShardedScanner.collect == Scanner, max == the known best",
+        shards=MESH_SHARDS, hits=len(hits), shard_hits=shard_hits)
+
+    reset_launches()
+    mx, am = sharded_argmax(np.asarray(pssm.data), np.asarray(seq.data), mesh=mesh)
+    torch.cuda.synchronize()
+    expect("sharded_argmax", launch_counts(), {"score_f32": MESH_SHARDS})
+    chunk = mesh_mod._chunk_for(n, MESH_SHARDS, PAD_MULTIPLE)
+    if am != KNOWN_BEST_POS or f32_bits(mx) != KNOWN_BEST_BITS:
+        raise SystemExit(f"mesh: sharded_argmax ({mx}, {am})")
+    if KNOWN_TIE_POS // chunk == KNOWN_BEST_POS // chunk:
+        raise SystemExit("mesh: the tie does not cross shards")
+    log("mesh", check="sharded_argmax == score_max", argmax=am, bits=hex(f32_bits(mx)),
+        tie_at=KNOWN_TIE_POS, tie_shard=KNOWN_TIE_POS // chunk,
+        best_shard=KNOWN_BEST_POS // chunk, chunk=chunk)
+
+    want = ms.scan_arrays(seq)
+    scanners = {}
+    for label, devices in ((f"{MESH_SHARDS} x {DEVICE}", mesh), ("default", default)):
+        reset_launches()
+        t0 = time.perf_counter()
+        sm = ShardedMultiScanner(ms.pssms, thresholds=ms.thresholds, mesh=devices)
+        got = sm.scan_arrays(seq)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        expect(f"ShardedMultiScanner ({label})", launch_counts(),
+               {"prefilter_any8": mesh_k3_launches(sm)})
+        check_scan(f"mesh ShardedMultiScanner ({label})", got, brute)
+        if not same_hits(got, want):
+            raise SystemExit(f"mesh ShardedMultiScanner ({label}) != MultiScanner")
+        scanners[label] = sm
+        log("mesh", check="ShardedMultiScanner.scan_arrays == MultiScanner == brute force",
+            mesh=label, shards=len(devices), groups=len(sm._scanners[devices[0]]._groups),
+            hits=len(got[0]),
+            launches=launch_counts(), first_scan_s=f"{first_s:.3f}")
+
+    rng = np.random.default_rng(0xDE45E)  # phase_other_paths' dense motifs
+    long = synthetic_motifs(rng, DNA, [129, 150, 200, 257])
+    ths = [p.score_distribution().score(1e-5) for p in long]
+    dense = ShardedMultiScanner(long, thresholds=ths, mesh=mesh)
+    reset_launches()
+    got = dense.scan_arrays(seq)
+    torch.cuda.synchronize()
+    expect("dense", launch_counts(), {"score_f32": len(long) * MESH_SHARDS})
+    single = MultiScanner(long, thresholds=ths, device=DEVICE)
+    if not (len(got[0]) and same_hits(got, single.scan_arrays(seq))):
+        raise SystemExit("mesh: dense motifs != MultiScanner")
+    log("mesh", check="dense motifs through the mesh == MultiScanner", motifs=len(long),
+        shards=MESH_SHARDS, hits=len(got[0]))
+
+    # walls of the same call, sharded and single-device, in turns
+    pipe = Pipeline(DEVICE)
+    single_scanner = Scanner(pssm, seq, threshold=t, device=DEVICE)
+    pairs = (
+        ("ShardedScanner.collect / Scanner.collect", sc.collect, single_scanner.collect),
+        ("sharded_argmax (shard + upload) / Pipeline.score_max (upload)",
+         lambda: sharded_argmax(np.asarray(pssm.data), np.asarray(seq.data), mesh=mesh),
+         lambda: pipe.score_max(pssm, seq)),
+        (f"ShardedMultiScanner.collect_arrays / MultiScanner.scan_arrays, {len(ms.pssms)} PSSMs",
+         scanners[f"{MESH_SHARDS} x {DEVICE}"].collect_arrays, lambda: ms.scan_arrays(seq)),
+        ("dense ShardedMultiScanner.collect_arrays / MultiScanner.scan_arrays",
+         dense.collect_arrays, lambda: single.scan_arrays(seq)),
+    )
+    med = statistics.median
+    for op, sharded, one in pairs:
+        a1, b1, b2, a2 = wall_ms(one), wall_ms(sharded), wall_ms(sharded), wall_ms(one)
+        log("times", op=f"mesh walls, {MESH_SHARDS} shards on one card: {op}",
+            sharded_ms=f"{min(med(b1), med(b2)):.4f}", single_ms=f"{min(med(a1), med(a2)):.4f}",
+            runs=f"sharded={med(b1):.4f},{med(b2):.4f} single={med(a1):.4f},{med(a2):.4f}")
+    return total
+
+
+MESH_WORKER = """
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method="tcp://localhost:" + port, world_size=2,
+                        rank=rank)
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from lightmotif_tpu_torch.parallel import (ShardedMultiScanner, ShardedScanner,
+                                           make_genome_mesh, sharded_argmax)
+
+torch.cuda.set_device(0)
+pssm, seq = cs.build_inputs()
+pssms, ths, _ = cs.synthetic_database(cs.DB_MOTIFS, cs.DB_SEED)
+mesh = make_genome_mesh([cs.DEVICE] * (cs.MESH_SHARDS // 2))
+cs.reset_launches()
+t = pssm.score_distribution().score(1e-5)
+hits = ShardedScanner(pssm, seq, threshold=t, mesh=mesh).collect()
+mx, am = sharded_argmax(np.asarray(pssm.data), np.asarray(seq.data), mesh=mesh)
+sm = ShardedMultiScanner(pssms, thresholds=ths, mesh=mesh)
+mo, pos, sc = sm.scan_arrays(seq)
+torch.cuda.synchronize()
+launches = cs.launch_counts()
+np.savez(out, pos=np.asarray([h.position for h in hits], np.int64),
+         bits=np.asarray([cs.f32_bits(h.score) for h in hits], np.uint32),
+         argmax=np.asarray([cs.f32_bits(mx), am], np.int64),
+         mo=mo, mpos=pos, msc=sc, shard_hits=sm.shard_hits,
+         launches=np.asarray([launches[k] for k in sorted(launches)], np.int64),
+         names=np.asarray(sorted(launches)),
+         jax=np.asarray(sorted(m for m in sys.modules
+                               if m.split(".")[0] in ("jax", "lightmotif_tpu"))))
+dist.destroy_process_group()
+"""
+
+
+def phase_mesh_procs(scanner_hits, brute) -> None:
+    """Two processes joined with gloo, both on the card, each owning
+    MESH_SHARDS / 2 shards: over the genome (ShardedScanner and
+    sharded_argmax) and the database (ShardedMultiScanner); their merged
+    hits must equal the single-process hits, and both must report the
+    known argmax and the same per-shard hit counts."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    outs = [os.path.join(work, f"rank{r}.npz") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_WORKER, str(r), port, outs[r]],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise SystemExit(f"mesh_procs: rank {r} exit {p.returncode}\n{text[-4000:]}")
+        wall = time.perf_counter() - t0
+        res = [dict(np.load(o)) for o in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    pos = np.concatenate([r["pos"] for r in res])
+    bits = np.concatenate([r["bits"] for r in res])
+    order = np.argsort(pos, kind="stable")
+    if not (np.array_equal(pos[order], scanner_hits[0])
+            and np.array_equal(bits[order], scanner_hits[1])):
+        raise SystemExit("mesh_procs: the merged ShardedScanner hits != Scanner")
+    for r in res:
+        if r["argmax"].tolist() != [KNOWN_BEST_BITS, KNOWN_BEST_POS] or r["jax"].size:
+            raise SystemExit(f"mesh_procs: argmax {r['argmax'].tolist()}, jax {r['jax']}")
+    if not np.array_equal(res[0]["shard_hits"], res[1]["shard_hits"]):
+        raise SystemExit("mesh_procs: the ranks' per-shard counts differ")
+    mo = np.concatenate([r["mo"] for r in res])
+    mpos = np.concatenate([r["mpos"] for r in res])
+    msc = np.concatenate([r["msc"] for r in res])
+    order = np.lexsort((mpos, mo))
+    check_scan("mesh_procs ShardedMultiScanner", (mo[order], mpos[order], msc[order]), brute)
+    launches = [dict(zip(r["names"].tolist(), r["launches"].tolist())) for r in res]
+    if any(min(n["score_u8"], n["score_f32"], n["prefilter_any8"]) < 1 for n in launches):
+        raise SystemExit(f"mesh_procs: a kernel of the path never launched: {launches}")
+    log("mesh_procs", processes=2, backend="gloo", device=str(DEVICE),
+        shards_each=MESH_SHARDS // 2, scanner_hits=[len(r["pos"]) for r in res],
+        database_hits=[len(r["mo"]) for r in res], merged_equal_single=True,
+        argmax=KNOWN_BEST_POS, shard_hits=res[0]["shard_hits"].tolist(),
+        launches=launches, wall_s=f"{wall:.3f}")
 
 
 def bound(nbytes: float, ops: float, kind: str) -> tuple:
@@ -1952,6 +2429,7 @@ def main() -> int:
         return 1
     torch.cuda.set_device(0)
     phase_card()
+    phase_imports()
     phase_build()
     phase_sass()
     pssm, seq = build_inputs()
@@ -1967,6 +2445,13 @@ def main() -> int:
     phase_other_paths(seq)
     records, br, mbs, batch_hits = phase_batch(pssm, seq, ms)
     phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute)
+    # the last slice's paths: each kernel's launches there join its count
+    phase_tfmpvalue(pssm)
+    launches["score_f32"] += phase_sampler()
+    phase_batch_sampler()
+    for name, n in phase_mesh(pssm, seq, ms, scanner_hits, brute).items():
+        launches[name] += n
+    phase_mesh_procs(scanner_hits, brute)
     times = phase_times(pssm, seq)
     times["prefilter_any8"] = phase_database_times(ms, seq)
     times.update(phase_mode_times(ms, seq, db, groups5))

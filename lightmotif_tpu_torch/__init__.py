@@ -4,10 +4,13 @@ The port of ``lightmotif_tpu`` (JAX on a TPU) to PyTorch, with its
 kernels written by hand in CUDA C++ for NVIDIA Hopper.  This package
 holds the count -> frequency -> weight -> scoring -> discrete matrix
 chain, exact-f32 scoring with max / argmax reductions, the two-pass
-thresholded ``Scanner``, the MEME score distribution, the motif-database
+thresholded ``Scanner``, score <-> p-value conversion (the MEME score
+distribution and exact TFM-PVALUE, ``tfmpvalue``), the motif-database
 scan (``scanner.MultiScanner``), batched records (``batch``), the five
 motif formats (``io``, ``load``), FASTA ingest with the native encoder
-(``fasta``, ``native``) and the FIMO-like CLI
+(``fasta``, ``native``), Gibbs motif discovery (``sampler``, and many
+chains at once in ``sampler_batch``), scans sharded over devices and
+processes (``parallel``) and the FIMO-like CLI
 (``python -m lightmotif_tpu_torch.cli``).  It imports ``torch`` and numpy,
 never JAX.
 
@@ -40,6 +43,14 @@ from .dist import ScoreDistribution
 from .scores import MatrixCoordinates, Scores, StripedScores
 from .sequence import EncodedSequence, StripedSequence
 from .scanner import Hit, Scanner
+from .sampler import Sampler, SamplerData
+from .sampler_batch import (
+    BatchSamplerResult,
+    BatchSamplerState,
+    sample_oops_batch,
+    sample_zoops_batch,
+)
+from .tfmpvalue import TfmPvalue
 from .motif import (
     JasparMotif,
     MemeMotif,
@@ -69,6 +80,13 @@ __all__ = [
     "StripedSequence",
     "Hit",
     "Scanner",
+    "Sampler",
+    "SamplerData",
+    "sample_oops_batch",
+    "sample_zoops_batch",
+    "BatchSamplerResult",
+    "BatchSamplerState",
+    "TfmPvalue",
     "create",
     "stripe",
     "scan",

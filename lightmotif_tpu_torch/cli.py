@@ -15,14 +15,16 @@ this drives the device scan: one motif through the two-pass
 (:class:`~.scanner.MultiScanner`), and files of many records through
 batched flights (:class:`~.batch.MultiBatchScanner`) that a reader
 thread reads, encodes and uploads while the previous flight scans.
+``--mesh`` shards each record's scan over every device of the genome
+mesh instead (:class:`~.parallel.ShardedScanner`,
+:class:`~.parallel.ShardedMultiScanner`), one record at a time.
 
 The device is the port's (:func:`.ops.pipeline.default_device`): the
 current CUDA device, or the one chosen with ``use_device``; without
 either the CLI raises, it never runs on the CPU by itself.
 ``--compile-cache`` (the default) builds the CUDA kernels into the
 cached build directory of :mod:`.ops.build`; ``--no-compile-cache``
-into a fresh temporary one.  ``--mesh`` (sharding across devices) is
-not in this package yet and is refused.
+into a fresh temporary one.
 """
 
 from __future__ import annotations
@@ -55,11 +57,6 @@ __all__ = ["main"]
 #: are not padded to it.
 DEFAULT_FLIGHT_BYTES = 16 << 20
 
-#: Refusal of ``--mesh`` until sharding is ported.
-MESH_ERROR = ("--mesh (sharding each scan across devices) is not ported to "
-              "lightmotif_tpu_torch yet: see ROADMAP.md, queue 1 (sharding)")
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="lightmotif-tpu-torch",
@@ -88,10 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="also scan the reverse-complement strand")
     parser.add_argument("--protein", action="store_true", help="protein alphabet")
     parser.add_argument("--mesh", action="store_true",
-                        help="shard each scan across all devices (not ported yet)")
+                        help="shard each scan across all devices")
     parser.add_argument("-j", "--jobs", type=int, default=None,
                         help="accepted for reference-CLI compatibility; "
-                        "the device scan is already parallel")
+                        "the device scan is already parallel (use --mesh "
+                        "for several devices)")
     parser.add_argument("--block-size", type=int, default=None,
                         help="positions per device dispatch")
     parser.add_argument("--compile-cache", action=argparse.BooleanOptionalAction,
@@ -148,6 +146,10 @@ def prepare_motifs(args) -> list:
 
 
 def _scan(pssm, seq, threshold, args, device):
+    if args.mesh:
+        from .parallel import ShardedScanner
+
+        return ShardedScanner(pssm, seq, threshold=threshold).collect()
     scanner = Scanner(pssm, seq, threshold=threshold, device=device)
     if args.block_size:
         scanner.block_size = args.block_size
@@ -168,25 +170,35 @@ def _scan_all(motifs, seq, args, device, cache=None):
     """Yield (job, strand, hit) for every motif/strand over one sequence.
 
     With multiple motifs all (motif, strand) matrices scan in one
-    database pass (:class:`MultiScanner`).  ``cache`` (a dict) keeps the
-    scanner, and with it the packed motif database, across records, so
-    multi-record streams pay the database-preparation cost once."""
+    database pass (:class:`MultiScanner`, or its mesh counterpart
+    :class:`~.parallel.ShardedMultiScanner` under ``--mesh``).  ``cache``
+    (a dict) keeps the scanner, and with it the packed motif database,
+    across records, so multi-record streams pay the database-preparation
+    cost once."""
     strands = _build_strands(motifs, args)
     if len(strands) <= 1:
         for job, strand, pssm in strands:
             for hit in _scan(pssm, seq, job.threshold, args, device):
                 yield job, strand, hit
         return
-    scanner = None if cache is None else cache.get("single")
+    key = "mesh" if args.mesh else "single"
+    scanner = None if cache is None else cache.get(key)
     if scanner is None:
-        scanner = MultiScanner(
-            [p for _, _, p in strands],
-            thresholds=[job.threshold for job, _, _ in strands],
-            single_bucket=True,  # every group bucketed to the longest motif
-            device=device,
-        )
+        pssms = [p for _, _, p in strands]
+        thresholds = [job.threshold for job, _, _ in strands]
+        if args.mesh:
+            from .parallel import ShardedMultiScanner
+
+            scanner = ShardedMultiScanner(pssms, thresholds=thresholds,
+                                          single_bucket=True)
+        else:
+            scanner = MultiScanner(
+                pssms, thresholds=thresholds,
+                single_bucket=True,  # every group bucketed to the longest motif
+                device=device,
+            )
         if cache is not None:
-            cache["single"] = scanner
+            cache[key] = scanner
     for hit in scanner.scan(seq):
         job, strand, _ = strands[hit.motif]
         yield job, strand, hit
@@ -221,8 +233,6 @@ def main(argv=None) -> int:
     imports_s = _process_age_s()
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh:
-        parser.error(MESH_ERROR)
     build.use_compile_cache(args.compile_cache)
     alphabet = PROTEIN if args.protein else DNA
 
@@ -298,8 +308,8 @@ def main(argv=None) -> int:
                 )
             return batch_scanner.prepare(seqs)
 
-        if not strands:
-            prepare_fn = None
+        if not strands or args.mesh:
+            prepare_fn = None  # every record scans alone (sharded under --mesh)
 
         def emit_batched(flight, token):
             nonlocal si, n_hits

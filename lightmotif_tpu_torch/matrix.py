@@ -492,18 +492,29 @@ class ScoringMatrix(_MatrixBase):
     # -- statistics ------------------------------------------------------------
 
     def pvalue(self, score: float, method: str = "meme") -> float:
-        """P-value of a score via the MEME distribution
-        (``lib.rs:868-905``).  Exact TFM-PVALUE is not in this package
-        yet."""
+        """P-value of a score, via exact TFM-PVALUE or the MEME
+        distribution (``lib.rs:868-905``)."""
+        if method == "tfmpvalue":
+            return self._tfmp().pvalue(float(score))
         if method == "meme":
             return self.score_distribution().pvalue(float(score))
         raise ValueError(f"unknown method {method!r}")
 
     def score_for_pvalue(self, pvalue: float, method: str = "meme") -> float:
-        """Score threshold achieving a p-value (MEME distribution)."""
+        """Score threshold achieving a p-value."""
+        if method == "tfmpvalue":
+            return self._tfmp().score(float(pvalue))
         if method == "meme":
             return self.score_distribution().score(float(pvalue))
         raise ValueError(f"unknown method {method!r}")
+
+    def _tfmp(self):
+        cached = self._pipeline_cache.get("tfmp")
+        if cached is None:
+            from .tfmpvalue import TfmPvalue
+
+            cached = self._pipeline_cache["tfmp"] = TfmPvalue(self)
+        return cached
 
     def score_distribution(self):
         cached = self._pipeline_cache.get("dist")

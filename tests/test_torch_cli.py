@@ -1,9 +1,8 @@
 """The port's FIMO-like CLI (``lightmotif_tpu_torch.cli``) against the JAX
-package's: on the inputs of ``tests/test_cli.py`` (every case but
-``--mesh``, which the port refuses until sharding is ported) and on a
-protein motif file, both write byte-identical TSVs.  The port runs on
-the CPU, chosen explicitly; the JAX CLI runs as ``tests/test_cli.py``
-runs it."""
+package's: on the inputs of ``tests/test_cli.py`` (``--mesh`` included)
+and on a protein motif file, both write byte-identical TSVs.  The port
+runs on the CPU, chosen explicitly; the JAX CLI runs as
+``tests/test_cli.py`` runs it (``--mesh`` on its 8 virtual devices)."""
 
 import gzip
 import os
@@ -161,13 +160,41 @@ def test_stderr_progress_and_timing(cpu_choice, tmp_path, capsys):  # noqa: F811
     assert timing["event"] == "cli_timing"
 
 
-def test_mesh_is_refused(cpu_choice, tmp_path, capsys):  # noqa: F811
-    args = inputs(tmp_path, "planted") + ["--abs-threshold", "-12", "--mesh"]
-    with pytest.raises(SystemExit) as e:
-        cli.main([*args, "-o", str(tmp_path / "o.tsv"), "-q"])
-    assert e.value.code != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
-    assert not (tmp_path / "o.tsv").exists()
+#: (case, extra arguments) of the --mesh runs: one strand (ShardedScanner),
+#: both strands (ShardedMultiScanner), many records, a MEME file
+MESH_CASES = [
+    ("planted", ["--abs-threshold", "-12"]),
+    ("planted", ["--abs-threshold", "-10", "--reverse"]),
+    ("batched", ["--abs-threshold", "-14", "--reverse"]),
+    ("solo", ["--abs-threshold", "-8", "--flight-bytes", "4096"]),
+    ("meme", ["--abs-threshold", "0", "--reverse"]),
+]
+
+
+@pytest.mark.parametrize("shards", [None, 3], ids=["default-mesh", "3-shards"])
+@pytest.mark.parametrize("case,extra", MESH_CASES,
+                         ids=[f"{c}-{'_'.join(e)}" for c, e in MESH_CASES])
+def test_mesh_matches_single(cpu_choice, tmp_path, monkeypatch, case, extra,  # noqa: F811
+                             shards):
+    """The --mesh case of tests/test_cli.py: the port's --mesh rows equal
+    its solo rows, and its --mesh TSV is byte-identical to the JAX CLI's
+    --mesh TSV (and so to both solo TSVs, whose rows come in the same
+    order)."""
+    from lightmotif_tpu_torch.parallel import mesh
+
+    if shards is not None:
+        default = mesh.make_genome_mesh
+        monkeypatch.setattr(mesh, "make_genome_mesh",
+                            lambda devices=None: default(devices or ["cpu"] * shards))
+    args = inputs(tmp_path, case) + extra
+    got = run(cli.main, args + ["--mesh"], tmp_path / "mesh.tsv")
+    solo = run(cli.main, args, tmp_path / "solo.tsv")
+    key = lambda r: (r[0], r[2], int(r[4]), r[5])  # noqa: E731
+    rows = lambda text: sorted(map(key, (line.split("\t")  # noqa: E731
+                                         for line in text.splitlines()[1:])))
+    assert rows(got) == rows(solo) and got.count("\n") > 1
+    assert got == run(jax_main, args + ["--mesh"], tmp_path / "jax.tsv")
+    assert got == solo
 
 
 def test_no_device_is_refused_without_a_choice(tmp_path, monkeypatch):
