@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only   # phases 1-2, 5, 8, 16-17 alone
 
 Phases, one line of output each (any failure exits non-zero):
 
@@ -98,12 +99,20 @@ Phases, one line of output each (any failure exits non-zero):
     across shards 4 and 5; ``ShardedMultiScanner`` with the database, on
     the 8 shards and on the default mesh, equal to ``MultiScanner`` and
     the brute force (K3 once per group and shard); the dense motifs of
-    phase 10 through the mesh (K1 once per motif and shard); each wall
-    beside the single-device wall of the same call;
-17. two processes joined with ``torch.distributed`` (gloo), both on the
-    card, four shards each, over the genome and the database: their
-    merged hits equal the single-process hits, and both report the known
-    argmax and the same per-shard counts.
+    phase 10 through the mesh (K1 once per motif and shard); the host
+    reads of one call on 1 and 8 shards (never more on 8); the loops
+    over shards under the sync debug mode "error" (no read of the card
+    between shards); walls at 1, 2, 4 and 8 shards beside the
+    single-device walls of the same call; with two or more cards, the
+    default mesh over every card equal to one card, with walls on 1..N
+    cards (else ``multi_card: not run``);
+17. processes joined with ``torch.distributed``: two gloo processes on
+    the card, four shards each; one NCCL process of 8 shards, which
+    builds the kernels from an empty directory under two threads at
+    once; with two or more cards, two NCCL processes, one card each.
+    Their merged hits equal the single-process hits, every rank reports
+    the known best hit and the same per-shard counts, and each path
+    launches its kernel once per shard.
 18. times on the card (CUDA events, median of 15 samples after a
     warm-up), each kernel beside its plain version, its bound (the least
     time the card could take: bytes over HBM's rate or operations over
@@ -144,6 +153,7 @@ the script fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -1577,8 +1587,12 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     known best hit winning its tie across shards; ShardedMultiScanner
     with the database equal to MultiScanner (K3 once per group and
     shard); the four long dense motifs of phase_other_paths through the
-    mesh (K1 once per motif and shard).  Walls beside the single-device
-    walls of the same call.  Returns the launches of each kernel."""
+    mesh (K1 once per motif and shard).  The host reads of one call on 1
+    and MESH_SHARDS shards (no more on MESH_SHARDS); the two steps of
+    the sharded scan and the argmax's per-shard loop under the sync
+    debug mode "error" (no read of the card between the shards); walls
+    at 1, 2, 4 and 8 shards beside the single-device walls of the same
+    call.  Returns the launches of each kernel."""
     from lightmotif_tpu_torch import DNA, Scanner
     from lightmotif_tpu_torch.ops.pipeline import PAD_MULTIPLE, Pipeline
     from lightmotif_tpu_torch.parallel import (ShardedMultiScanner, ShardedScanner,
@@ -1598,6 +1612,7 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     default = make_genome_mesh()
     t = pssm.score_distribution().score(1e-5)
     n = len(seq) - len(pssm) + 1
+    genome = np.asarray(seq.data)
 
     reset_launches()
     sc = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
@@ -1609,14 +1624,17 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     bits = np.asarray([f32_bits(h.score) for h in hits], np.uint32)
     if not (np.array_equal(pos, scanner_hits[0]) and np.array_equal(bits, scanner_hits[1])):
         raise SystemExit(f"mesh: ShardedScanner != Scanner ({len(hits)} vs {len(scanner_hits[0])})")
+    reset_launches()
     best = sc.max()
+    torch.cuda.synchronize()
+    expect("ShardedScanner.max", launch_counts(), {"score_u8": MESH_SHARDS})
     if best.position != KNOWN_BEST_POS or f32_bits(best.score) != KNOWN_BEST_BITS:
         raise SystemExit(f"mesh: ShardedScanner.max {best}")
     log("mesh", check="ShardedScanner.collect == Scanner, max == the known best",
         shards=MESH_SHARDS, hits=len(hits), shard_hits=shard_hits)
 
     reset_launches()
-    mx, am = sharded_argmax(np.asarray(pssm.data), np.asarray(seq.data), mesh=mesh)
+    mx, am = sharded_argmax(pssm.data, genome, mesh=mesh)
     torch.cuda.synchronize()
     expect("sharded_argmax", launch_counts(), {"score_f32": MESH_SHARDS})
     chunk = mesh_mod._chunk_for(n, MESH_SHARDS, PAD_MULTIPLE)
@@ -1627,6 +1645,8 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     log("mesh", check="sharded_argmax == score_max", argmax=am, bits=hex(f32_bits(mx)),
         tie_at=KNOWN_TIE_POS, tie_shard=KNOWN_TIE_POS // chunk,
         best_shard=KNOWN_BEST_POS // chunk, chunk=chunk)
+
+    mesh_no_reads(sc, t)
 
     want = ms.scan_arrays(seq)
     scanners = {}
@@ -1648,6 +1668,29 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
             hits=len(got[0]),
             launches=launch_counts(), first_scan_s=f"{first_s:.3f}")
 
+    # the host reads of one call, on 1 and on MESH_SHARDS shards of the card
+    reads = {}
+    for shards in (1, MESH_SHARDS):
+        one = make_genome_mesh([DEVICE] * shards)
+        scanner = ShardedScanner(pssm, seq, threshold=t, mesh=one)
+        scanner._prep()
+        database = scanners[f"{MESH_SHARDS} x {DEVICE}"] if shards == MESH_SHARDS else (
+            ShardedMultiScanner(ms.pssms, thresholds=ms.thresholds, mesh=one).bind(seq))
+        for name, fn in (("ShardedScanner.collect", scanner.collect),
+                         ("ShardedScanner.max", scanner.max),
+                         ("sharded_argmax", lambda: sharded_argmax(pssm.data, genome, mesh=one)),
+                         ("ShardedMultiScanner.collect_arrays", database.collect_arrays)):
+            fn()  # warm
+            torch.cuda.synchronize()
+            mesh_mod.reset_host_reads()
+            fn()
+            reads.setdefault(name, {})[shards] = mesh_mod.HOST_READS
+    for name, by_shards in reads.items():
+        log("mesh", host_reads=name, **{f"shards_{k}": v for k, v in by_shards.items()})
+        if by_shards[MESH_SHARDS] > by_shards[1]:
+            raise SystemExit(f"mesh: {name} reads the card more on {MESH_SHARDS} shards: "
+                             f"{by_shards}")
+
     rng = np.random.default_rng(0xDE45E)  # phase_other_paths' dense motifs
     long = synthetic_motifs(rng, DNA, [129, 150, 200, 257])
     ths = [p.score_distribution().score(1e-5) for p in long]
@@ -1665,69 +1708,257 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     # walls of the same call, sharded and single-device, in turns
     pipe = Pipeline(DEVICE)
     single_scanner = Scanner(pssm, seq, threshold=t, device=DEVICE)
-    pairs = (
-        ("ShardedScanner.collect / Scanner.collect", sc.collect, single_scanner.collect),
-        ("sharded_argmax (shard + upload) / Pipeline.score_max (upload)",
-         lambda: sharded_argmax(np.asarray(pssm.data), np.asarray(seq.data), mesh=mesh),
-         lambda: pipe.score_max(pssm, seq)),
-        (f"ShardedMultiScanner.collect_arrays / MultiScanner.scan_arrays, {len(ms.pssms)} PSSMs",
+    pairs = []
+    for shards in (1, 2, 4, 8):
+        one = make_genome_mesh([DEVICE] * shards)
+        scanner = ShardedScanner(pssm, seq, threshold=t, mesh=one)
+        pairs += [
+            (f"{shards} shards, ShardedScanner.collect / Scanner.collect", scanner.collect,
+             single_scanner.collect),
+            (f"{shards} shards, sharded_argmax (shard + upload) / Pipeline.score_max (upload)",
+             functools.partial(sharded_argmax, pssm.data, genome, mesh=one),
+             lambda: pipe.score_max(pssm, seq))]
+    pairs += [
+        (f"{MESH_SHARDS} shards, ShardedMultiScanner.collect_arrays / "
+         f"MultiScanner.scan_arrays, {len(ms.pssms)} PSSMs",
          scanners[f"{MESH_SHARDS} x {DEVICE}"].collect_arrays, lambda: ms.scan_arrays(seq)),
-        ("dense ShardedMultiScanner.collect_arrays / MultiScanner.scan_arrays",
-         dense.collect_arrays, lambda: single.scan_arrays(seq)),
-    )
-    med = statistics.median
+        (f"{MESH_SHARDS} shards, dense ShardedMultiScanner.collect_arrays / "
+         "MultiScanner.scan_arrays", dense.collect_arrays, lambda: single.scan_arrays(seq)),
+    ]
     for op, sharded, one in pairs:
-        a1, b1, b2, a2 = wall_ms(one), wall_ms(sharded), wall_ms(sharded), wall_ms(one)
-        log("times", op=f"mesh walls, {MESH_SHARDS} shards on one card: {op}",
-            sharded_ms=f"{min(med(b1), med(b2)):.4f}", single_ms=f"{min(med(a1), med(a2)):.4f}",
-            runs=f"sharded={med(b1):.4f},{med(b2):.4f} single={med(a1):.4f},{med(a2):.4f}")
+        sharded_ms, single_ms, runs = walls_in_turns(sharded, one)
+        log("times", op=f"mesh walls on one card: {op}", sharded_ms=sharded_ms,
+            single_ms=single_ms, runs=runs)
+    # the 8-shard walls split: one profiled run each, the device's busy
+    # time (its kernels) against the rest (host, profiler included)
+    for op, sharded, one in pairs:
+        if op.startswith(f"{MESH_SHARDS} shards") and "dense" not in op:
+            (wall_a, busy_a), (wall_b, busy_b) = device_split(sharded), device_split(one)
+            log("times", op=f"mesh split, one profiled run: {op}",
+                sharded_wall_ms=f"{wall_a:.4f}", sharded_device_busy_ms=f"{busy_a:.4f}",
+                single_wall_ms=f"{wall_b:.4f}", single_device_busy_ms=f"{busy_b:.4f}")
     return total
 
 
+def device_split(fn) -> tuple:
+    """One profiled run of ``fn``: its wall (ms, profiler on) and the
+    card's busy time (ms), the sum of its kernels' device times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def walls_in_turns(sharded, single) -> tuple:
+    """Median walls (ms) of two callables in turns (single, sharded,
+    sharded, single): the lower median of each, and all four."""
+    med = statistics.median
+    a1, b1, b2, a2 = wall_ms(single), wall_ms(sharded), wall_ms(sharded), wall_ms(single)
+    return (f"{min(med(b1), med(b2)):.4f}", f"{min(med(a1), med(a2)):.4f}",
+            f"sharded={med(b1):.4f},{med(b2):.4f} single={med(a1):.4f},{med(a2):.4f}")
+
+
+def mesh_no_reads(sc, t) -> None:
+    """The loops over shards of the sharded scan (its launch step on
+    every shard, then its finish step) and of ``sharded_argmax`` (K1
+    and the last-max reduction per shard, then the merge on the card)
+    under the sync debug mode "error": any read of the card inside them
+    raises.  The steps' hits equal ``ShardedScanner``'s."""
+    from lightmotif_tpu_torch.ops import kernels, torch_ops
+    from lightmotif_tpu_torch.parallel import mesh as mesh_mod
+
+    prepared, tables = sc._prep()
+    shards, chunk, n_scores = prepared
+    (pssm_t, _), = tables.values()
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        launched = mesh_mod._launch_shards(tables, prepared, sc.dm.scale(t), len(sc.pssm))
+        torch.cuda.set_sync_debug_mode("default")
+        counts = mesh_mod._read_counts([c for rows in launched.values() for *_, c in rows])
+        torch.cuda.set_sync_debug_mode("error")
+        finished = mesh_mod._finish_shards(launched, counts, tables, chunk, t)
+        best = []
+        for d, shard in shards:
+            n_local = mesh_mod._owned(n_scores, d, chunk)
+            scores = kernels.score_f32(shard, pssm_t, n_local)[:n_local]
+            best.append((torch_ops.max_last(scores), torch_ops.argmax_last(scores) + d * chunk))
+        merged = mesh_mod._best_of(torch.stack([s for s, _ in best]),
+                                   torch.stack([p for _, p in best]))
+    except RuntimeError as e:
+        raise SystemExit(f"mesh: the card was read inside a loop over shards: {e}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = sorted(int(p) for pos, _, keep in finished for p in pos[keep].tolist())
+    if got != [h.position for h in sc.collect()]:
+        raise SystemExit("mesh: the steps under the sync debug mode != ShardedScanner")
+    if [f32_bits(merged[0].item()), int(merged[1])] != [KNOWN_BEST_BITS, KNOWN_BEST_POS]:
+        raise SystemExit(f"mesh: the merge on the card gives {merged}")
+    log("mesh", check="no read of the card inside the loops over shards (sync debug mode "
+        "error): the launch and the finish steps, K1 + argmax_last, the merge",
+        shards=len(shards), candidates=sum(counts), hits=len(got))
+
+
+def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute) -> None:
+    """With two or more cards: the default mesh over every card equal to
+    the single-process hits (ShardedScanner, sharded_argmax,
+    ShardedMultiScanner), and walls on 1..N cards, one shard per card,
+    beside the single-device walls of the same call.  With one card, a
+    log line says so."""
+    from lightmotif_tpu_torch.parallel import (ShardedMultiScanner, ShardedScanner,
+                                               make_genome_mesh, sharded_argmax)
+
+    cards = make_genome_mesh()  # every card
+    if len(cards) < 2:
+        log("mesh", multi_card=f"not run, {len(cards)} device")
+        return
+    t = pssm.score_distribution().score(1e-5)
+    genome = np.asarray(seq.data)
+    want = ms.scan_arrays(seq)
+    walls = {}
+    on_first = ShardedScanner(pssm, seq, threshold=t, mesh=cards[:1])
+    for k in range(1, len(cards) + 1):
+        mesh = cards[:k]
+        sc = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
+        hits = sc.collect()
+        if [h.position for h in hits] != scanner_hits[0].tolist() or [
+                f32_bits(h.score) for h in hits] != scanner_hits[1].tolist():
+            raise SystemExit(f"mesh_cards: ShardedScanner on {k} cards != Scanner")
+        best = sc.max()
+        mx, am = sharded_argmax(pssm.data, genome, mesh=mesh)
+        if [best.position, f32_bits(best.score), am, f32_bits(mx)] != [
+                KNOWN_BEST_POS, KNOWN_BEST_BITS, KNOWN_BEST_POS, KNOWN_BEST_BITS]:
+            raise SystemExit(f"mesh_cards: {k} cards, max {best}, argmax ({mx}, {am})")
+        reset_launches()
+        sm = ShardedMultiScanner(ms.pssms, thresholds=ms.thresholds, mesh=mesh)
+        got = sm.scan_arrays(seq)
+        for device in mesh:
+            torch.cuda.synchronize(device)
+        if launch_counts()["prefilter_any8"] != mesh_k3_launches(sm):
+            raise SystemExit(f"mesh_cards: {k} cards, launches {launch_counts()}")
+        check_scan(f"mesh_cards ShardedMultiScanner on {k} cards", got, brute)
+        if not same_hits(got, want):
+            raise SystemExit(f"mesh_cards: ShardedMultiScanner on {k} cards != MultiScanner")
+        log("mesh_cards", check="ShardedScanner, max, sharded_argmax, ShardedMultiScanner "
+            "== one card", cards=k, hits=len(hits), database_hits=len(got[0]),
+            shard_hits=sm.shard_hits.tolist())
+        for op, sharded, single in (
+                ("ShardedMultiScanner.collect_arrays / MultiScanner.scan_arrays",
+                 sm.collect_arrays, lambda: ms.scan_arrays(seq)),
+                ("ShardedScanner.collect / ShardedScanner.collect on the first card",
+                 sc.collect, on_first.collect)):
+            sharded_ms, single_ms, runs = walls_in_turns(sharded, single)
+            walls.setdefault(op, {})[k] = float(sharded_ms)
+            log("times", op=f"mesh walls on {k} cards, one shard each: {op}",
+                sharded_ms=sharded_ms, single_ms=single_ms, runs=runs,
+                positions_per_s=f"{len(seq) / float(sharded_ms) * 1e3:.4g}")
+    for op, by_k in walls.items():
+        log("mesh_cards", scaling=op, **{f"cards_{k}": f"{by_k[1] / (k * w):.3f}"
+                                         for k, w in by_k.items()})
+
+
 MESH_WORKER = """
-import os, sys
+import json, os, statistics, subprocess, sys, threading, time
 import numpy as np
 import torch
 import torch.distributed as dist
 
-rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-dist.init_process_group("gloo", init_method="tcp://localhost:" + port, world_size=2,
+rank, world, backend, port, out, card, shards, fresh = sys.argv[1:]
+rank, world, card, shards = int(rank), int(world), int(card), int(shards)
+torch.cuda.set_device(card)
+dist.init_process_group(backend, init_method="tcp://localhost:" + port, world_size=world,
                         rank=rank)
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs
+from lightmotif_tpu_torch.ops import build, kernels
 from lightmotif_tpu_torch.parallel import (ShardedMultiScanner, ShardedScanner,
                                            make_genome_mesh, sharded_argmax)
+from lightmotif_tpu_torch.parallel import mesh as mesh_mod
 
-torch.cuda.set_device(0)
+device = torch.device("cuda", card)
+nvcc = []
+if fresh == "1":
+    # two threads reach the first launch at once, the build directory
+    # empty: one build (one nvcc per source), both results equal
+    real = build.subprocess.Popen
+    build.subprocess.Popen = lambda args, **kw: nvcc.append(args[0]) or real(args, **kw)
+    seq_t = torch.randint(0, 4, (1 << 16,), dtype=torch.uint8, device=device)
+    table = torch.randn(15, 5, device=device)
+    results = [None, None]
+    def first(i):
+        results[i] = kernels.score_f32(seq_t, table, (1 << 16) - 14)
+    threads = [threading.Thread(target=first, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    build.subprocess.Popen = real
+    nvcc.append(bool(torch.equal(results[0], results[1])))
 pssm, seq = cs.build_inputs()
 pssms, ths, _ = cs.synthetic_database(cs.DB_MOTIFS, cs.DB_SEED)
-mesh = make_genome_mesh([cs.DEVICE] * (cs.MESH_SHARDS // 2))
-cs.reset_launches()
+mesh = make_genome_mesh([device] * shards)
 t = pssm.score_distribution().score(1e-5)
-hits = ShardedScanner(pssm, seq, threshold=t, mesh=mesh).collect()
-mx, am = sharded_argmax(np.asarray(pssm.data), np.asarray(seq.data), mesh=mesh)
+launches, reads = {}, {}
+def run(name, fn):
+    cs.reset_launches()
+    mesh_mod.reset_host_reads()
+    value = fn()
+    torch.cuda.synchronize()
+    launches[name], reads[name] = cs.launch_counts(), mesh_mod.HOST_READS
+    return value
+scanner = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
+hits = run("collect", scanner.collect)
+shard_hits = scanner.shard_hits
+best = run("max", scanner.max)
+mx, am = run("argmax", lambda: sharded_argmax(pssm.data, np.asarray(seq.data), mesh=mesh))
 sm = ShardedMultiScanner(pssms, thresholds=ths, mesh=mesh)
-mo, pos, sc = sm.scan_arrays(seq)
-torch.cuda.synchronize()
-launches = cs.launch_counts()
+mo, pos, sc = run("database", lambda: sm.scan_arrays(seq))
+walls = {}  # the ranks start each run together; the exchange ends it together
+for name, fn in (("ShardedScanner.collect", scanner.collect),
+                 ("ShardedMultiScanner.collect_arrays", sm.collect_arrays)):
+    times = []
+    for _ in range(cs.RUNS + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    walls[name] = statistics.median(times[1:])
 np.savez(out, pos=np.asarray([h.position for h in hits], np.int64),
          bits=np.asarray([cs.f32_bits(h.score) for h in hits], np.uint32),
          argmax=np.asarray([cs.f32_bits(mx), am], np.int64),
-         mo=mo, mpos=pos, msc=sc, shard_hits=sm.shard_hits,
-         launches=np.asarray([launches[k] for k in sorted(launches)], np.int64),
-         names=np.asarray(sorted(launches)),
+         max=np.asarray([cs.f32_bits(best.score), best.position], np.int64),
+         mo=mo, mpos=pos, msc=sc, shard_hits=shard_hits, multi_shard_hits=sm.shard_hits,
+         k3=cs.mesh_k3_launches(sm), runs=json.dumps({"launches": launches, "reads": reads,
+                                                      "nvcc": nvcc, "walls": walls}),
          jax=np.asarray(sorted(m for m in sys.modules
                                if m.split(".")[0] in ("jax", "lightmotif_tpu"))))
 dist.destroy_process_group()
 """
 
 
-def phase_mesh_procs(scanner_hits, brute) -> None:
-    """Two processes joined with gloo, both on the card, each owning
-    MESH_SHARDS / 2 shards: over the genome (ShardedScanner and
-    sharded_argmax) and the database (ShardedMultiScanner); their merged
-    hits must equal the single-process hits, and both must report the
-    known argmax and the same per-shard hit counts."""
+def run_ranks(label: str, backend: str, cards: list, shards_each: int,
+              scanner_hits, brute, fresh_build: bool = False) -> dict:
+    """One process per entry of ``cards`` (its CUDA device), joined with
+    ``torch.distributed`` over ``backend``, each owning ``shards_each``
+    shards: over the genome (ShardedScanner, its max, sharded_argmax)
+    and the database (ShardedMultiScanner).  Their merged hits must
+    equal the single-process hits, every rank must report the known best
+    hit and the same per-shard counts, and each path must launch its
+    kernel once per shard (K3 once per group and shard).  With
+    ``fresh_build`` the first rank starts from an empty build directory
+    and launches from two threads at once: one build.  Returns the walls
+    (ms, the slowest rank's median) of ``ShardedScanner.collect`` and
+    ``ShardedMultiScanner.collect_arrays``, each run started on every
+    rank at once."""
     import os
     import shutil
     import socket
@@ -1739,16 +1970,23 @@ def phase_mesh_procs(scanner_hits, brute) -> None:
         s.bind(("localhost", 0))
         port = str(s.getsockname()[1])
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    outs = [os.path.join(work, f"rank{r}.npz") for r in range(2)]
+    outs = [os.path.join(work, f"rank{r}.npz") for r in range(len(cards))]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-c", MESH_WORKER, str(r), port, outs[r]],
-                              cwd=root, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    procs = []
+    for r, card in enumerate(cards):
+        fresh = fresh_build and r == 0
+        rank_env = dict(env, LIGHTMOTIF_TPU_COMPILE_CACHE=os.path.join(work, "build")) \
+            if fresh else env
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MESH_WORKER, str(r), str(len(cards)), backend, port,
+             outs[r], str(card), str(shards_each), "1" if fresh else "0"],
+            cwd=root, env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
     try:
         for r, p in enumerate(procs):
             text, _ = p.communicate(timeout=600)
             if p.returncode != 0:
-                raise SystemExit(f"mesh_procs: rank {r} exit {p.returncode}\n{text[-4000:]}")
+                raise SystemExit(f"{label}: rank {r} exit {p.returncode}\n{text[-4000:]}")
         wall = time.perf_counter() - t0
         res = [dict(np.load(o)) for o in outs]
     finally:
@@ -1757,30 +1995,68 @@ def phase_mesh_procs(scanner_hits, brute) -> None:
                 p.kill()
                 p.wait()
         shutil.rmtree(work, ignore_errors=True)
+    runs = [json.loads(str(r["runs"])) for r in res]
     pos = np.concatenate([r["pos"] for r in res])
     bits = np.concatenate([r["bits"] for r in res])
     order = np.argsort(pos, kind="stable")
     if not (np.array_equal(pos[order], scanner_hits[0])
             and np.array_equal(bits[order], scanner_hits[1])):
-        raise SystemExit("mesh_procs: the merged ShardedScanner hits != Scanner")
+        raise SystemExit(f"{label}: the merged ShardedScanner hits != Scanner")
+    known = [KNOWN_BEST_BITS, KNOWN_BEST_POS]
     for r in res:
-        if r["argmax"].tolist() != [KNOWN_BEST_BITS, KNOWN_BEST_POS] or r["jax"].size:
-            raise SystemExit(f"mesh_procs: argmax {r['argmax'].tolist()}, jax {r['jax']}")
-    if not np.array_equal(res[0]["shard_hits"], res[1]["shard_hits"]):
-        raise SystemExit("mesh_procs: the ranks' per-shard counts differ")
+        if r["argmax"].tolist() != known or r["max"].tolist() != known or r["jax"].size:
+            raise SystemExit(f"{label}: argmax {r['argmax'].tolist()}, max "
+                             f"{r['max'].tolist()}, jax {r['jax']}")
+    for key in ("shard_hits", "multi_shard_hits"):
+        if any(not np.array_equal(res[0][key], r[key]) for r in res):
+            raise SystemExit(f"{label}: the ranks' {key} differ")
     mo = np.concatenate([r["mo"] for r in res])
     mpos = np.concatenate([r["mpos"] for r in res])
     msc = np.concatenate([r["msc"] for r in res])
     order = np.lexsort((mpos, mo))
-    check_scan("mesh_procs ShardedMultiScanner", (mo[order], mpos[order], msc[order]), brute)
-    launches = [dict(zip(r["names"].tolist(), r["launches"].tolist())) for r in res]
-    if any(min(n["score_u8"], n["score_f32"], n["prefilter_any8"]) < 1 for n in launches):
-        raise SystemExit(f"mesh_procs: a kernel of the path never launched: {launches}")
-    log("mesh_procs", processes=2, backend="gloo", device=str(DEVICE),
-        shards_each=MESH_SHARDS // 2, scanner_hits=[len(r["pos"]) for r in res],
-        database_hits=[len(r["mo"]) for r in res], merged_equal_single=True,
-        argmax=KNOWN_BEST_POS, shard_hits=res[0]["shard_hits"].tolist(),
-        launches=launches, wall_s=f"{wall:.3f}")
+    check_scan(f"{label} ShardedMultiScanner", (mo[order], mpos[order], msc[order]), brute)
+    for r, run in zip(res, runs):
+        want = {"collect": {"score_u8": shards_each}, "max": {"score_u8": shards_each},
+                "argmax": {"score_f32": shards_each},
+                "database": {"prefilter_any8": int(r["k3"])}}
+        got = {name: {k: v for k, v in counts.items() if v}
+               for name, counts in run["launches"].items()}
+        if got != want:
+            raise SystemExit(f"{label}: launches {got}, expected {want}")
+    if fresh_build and runs[0]["nvcc"] != [runs[0]["nvcc"][0]] * 2 + [True]:
+        raise SystemExit(f"{label}: the first launch from two threads: {runs[0]['nvcc']}")
+    walls = {name: max(run["walls"][name] for run in runs) for name in runs[0]["walls"]}
+    log(label, processes=len(cards), backend=backend, cards=cards, shards_each=shards_each,
+        scanner_hits=[len(r["pos"]) for r in res], database_hits=[len(r["mo"]) for r in res],
+        merged_equal_single=True, argmax=KNOWN_BEST_POS, shard_hits=res[0]["shard_hits"].tolist(),
+        launches=[run["launches"] for run in runs], host_reads=[run["reads"] for run in runs],
+        **({"first_build": "2 threads, one nvcc per source, equal results"}
+           if fresh_build else {}),
+        walls_ms={k: f"{v:.4f}" for k, v in walls.items()}, wall_s=f"{wall:.3f}")
+    return walls
+
+
+def phase_mesh_procs(scanner_hits, brute) -> None:
+    """The process exchange: two gloo processes sharing the card, four
+    shards each; one NCCL process of MESH_SHARDS shards (the collective
+    runs with one rank), whose kernels build from an empty directory
+    under two threads; with two or more cards, two NCCL processes of
+    four shards, one card each, then 1, 2 and N NCCL processes of one
+    shard and one card each: the walls across processes and their
+    scaling efficiency (the 1-process wall over k times the k-process
+    wall)."""
+    run_ranks("mesh_procs", "gloo", [0, 0], MESH_SHARDS // 2, scanner_hits, brute)
+    run_ranks("mesh_nccl", "nccl", [0], MESH_SHARDS, scanner_hits, brute, fresh_build=True)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("mesh_nccl", multi_card=f"not run, {cards} device")
+        return
+    run_ranks("mesh_nccl", "nccl", [0, 1], MESH_SHARDS // 2, scanner_hits, brute)
+    walls = {k: run_ranks("mesh_nccl_walls", "nccl", list(range(k)), 1, scanner_hits, brute)
+             for k in sorted({1, 2, cards})}
+    for op in walls[1]:
+        log("mesh_nccl_walls", scaling=op, **{
+            f"ranks_{k}": f"{walls[1][op] / (k * w[op]):.3f}" for k, w in walls.items()})
 
 
 def bound(nbytes: float, ops: float, kind: str) -> tuple:
@@ -2423,11 +2699,16 @@ def phase_score_probes(pssm, seq, ms, times) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.cuda.set_device(0)
+    if argv == ["--mesh-only"]:
+        return mesh_only()
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv} (--mesh-only or none)", file=sys.stderr)
+        return 2
     phase_card()
     phase_imports()
     phase_build()
@@ -2451,6 +2732,7 @@ def main() -> int:
     phase_batch_sampler()
     for name, n in phase_mesh(pssm, seq, ms, scanner_hits, brute).items():
         launches[name] += n
+    phase_mesh_cards(pssm, seq, ms, scanner_hits, brute)
     phase_mesh_procs(scanner_hits, brute)
     times = phase_times(pssm, seq)
     times["prefilter_any8"] = phase_database_times(ms, seq)
@@ -2479,5 +2761,23 @@ def main() -> int:
     return 0
 
 
+def mesh_only() -> int:
+    """The sharded scans alone, with what they are held to: the build,
+    the Scanner's and the database's single-device hits, then the mesh
+    phases (for a run on several cards)."""
+    phase_card()
+    phase_build()
+    pssm, seq = build_inputs()
+    _, scanner_hits = phase_main_path(pssm, seq)
+    ms, _, brute, _ = phase_database(seq)
+    phase_mesh(pssm, seq, ms, scanner_hits, brute)
+    phase_mesh_cards(pssm, seq, ms, scanner_hits, brute)
+    phase_mesh_procs(scanner_hits, brute)
+    print(json.dumps({"ok": True, "mesh_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -11,19 +11,22 @@ the Pallas kernel ``_gather_kernel``:
 A tensor on the CPU goes to the plain version in :mod:`.torch_ops`; a
 tensor on a CUDA device launches the kernel, and anything the kernel
 does not take raises.  Nothing falls back.  :data:`LAUNCHES` counts the
-kernel launches of each wrapper.
+kernel launches of each wrapper (:func:`count_launch`, safe across the
+threads of a sharded database scan).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import torch
 
 from . import torch_ops
 
-__all__ = ["score_f32", "score_u8", "LAUNCHES", "reset_launches", "smem_bytes"]
+__all__ = ["score_f32", "score_u8", "LAUNCHES", "count_launch", "reset_launches",
+           "smem_bytes"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"score_f32": 0, "score_u8": 0}
@@ -33,10 +36,20 @@ _MAX_SMEM = 232_448
 
 _SAME_DEVICE = contextlib.nullcontext()
 
+_COUNT_LOCK = threading.Lock()
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one to ``counts[name]`` under a lock: ``+=`` on a dict entry is
+    not atomic, and a sharded database scan launches from one thread per
+    device."""
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 def _check(seq: torch.Tensor, table: torch.Tensor, table_dtype, n_scores: int):
@@ -93,7 +106,7 @@ def _launch(name: str, seq, table, n_scores: int, out_dtype) -> torch.Tensor:
             torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out
 
 

@@ -60,7 +60,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import torch_ops
+from . import kernels, torch_ops
 
 __all__ = [
     "BITS_PER_WORD",
@@ -268,7 +268,7 @@ def _prefilter(name, seq, planes, chunk_m, t_eff) -> torch.Tensor:
     if seq.device.type == "cpu":
         return getattr(torch_ops, name)(seq, planes, chunk_m, t_eff)
     out = launch(name, None, seq, planes, chunk_m, t_eff)
-    LAUNCHES[name] += 1
+    kernels.count_launch(LAUNCHES, name)
     return out
 
 

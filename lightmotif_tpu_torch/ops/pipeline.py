@@ -134,6 +134,15 @@ class Pipeline:
         out = kernels.score_u8(dseq.data, self._table(dm, np.uint8), n)
         return StripedScores(out[:n].cpu().numpy(), n)
 
+    def max(self, scores: StripedScores):
+        return scores.max()
+
+    def argmax(self, scores: StripedScores):
+        return scores.argmax()
+
+    def threshold(self, scores: StripedScores, value) -> list:
+        return scores.threshold(value)
+
     def score_max(self, pssm, seq):
         """(max score, argmax) of every window, reduced on the device;
         the last maximum wins ties."""

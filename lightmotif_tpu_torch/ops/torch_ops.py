@@ -40,6 +40,8 @@ __all__ = [
     "argmax_last",
     "compact_mask",
     "rescore_positions",
+    "scan_launch",
+    "scan_finish",
     "scan_segment",
 ]
 
@@ -153,10 +155,11 @@ def argmax_last(scores: torch.Tensor) -> torch.Tensor:
     return torch.where(scores == top, pos, -1).max()
 
 
-def compact_mask(mask: torch.Tensor) -> torch.Tensor:
-    """Ascending indices of the set entries of a boolean mask; the exact
-    count is their number."""
-    return torch.nonzero(mask).flatten()
+def compact_mask(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """Ascending indices of the set entries of a boolean mask, given
+    their number ``count``: no read of the device (``nonzero`` would
+    read the count to size its output)."""
+    return torch.nonzero_static(mask, size=count).flatten()
 
 
 def rescore_positions(seq: torch.Tensor, pssm: torch.Tensor,
@@ -171,21 +174,46 @@ def rescore_positions(seq: torch.Tensor, pssm: torch.Tensor,
     return acc
 
 
-def scan_segment(chunk: torch.Tensor, n_here: int, dm: torch.Tensor,
-                 pssm: torch.Tensor, t_scaled: int, threshold: float):
-    """Two-pass scan of one segment.
-
-    ``chunk`` holds the segment's ``n_here`` window starts plus the
-    (m-1)-position halo.  The discrete first pass (the scoring kernel in
-    discrete mode) selects the candidates ``>= t_scaled``; they are
-    rescored exactly and kept where the f32 score is ``>= threshold``.
-    Returns ``(positions, scores)`` of the kept hits, in ascending
-    position order.
-    """
+def scan_launch(chunk: torch.Tensor, n_here: int, dm: torch.Tensor, t_scaled: int):
+    """The launch step of :func:`scan_segment`: the discrete first pass
+    (the scoring kernel in discrete mode) over the segment's ``n_here``
+    window starts, the candidate mask ``>= t_scaled`` and its count, all
+    left on the device.  Returns ``(mask, count)``, ``count`` an int64
+    scalar tensor."""
     from . import kernels
 
-    dscores = kernels.score_u8(chunk, dm, n_here)
-    idx = compact_mask(dscores >= t_scaled)
-    fscores = rescore_positions(chunk, pssm, idx)
-    keep = fscores >= torch.tensor(threshold, dtype=torch.float32)
-    return idx[keep], fscores[keep]
+    mask = kernels.score_u8(chunk, dm, n_here) >= t_scaled
+    return mask, mask.sum()
+
+
+def scan_finish(seq: torch.Tensor, mask: torch.Tensor, count: int,
+                pssm: torch.Tensor, threshold: float):
+    """The finish step of :func:`scan_segment`, given the number of set
+    entries of ``mask`` (the candidates of :func:`scan_launch`, or of
+    several segments laid end to end in ``seq``) as a host integer: the
+    candidates compacted at that size, rescored exactly, and the keep
+    mask ``score >= threshold``, with no read of the device.
+
+    Returns ``(positions, scores, keep)``, ``count`` entries each, in
+    ascending position order.
+    """
+    idx = compact_mask(mask, count)
+    fscores = rescore_positions(seq, pssm, idx)
+    return idx, fscores, fscores >= torch.tensor(threshold, dtype=torch.float32)
+
+
+def scan_segment(chunk: torch.Tensor, n_here: int, dm: torch.Tensor,
+                 pssm: torch.Tensor, t_scaled: int, threshold: float):
+    """Two-pass scan of one segment: :func:`scan_launch`, then
+    :func:`scan_finish`.
+
+    ``chunk`` holds the segment's ``n_here`` window starts plus the
+    (m-1)-position halo.  The discrete first pass selects the candidates
+    ``>= t_scaled``; they are rescored exactly and kept where the f32
+    score is ``>= threshold``.  Returns ``(positions, scores)`` of the
+    kept hits, in ascending position order.  Two reads of the device:
+    the candidate count and, in the boolean index, the kept count.
+    """
+    mask, count = scan_launch(chunk, n_here, dm, t_scaled)
+    positions, scores, keep = scan_finish(chunk, mask, int(count), pssm, threshold)
+    return positions[keep], scores[keep]

@@ -8,32 +8,58 @@ exactly one shard.  Shard ``d`` owns window starts ``[d * chunk, (d + 1)
 * chunk)``.
 
 A mesh is an ordered list of :class:`torch.device` s; it may name one
-device several times (8 x ``cuda:0`` puts 8 shards on one card).  Each
-shard runs the package's single-device code on its device: the two-pass
-scan (:func:`~.ops.torch_ops.scan_segment`, the scoring kernel in
-discrete mode, K2) for :func:`sharded_scan`, exact f32 scores (K1) and
-the last-max reduction for :func:`sharded_argmax`, and a
-:class:`~.scanner.MultiScanner` per device (the prefilter K3, and K1 for
-dense motifs) for :class:`ShardedMultiScanner`.  Hits come to the host,
-shifted by ``d * chunk``, and are merged; the argmax merge keeps the
-larger score and, among equal scores, the larger position.
+device several times (8 x ``cuda:0`` puts 8 shards on one card).  Every
+shard is issued before the host reads anything, as the JAX package's
+``shard_map`` program runs every shard at once, so the host reads each
+device a fixed number of times per call, whatever the number of shards:
+
+* :func:`sharded_scan` and :meth:`ShardedScanner.collect` issue every
+  shard's launch step (:func:`~.ops.torch_ops.scan_launch`: the scoring
+  kernel in discrete mode, K2, the candidate mask and its count), read
+  the candidate counts (one read per distinct device), issue the finish
+  step (:func:`~.ops.torch_ops.scan_finish`: compaction at the known
+  size, exact rescore, keep) once per device over its shards' segments
+  laid end to end, then read each device's candidates, shifted to genome
+  positions, with their keep flags (one read per device);
+* :func:`sharded_argmax` (exact f32 scores, K1, and the last-max
+  reduction per shard) and :meth:`ShardedScanner.max` merge each
+  shard's ``(max, position)`` on its device, then every device's pair on
+  the mesh's first device -- the larger score wins, and among equal
+  scores the larger position (the reference's last-max rule,
+  ``pli/mod.rs:146``) -- and read the result once;
+* :class:`ShardedMultiScanner` runs a :class:`~.scanner.MultiScanner`
+  per distinct device (the prefilter K3, and K1 for dense motifs).  That
+  scan reads counts between its stages, so each distinct device scans
+  its shards in a worker thread of its own; the caller joins the
+  workers, then reads each device's per-shard counts once and its hits
+  once.
+
+:data:`HOST_READS` counts this module's reads of the device
+(:func:`reset_host_reads` sets it to 0).
 
 Across processes (``torch.distributed`` initialised by the caller with
-the gloo backend), each process passes its own devices as its mesh, the
-global shards go to the processes in contiguous blocks in rank order,
-and each process returns the hits of its own shards, as the JAX package
-does.  The small exchanges -- the argmax merge and the per-shard hit
-counts -- are all-gathers of host tensors over the default group, which
-works alike for CPU ranks and for ranks that share one card.  Other
-backends are refused: none has been run across cards yet.
+the gloo or the NCCL backend), each process passes its own devices as
+its mesh, the global shards go to the processes in contiguous blocks in
+rank order, and each process returns the hits of its own shards, as the
+JAX package does.  The small exchanges -- the shard blocks, the
+per-shard hit counts and the argmax merge -- are all-gathers over the
+default group: of host tensors under gloo, of tensors on the current
+CUDA device under NCCL (each process calls ``torch.cuda.set_device``
+before ``init_process_group``).  Other backends are refused.  Once a
+process group is initialised the exchange runs, one rank included.
 
 The JAX package's fixed-capacity hit buffers, their ratchets and retries
-are not needed: compaction by ``nonzero`` is exact.  ``cap`` is accepted
-for signature compatibility and unused, ``pad_unit`` sets only the shard
-alignment, and no scan raises ``OverflowError``.
+are not needed: compaction at the exact count is exact.  ``cap`` is
+accepted for signature compatibility and unused, ``pad_unit`` sets only
+the shard alignment, and no scan raises ``OverflowError``.
 """
 
 from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+import functools
+import threading
 
 import numpy as np
 import torch
@@ -52,6 +78,26 @@ __all__ = [
     "ShardedScanner",
     "ShardedMultiScanner",
 ]
+
+#: Reads of the device (and of the exchange's result) by this module
+#: since the last :func:`reset_host_reads`.
+HOST_READS = 0
+_READS_LOCK = threading.Lock()
+
+
+def reset_host_reads() -> None:
+    global HOST_READS
+    with _READS_LOCK:
+        HOST_READS = 0
+
+
+def _to_host(tensor: torch.Tensor) -> np.ndarray:
+    """The module's one way to read a tensor to the host; counted in
+    :data:`HOST_READS`."""
+    global HOST_READS
+    with _READS_LOCK:
+        HOST_READS += 1
+    return tensor.cpu().numpy()
 
 
 def make_genome_mesh(devices=None) -> list:
@@ -77,42 +123,44 @@ def make_genome_mesh(devices=None) -> list:
 # -- processes ------------------------------------------------------------------
 
 
-def _world() -> tuple:
-    """(rank, world size) of ``torch.distributed``; (0, 1) when it is
-    not initialised."""
+def _distributed():
+    """``torch.distributed`` when a process group is initialised, else
+    ``None``."""
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return dist if dist.is_available() and dist.is_initialized() else None
 
 
 def _all_gather(values) -> np.ndarray:
     """Every process's ``values`` (a same-shaped numpy array on each),
-    stacked in rank order: ``[world, ...]``."""
-    local = np.asarray(values)
-    _, world = _world()
-    if world == 1:
+    stacked in rank order: ``[world, ...]``.  The collective runs
+    whenever a process group is initialised, with one rank too."""
+    local = np.ascontiguousarray(values)
+    dist = _distributed()
+    if dist is None:
         return local[None]
-    import torch.distributed as dist
-
-    if dist.get_backend() != "gloo":
-        raise RuntimeError(f"sharded scans across processes need the gloo backend, "
-                           f"not {dist.get_backend()}")
-    t = torch.as_tensor(np.ascontiguousarray(local))
-    out = [torch.empty_like(t) for _ in range(world)]
-    dist.all_gather(out, t)
-    return torch.stack(out).numpy()
+    backend = dist.get_backend()
+    if backend == "gloo":
+        device = torch.device("cpu")
+    elif backend == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        raise RuntimeError(f"sharded scans across processes need the gloo or the nccl "
+                           f"backend, not {backend}")
+    mine = torch.as_tensor(local, device=device)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return _to_host(torch.stack(every))
 
 
 def _shard_block(n_local: int) -> tuple:
     """(global shard count, this process's first shard): the processes'
     meshes laid end to end in rank order."""
-    rank, world = _world()
-    if world == 1:
+    dist = _distributed()
+    if dist is None:
         return n_local, 0
     sizes = _all_gather(np.asarray([n_local], np.int64))[:, 0]
-    return int(sizes.sum()), int(sizes[:rank].sum())
+    return int(sizes.sum()), int(sizes[: dist.get_rank()].sum())
 
 
 def _gather_counts(local: dict, n_shards: int) -> np.ndarray:
@@ -124,16 +172,45 @@ def _gather_counts(local: dict, n_shards: int) -> np.ndarray:
     return _all_gather(counts).sum(axis=0)
 
 
-def _best_everywhere(rows):
-    """The ``(score, position)`` row of every process's ``rows`` with the
-    highest score, the larger position winning ties (the reference's
-    last-max rule, ``pli/mod.rs:146``); ``None`` when there is none."""
-    rows = np.asarray(rows, np.float64).reshape(-1, 2)
-    top = (rows[np.lexsort((rows[:, 1], rows[:, 0]))[-1]] if len(rows)
-           else np.asarray([-np.inf, -1.0]))  # position -1: no row
-    every = _all_gather(top)
+def _best_everywhere(best):
+    """The best of every process's ``best`` -- ``(score, position)`` or
+    ``None`` -- by the last-max rule; ``None`` when no process has one.
+    Exchanged as int64 ``(f32 bits, position)``."""
+    row = [0, -1] if best is None else [int(np.float32(best[0]).view(np.int32)), best[1]]
+    every = _all_gather(np.asarray(row, np.int64))
     every = every[every[:, 1] >= 0]
-    return every[np.lexsort((every[:, 1], every[:, 0]))[-1]] if len(every) else None
+    if not len(every):
+        return None
+    scores = every[:, 0].astype(np.int32).view(np.float32)
+    top = scores.max()
+    return float(top), int(every[scores == top, 1].max())
+
+
+def _best_of(scores: torch.Tensor, positions: torch.Tensor) -> tuple:
+    """``(max score, the largest position holding it)`` of two vectors on
+    one device, left there."""
+    top = scores.max()
+    return top, torch.where(scores == top, positions, -1).max()
+
+
+def _merge_best(pairs: list):
+    """Merge ``(score, position)`` scalar tensors by the last-max rule:
+    those of each device on it, then each device's on the device of the
+    first pair (copies on the current streams, so each is ordered after
+    the work that made it), and one read.  Returns ``(score, position)``
+    on the host, or ``None`` for no pairs."""
+    if not pairs:
+        return None
+    by_device = {}
+    for score, position in pairs:
+        by_device.setdefault(score.device, []).append((score, position))
+    first = pairs[0][0].device
+    merged = [_best_of(*(torch.stack(column) for column in zip(*group)))
+              for group in by_device.values()]
+    top, position = _best_of(*(torch.stack([t.to(first) for t in column])
+                               for column in zip(*merged)))
+    bits, position = _to_host(torch.stack([top.view(torch.int32).to(torch.int64), position]))
+    return float(np.int32(bits).view(np.float32)), int(position)
 
 
 # -- shards ---------------------------------------------------------------------
@@ -205,41 +282,121 @@ def _owned(n_scores: int, d: int, chunk: int) -> int:
 def _per_device(array, mesh: list, dtype) -> dict:
     """One copy of a host table on each distinct device of the mesh."""
     host = np.ascontiguousarray(array, dtype=dtype)
-    return {dev: torch.as_tensor(host, device=dev) for dev in dict.fromkeys(mesh)}
+    copies = (torch.as_tensor(host, device=dev) for dev in dict.fromkeys(mesh))
+    return {t.device: t for t in copies}
+
+
+def _tables(pssm_data, dm_data, mesh: list) -> dict:
+    """``{device: (f32 table, u8 table)}`` on each distinct device."""
+    pssm = _per_device(pssm_data, mesh, np.float32)
+    dm = _per_device(dm_data, mesh, np.uint8)
+    return {dev: (pssm[dev], dm[dev]) for dev in pssm}
+
+
+def _read_counts(counts: list) -> list:
+    """Host integers of int64 scalar tensors: one read per distinct
+    device, whatever the number of tensors."""
+    by_device = {}
+    for i, count in enumerate(counts):
+        by_device.setdefault(count.device, []).append(i)
+    out = [0] * len(counts)
+    for idx in by_device.values():
+        for i, value in zip(idx, _to_host(torch.stack([counts[i] for i in idx]))):
+            out[i] = int(value)
+    return out
+
+
+def _launch_shards(tables: dict, prepared, t_scaled: int, m: int) -> dict:
+    """The launch step (:func:`~.ops.torch_ops.scan_launch`) on every
+    shard that owns windows, with no read of the device: ``{device:
+    [(shard, segment, mask, count), ...]}``."""
+    shards, chunk, n_scores = prepared
+    launched = {}
+    for d, shard in shards:
+        n_local = _owned(n_scores, d, chunk)
+        if n_local:
+            segment = shard[: n_local + m - 1]
+            launched.setdefault(segment.device, []).append((d, segment, *torch_ops.scan_launch(
+                segment, n_local, tables[segment.device][1], int(t_scaled))))
+    return launched
+
+
+def _finish_shards(launched: dict, counts: list, tables: dict, chunk: int,
+                   threshold: float) -> list:
+    """The finish step of each device's shards together, given their
+    candidate counts in :func:`_launch_shards`' order, with no read of
+    the device: :func:`~.ops.torch_ops.scan_finish` over the device's
+    segments laid end to end, so the rescore's small ops run once per
+    device, not once per shard.  Returns, per device with candidates,
+    ``(global positions, scores, keep)`` of every candidate of its
+    shards, in position order."""
+    finished, at = [], 0
+    for device, rows in launched.items():
+        here, at = counts[at : at + len(rows)], at + len(rows)
+        if not sum(here):
+            continue
+        positions, scores, keep = torch_ops.scan_finish(
+            torch.cat([segment for _, segment, _, _ in rows]),
+            torch.cat([mask for _, _, mask, _ in rows]),
+            sum(here), tables[device][0], float(threshold))
+        # a shard's candidates are a run of the compacted slots: shift its
+        # run from the concatenation's coordinates to the genome's
+        shift, offset = [], 0
+        for (d, segment, _, _), count in zip(rows, here):
+            if count:
+                shift.append(torch.full((count,), d * chunk - offset, dtype=torch.int64,
+                                        device=device))
+            offset += segment.shape[0]
+        finished.append((positions + torch.cat(shift), scores, keep))
+    return finished
+
+
+def _scan_shards(tables: dict, prepared, threshold: float, t_scaled: int, m: int) -> list:
+    """The two-pass scan of every shard, with one read per distinct
+    device between the two steps (its shards' candidate counts):
+    :func:`_finish_shards` of :func:`_launch_shards`."""
+    launched = _launch_shards(tables, prepared, t_scaled, m)
+    counts = _read_counts([count for rows in launched.values() for *_, count in rows])
+    return _finish_shards(launched, counts, tables, prepared[1], threshold)
+
+
+def _kept_hits(finished: list, chunk: int) -> tuple:
+    """The kept hits of :func:`_scan_shards`' devices on the host, one
+    read per device.  Returns ``(positions int64, scores float32,
+    {shard: kept count})``, ordered by position."""
+    hits = []
+    for positions, scores, keep in finished:
+        hits.append(_to_host(torch.stack(
+            [positions, scores.view(torch.int32).to(torch.int64), keep.to(torch.int64)])))
+    if not hits:
+        return np.zeros(0, np.int64), np.zeros(0, np.float32), {}
+    host = np.concatenate(hits, axis=1)
+    host = host[:, host[2] != 0]
+    host = host[:, np.argsort(host[0], kind="stable")]  # devices may interleave shards
+    shard, kept = np.unique(host[0] // chunk, return_counts=True)
+    return (host[0], host[1].astype(np.int32).view(np.float32),
+            dict(zip(shard.tolist(), kept.tolist())))
+
+
+def _best_shard_hit(finished: list):
+    """The best exact hit among the candidates of :func:`_scan_shards`'
+    devices (scanned at threshold ``-inf``, so every candidate is kept),
+    merged on the devices and read once: ``(score, position)`` or
+    ``None``."""
+    return _merge_best([_best_of(scores, positions) for positions, scores, _ in finished])
 
 
 # -- one PSSM -------------------------------------------------------------------
 
 
-def _sharded_scan(pssm_data, dm_data, encoded, threshold, t_scaled, mesh,
-                  pad_unit, prepared):
-    """:func:`sharded_scan`, also returning the hits of every shard of
-    every process (int64 ``[global shards]``)."""
-    mesh = make_genome_mesh(mesh)
-    m = pssm_data.shape[0]
-    wildcard = pssm_data.shape[1] - 1
-    shards, chunk, n_scores = prepared if prepared is not None else prepare_shards(
-        encoded, mesh, m, wildcard, pad_unit)
-    pssm_dev = _per_device(pssm_data, mesh, np.float32)
-    dm_dev = _per_device(dm_data, mesh, np.uint8)
-    parts_pos, parts_sc, local = [], [], {}
-    for d, shard in shards:
-        n_local = _owned(n_scores, d, chunk)
-        if n_local == 0:
-            continue
-        dev = shard.device
-        positions, scores = torch_ops.scan_segment(
-            shard[: n_local + m - 1], n_local, dm_dev[dev], pssm_dev[dev],
-            int(t_scaled), float(threshold))
-        parts_pos.append(positions.cpu().numpy() + d * chunk)
-        parts_sc.append(scores.cpu().numpy())
-        local[d] = len(parts_pos[-1])
-    shard_hits = _gather_counts(local, _shard_block(len(mesh))[0])
-    if not parts_pos:
-        return np.zeros(0, np.int64), np.zeros(0, np.float32), shard_hits
-    positions = np.concatenate(parts_pos)
-    order = np.argsort(positions, kind="stable")
-    return positions[order], np.concatenate(parts_sc)[order], shard_hits
+def _sharded_scan(tables, prepared, threshold, t_scaled, m, n_local_shards):
+    """The hits of this process's shards and of every shard of every
+    process (int64 ``[global shards]``)."""
+    local = dict.fromkeys((d for d, _ in prepared[0]), 0)
+    positions, scores, kept = _kept_hits(
+        _scan_shards(tables, prepared, threshold, t_scaled, m), prepared[1])
+    local.update(kept)
+    return positions, scores, _gather_counts(local, _shard_block(n_local_shards)[0])
 
 
 def sharded_scan(
@@ -261,10 +418,14 @@ def sharded_scan(
     discrete matrix's u8 tables; ``t_scaled``: the threshold on the
     discrete scale.  ``prepared``: ``(shards, chunk, n_scores)`` from
     :func:`prepare_shards`, to scan an uploaded genome again.  ``cap`` is
-    unused (compaction is exact).
+    unused (compaction is exact).  Two reads per distinct device.
     """
-    positions, scores, _ = _sharded_scan(pssm_data, dm_data, encoded, threshold,
-                                         t_scaled, mesh, pad_unit, prepared)
+    mesh = make_genome_mesh(mesh)
+    m = pssm_data.shape[0]
+    if prepared is None:
+        prepared = prepare_shards(encoded, mesh, m, pssm_data.shape[1] - 1, pad_unit)
+    tables = _tables(pssm_data, dm_data, mesh)
+    positions, scores, _ = _sharded_scan(tables, prepared, threshold, t_scaled, m, len(mesh))
     return positions, scores
 
 
@@ -276,7 +437,9 @@ def sharded_argmax(
 ):
     """Global ``(max_score, argmax)`` over a genome sharded across the
     mesh (and every process): the last maximum wins ties, across shards
-    too.  ``(None, None)`` when the genome is shorter than the motif."""
+    too.  ``(None, None)`` when the genome is shorter than the motif.
+    Every shard's K1 and reduction are issued, merged on the devices,
+    and read once."""
     mesh = make_genome_mesh(mesh)
     m = pssm_data.shape[0]
     shards, chunk, n_scores = prepare_shards(encoded, mesh, m, pssm_data.shape[1] - 1,
@@ -287,20 +450,21 @@ def sharded_argmax(
     best = []  # (max, global argmax) of each shard, on its device
     for d, shard in shards:
         n_local = _owned(n_scores, d, chunk)
-        if n_local == 0:
-            continue
-        scores = kernels.score_f32(shard, pssm_dev[shard.device], n_local)[:n_local]
-        best.append((torch_ops.max_last(scores), torch_ops.argmax_last(scores) + d * chunk))
-    gmax, garg = _best_everywhere([[float(mx), float(am)] for mx, am in best])
-    return float(gmax), int(garg)
+        if n_local:
+            scores = kernels.score_f32(shard, pssm_dev[shard.device], n_local)[:n_local]
+            best.append((torch_ops.max_last(scores),
+                         torch_ops.argmax_last(scores) + d * chunk))
+    best = _best_everywhere(_merge_best(best))
+    return (None, None) if best is None else best
 
 
 class ShardedScanner:
     """Multi-device counterpart of :class:`~.scanner.Scanner`.
 
-    The genome is sharded and uploaded once, at the first scan, and
-    reused by every :meth:`collect` and :meth:`max`.  ``shard_hits``
-    holds the hits of every shard (of every process) after a scan."""
+    The genome is sharded and uploaded once, with the PSSM's tables, at
+    the first scan, and reused by every :meth:`collect` and :meth:`max`.
+    ``shard_hits`` holds the hits of every shard (of every process)
+    after a :meth:`collect`."""
 
     def __init__(self, pssm, seq, threshold: float = 0.0,
                  mesh: list | None = None, pad_unit: int | None = None):
@@ -313,27 +477,24 @@ class ShardedScanner:
             seq = seq.unstripe()
         self.encoded = np.asarray(seq.data)
         self.shard_hits = None
-        self._prepared = None  # the sharded genome on the mesh
+        self._prepared = None  # the sharded genome and the tables on the mesh
 
     def _prep(self):
         if self._prepared is None:
-            self._prepared = prepare_shards(
-                self.encoded, self.mesh, len(self.pssm),
-                self.pssm.alphabet.size - 1, self.pad_unit)
+            self._prepared = (
+                prepare_shards(self.encoded, self.mesh, len(self.pssm),
+                               self.pssm.alphabet.size - 1, self.pad_unit),
+                _tables(np.asarray(self.pssm.data), np.asarray(self.dm.data), self.mesh))
         return self._prepared
-
-    def _scan(self, threshold: float):
-        positions, scores, self.shard_hits = _sharded_scan(
-            np.asarray(self.pssm.data), np.asarray(self.dm.data), self.encoded,
-            threshold, self.dm.scale(self.threshold), self.mesh, self.pad_unit,
-            self._prep())
-        return positions, scores
 
     def collect(self) -> list:
         """The hits of this process's shards, ordered by position."""
         from ..scanner import Hit
 
-        positions, scores = self._scan(self.threshold)
+        prepared, tables = self._prep()
+        positions, scores, self.shard_hits = _sharded_scan(
+            tables, prepared, self.threshold, self.dm.scale(self.threshold),
+            len(self.pssm), len(self.mesh))
         return [Hit(int(p), float(s)) for p, s in zip(positions, scores)]
 
     def max(self):
@@ -344,12 +505,35 @@ class ShardedScanner:
         best."""
         from ..scanner import Hit
 
-        positions, scores = self._scan(-np.inf)  # keep every discrete candidate
-        best = _best_everywhere(np.stack([scores.astype(np.float64), positions], axis=1))
-        return None if best is None else Hit(int(best[1]), float(best[0]))
+        prepared, tables = self._prep()
+        # keep every discrete candidate: the f32 keep-filter is -inf
+        finished = _scan_shards(tables, prepared, -np.inf, self.dm.scale(self.threshold),
+                                len(self.pssm))
+        best = _best_everywhere(_best_shard_hit(finished))
+        return None if best is None else Hit(best[1], best[0])
 
 
 # -- a motif database -----------------------------------------------------------
+
+
+def _on_each_device(jobs: dict) -> dict:
+    """Run ``jobs[device]()`` for every device at once, each in a worker
+    thread of its own under ``torch.cuda.device(device)`` on that
+    device's current stream (the idiom of
+    ``torch.nn.parallel.parallel_apply``): a worker waiting on its device
+    releases the GIL, so the other devices keep working.  Returns
+    ``{device: result}`` in the order of ``jobs``, whatever the order in
+    which the workers end; once every worker has ended, the first
+    exception in that order is raised here."""
+    def run(device, job):
+        with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+            return job()
+
+    if not jobs:
+        return {}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = {device: pool.submit(run, device, job) for device, job in jobs.items()}
+    return {device: future.result() for device, future in futures.items()}
 
 
 class ShardedMultiScanner:
@@ -420,34 +604,60 @@ class ShardedMultiScanner:
         self._bound = {"chunk": chunk, "n_shards": n_shards, "shards": shards}
         return self
 
+    def _scan_device(self, device, shards: list, chunk: int) -> list:
+        """One worker's work: this device's shards, one after another,
+        through its ``MultiScanner``.  Returns ``(shard, positions, motif
+        ids, scores, owned mask, owned count)`` on the device for each
+        shard with hits; a hit at ``pos >= chunk`` belongs to the next
+        shard."""
+        scanner = self._scanners[device]
+        rows = []
+        for d, dseq in shards:
+            found = scanner.bind(dseq).dispatch()["parts"]
+            if found:
+                pos, ids, scores = (torch.cat(column) for column in zip(*found))
+                own = pos < chunk
+                rows.append((d, pos, ids, scores, own, own.sum()))
+        return rows
+
     def dispatch(self) -> dict:
         """Scan the bound genome on every shard and return a token for
-        :meth:`fetch`; the token holds the hits on the devices."""
+        :meth:`fetch`; the token holds the hits on the devices.  Each
+        distinct device scans its shards in a worker of its own
+        (:func:`_on_each_device`); then one read per device brings its
+        per-shard counts."""
         st = self._bound
         if st is None:
             raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
         chunk = st["chunk"]
-        parts, local = [], {}
+        by_device = {}
         for d, dseq in st["shards"]:
-            found = self._scanners[dseq.device].bind(dseq).dispatch()["parts"]
-            local[d] = 0
-            if not found:
-                continue
-            pos, ids, scores = (torch.cat(column) for column in zip(*found))
-            own = pos < chunk  # the rest belongs to the next shard
-            parts.append((pos[own] + d * chunk, ids[own], scores[own]))
-            local[d] = int(parts[-1][0].shape[0])
+            by_device.setdefault(dseq.device, []).append((d, dseq))
+        found = _on_each_device({
+            device: functools.partial(self._scan_device, device, shards, chunk)
+            for device, shards in by_device.items()})
+        rows = [row for device_rows in found.values() for row in device_rows]
+        parts, local = [], dict.fromkeys((d for d, _ in st["shards"]), 0)
+        for (d, pos, ids, scores, own, _), n in zip(rows, _read_counts([r[-1] for r in rows])):
+            local[d] = n
+            if n:
+                keep = torch_ops.compact_mask(own, n)
+                parts.append((pos[keep] + d * chunk, ids[keep], scores[keep]))
         return {"parts": parts, "local": local, "n_shards": st["n_shards"]}
 
     def fetch_arrays(self, token):
         """Hit arrays ``(motif_ids int32, positions int64, scores
         float32)`` of a :meth:`dispatch` token, ordered by (motif,
-        position)."""
+        position): one read per distinct device."""
         by_device = {}
         for part in token["parts"]:
             by_device.setdefault(part[0].device, []).append(part)
-        host = [tuple(torch.cat(column).cpu() for column in zip(*parts))
-                for parts in by_device.values()]
+        host = []
+        for parts in by_device.values():
+            pos, ids, scores = (torch.cat(column) for column in zip(*parts))
+            packed = torch.from_numpy(_to_host(torch.stack(
+                [pos, ids.to(torch.int64), scores.view(torch.int32).to(torch.int64)])))
+            host.append((packed[0], packed[1], packed[2].to(torch.int32).view(torch.float32)))
         self.shard_hits = _gather_counts(token["local"], token["n_shards"])
         return multi.sorted_hits(host)
 

@@ -2,18 +2,26 @@
 of 1, 3 and 8 CPU shards, against the port's single-device scans and the
 JAX package's sharded scans on its 8 virtual CPU devices (positions and
 f32 bits, last-max ties).  The JAX package runs as ``tests/test_parallel.py``
-runs it."""
+runs it.  Also: the host reads per call whatever the number of shards,
+the database scan's per-device workers, and the process exchange (a
+one-rank gloo group, a stand-in NCCL)."""
+
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 import lightmotif_tpu as jlm
 import lightmotif_tpu_torch as tlm
 from lightmotif_tpu import parallel as jpar
 from lightmotif_tpu_torch import parallel as tpar
 from lightmotif_tpu_torch.ops import kernels, multi
-from lightmotif_tpu_torch.ops.pipeline import Pipeline
+from lightmotif_tpu_torch.ops import multi_kernel
+from lightmotif_tpu_torch.ops.pipeline import DeviceSequence, Pipeline
 from lightmotif_tpu_torch.parallel import mesh as tmesh
 from lightmotif_tpu_torch.scanner import MultiScanner, Scanner
 
@@ -317,12 +325,269 @@ def test_single_bucket_and_empty_sets(database):
         tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=cpu_mesh(1)).collect()
 
 
-def test_the_exchange_refuses_other_backends(monkeypatch):
-    """Across processes the exchange runs over gloo alone: another
+class StandInDist:
+    """``torch.distributed`` with a process group of ``world`` ranks that
+    all hold this rank's values."""
+
+    def __init__(self, backend: str, world: int = 2):
+        self.backend, self.world, self.gathered = backend, world, []
+
+    def get_backend(self):
+        return self.backend
+
+    def get_world_size(self):
+        return self.world
+
+    def get_rank(self):
+        return 0
+
+    def all_gather(self, out, tensor):
+        self.gathered.append(tensor)
+        for o in out:
+            o.copy_(tensor)
+
+
+@pytest.mark.parametrize("backend", ["mpi", "ucc"])
+def test_the_exchange_refuses_other_backends(monkeypatch, backend):
+    """Across processes the exchange runs over gloo or NCCL alone: another
     backend is refused before any collective."""
+    stand_in = StandInDist(backend)
+    monkeypatch.setattr(tmesh, "_distributed", lambda: stand_in)
+    with pytest.raises(RuntimeError, match="gloo or the nccl"):
+        tmesh._all_gather(np.zeros(2))
+    assert not stand_in.gathered
+
+
+class CudaOnTheCpu(TorchFunctionMode):
+    """Record the CUDA devices tensors are made on, and make them on the
+    CPU (this build has no CUDA)."""
+
+    def __init__(self):
+        super().__init__()
+        self.devices = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        device = kwargs.get("device")
+        if device is not None and torch.device(device).type == "cuda":
+            self.devices.append(torch.device(device))
+            kwargs["device"] = "cpu"
+        return func(*args, **kwargs)
+
+
+def test_the_exchange_takes_nccl_on_the_current_device(monkeypatch):
+    """Under NCCL the exchange's tensor is made on the current CUDA
+    device, gathered, and read back."""
+    stand_in = StandInDist("nccl", world=3)
+    monkeypatch.setattr(tmesh, "_distributed", lambda: stand_in)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    tmesh.reset_host_reads()
+    with CudaOnTheCpu() as mode:
+        got = tmesh._all_gather(np.asarray([7, -1], np.int64))
+    assert mode.devices == [torch.device("cuda", 3)]
+    assert len(stand_in.gathered) == 1 and got.tolist() == [[7, -1]] * 3
+    assert tmesh.HOST_READS == 1
+    # the argmax merge over the stand-in: every rank holds this one's best
+    with CudaOnTheCpu():
+        assert tmesh._best_everywhere((np.float32(-2.5), 40)) == (-2.5, 40)
+        assert tmesh._best_everywhere(None) is None
+
+
+def test_one_rank_gloo_group_runs_the_exchange(pssms, genome, database, tmp_path,
+                                               monkeypatch):
+    """With a process group of one rank, every exchange runs the real
+    all-gather (none is skipped), and the results are those of no group."""
     import torch.distributed as dist
 
-    monkeypatch.setattr(tmesh, "_world", lambda: (0, 2))
-    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
-    with pytest.raises(RuntimeError, match="gloo"):
-        tmesh._all_gather(np.zeros(2))
+    tp = pssms[1]
+    seq = tlm.EncodedSequence(genome)
+    mesh = cpu_mesh(3)
+    _, tps, db_genome, ths = database
+    alone = {"hits": tpar.ShardedScanner(tp, seq, -8.0, mesh=mesh).collect(),
+             "max": tpar.ShardedScanner(tp, seq, -8.0, mesh=mesh).max(),
+             "argmax": tpar.sharded_argmax(np.asarray(tp.data), genome, mesh=mesh),
+             "db": tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=mesh).scan_arrays(
+                 db_genome)}
+    calls = []
+    real = dist.all_gather
+    monkeypatch.setattr(dist, "all_gather", lambda *a, **k: calls.append(1) or real(*a, **k))
+    dist.init_process_group("gloo", init_method=(tmp_path / "store").as_uri(),
+                            world_size=1, rank=0)
+    try:
+        sc = tpar.ShardedScanner(tp, seq, -8.0, mesh=mesh)
+        got, counted = {}, {}
+        for name, fn in (
+                ("prepare", sc._prep), ("hits", sc.collect), ("max", sc.max),
+                ("argmax", lambda: tpar.sharded_argmax(np.asarray(tp.data), genome, mesh=mesh)),
+                ("db", lambda: tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=mesh)
+                 .scan_arrays(db_genome))):
+            before = len(calls)
+            got[name] = fn()
+            counted[name] = len(calls) - before
+    finally:
+        dist.destroy_process_group()
+    # prepare: the shard block; collect: the shard block and the counts;
+    # max: the best; argmax: the shard block and the best; the database:
+    # the shard block (bind) and the counts (fetch)
+    assert counted == {"prepare": 1, "hits": 2, "max": 1, "argmax": 2, "db": 2}
+    assert got["hits"] == alone["hits"] and got["hits"]
+    assert (got["max"].position, bits(got["max"].score)) == (alone["max"].position,
+                                                             bits(alone["max"].score))
+    assert got["argmax"] == alone["argmax"]
+    assert all(np.array_equal(a, b) for a, b in zip(got["db"], alone["db"])) and len(got["db"][0])
+    chunk = tmesh._chunk_for(len(genome) - 14, 3, 1024)
+    assert sc.shard_hits.tolist() == [sum(h.position // chunk == d for h in got["hits"])
+                                      for d in range(3)]
+
+
+# -- the host reads and the workers ---------------------------------------------
+
+
+@pytest.mark.parametrize("path", ["sharded_scan", "collect", "max", "argmax"])
+def test_host_reads_do_not_grow_with_shards(pssms, genome, path):
+    """The reads of the device per call are the same on 1, 2 and 8
+    shards of one device: every shard is issued before the host reads."""
+    tp = pssms[1]
+    dm = tp.to_discrete()
+    seq = tlm.EncodedSequence(genome)
+    reads = []
+    for shards in (1, 2, 8):
+        mesh = cpu_mesh(shards)
+        sc = tpar.ShardedScanner(tp, seq, threshold=-8.0, mesh=mesh, pad_unit=256)
+        sc._prep()
+        call = {
+            "sharded_scan": lambda: tpar.sharded_scan(
+                np.asarray(tp.data), np.asarray(dm.data), genome, -8.0, dm.scale(-8.0),
+                mesh=mesh, pad_unit=256),
+            "collect": sc.collect,
+            "max": sc.max,
+            "argmax": lambda: tpar.sharded_argmax(np.asarray(tp.data), genome, mesh=mesh,
+                                                  pad_unit=256),
+        }[path]
+        tmesh.reset_host_reads()
+        call()
+        reads.append(tmesh.HOST_READS)
+    # the candidate counts and the kept hits; the best, once
+    assert reads == [1 if path == "argmax" else 2] * 3
+
+
+@pytest.mark.parametrize("pairs,want", [
+    ([(5.0, 10), (5.0, 30), (4.0, 50)], (5.0, 30)),
+    ([(-np.inf, 7), (-np.inf, 3)], (-np.inf, 7)),
+    ([(1.0, 2)], (1.0, 2)),
+    ([(2.0, 1 << 40), (2.0, (1 << 40) + 1), (1.5, 1 << 41)], (2.0, (1 << 40) + 1)),
+])
+def test_merge_best_keeps_the_last_max_rule(pairs, want):
+    """The device merge: the larger score wins, the larger position among
+    equal scores; positions stay int64 past 2**24 and 2**53 of a float."""
+    tensors = [(torch.tensor(s, dtype=torch.float32), torch.tensor(p, dtype=torch.int64))
+               for s, p in pairs]
+    tmesh.reset_host_reads()
+    assert tmesh._merge_best(tensors) == want
+    assert tmesh.HOST_READS == 1
+    assert tmesh._merge_best([]) is None
+
+
+class TwoDeviceSequence(DeviceSequence):
+    """A shard on the CPU that names its mesh entry (``cpu:0``/``cpu:1``)
+    as its device, so a CPU mesh has two distinct devices: two workers."""
+
+    def __init__(self, encoded, device):
+        super().__init__(encoded, "cpu")
+        self.mesh_device = torch.device(device)
+
+    @property
+    def device(self):
+        return self.mesh_device
+
+
+@pytest.fixture
+def two_device_mesh(monkeypatch):
+    monkeypatch.setattr(tmesh, "DeviceSequence", TwoDeviceSequence)
+    return tpar.make_genome_mesh(["cpu:0", "cpu:1"] * 4)
+
+
+def test_hits_do_not_depend_on_which_worker_ends_first(database, two_device_mesh,
+                                                      monkeypatch):
+    """The first device's worker is held back until the second's has
+    ended: the hits are still MultiScanner's, in the same order."""
+    jps, tps, genome, ths = database
+    seq = tlm.EncodedSequence(genome)
+    want = MultiScanner(tps, seq, ths, device="cpu").scan_arrays(seq)
+    sm = tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=two_device_mesh).bind(genome)
+    assert list(sm._scanners) == [torch.device("cpu", 0), torch.device("cpu", 1)]
+    owners = [dseq.device.index for _, dseq in sm._bound["shards"]]
+    assert owners == [0, 1] * (len(owners) // 2) + [0] * (len(owners) % 2)
+    second_done, ended = threading.Event(), []
+    real = MultiScanner.dispatch
+
+    def dispatch(self):
+        if self.device.index == 0:
+            assert second_done.wait(timeout=30)
+        out = real(self)
+        ended.append(self.device.index)
+        if ended.count(1) == owners.count(1):
+            second_done.set()
+        return out
+
+    monkeypatch.setattr(MultiScanner, "dispatch", dispatch)
+    got = sm.collect_arrays()
+    # the second device's shards ended first
+    assert ended == [1] * owners.count(1) + [0] * owners.count(0)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want)) and len(got[0])
+    assert sm.shard_hits.sum() == len(got[0])
+
+
+def test_a_worker_exception_reaches_the_caller(database, two_device_mesh, monkeypatch):
+    """An exception in one device's worker is raised by the call, once
+    every worker has ended."""
+    jps, tps, genome, ths = database
+    sm = tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=two_device_mesh).bind(genome)
+    real, ended = MultiScanner.dispatch, []
+
+    def dispatch(self):
+        if self.device.index == 1:
+            raise RuntimeError("the second device failed")
+        time.sleep(0.05)
+        ended.append(self.device.index)
+        return real(self)
+
+    monkeypatch.setattr(MultiScanner, "dispatch", dispatch)
+    with pytest.raises(RuntimeError, match="the second device failed"):
+        sm.collect()
+    owners = [dseq.device.index for _, dseq in sm._bound["shards"]]
+    assert ended == [0] * owners.count(0)  # the other worker ran to its end
+
+    def fail(self):
+        raise RuntimeError("the only device failed")
+
+    monkeypatch.setattr(MultiScanner, "dispatch", fail)
+    with pytest.raises(RuntimeError, match="the only device failed"):
+        tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=cpu_mesh(2)).scan(genome)
+
+
+def test_launch_counts_are_exact_under_threads():
+    """The kernel wrappers' launch counters add under a lock: many
+    threads counting at once, with the interpreter switching threads
+    every microsecond, lose no launch."""
+    threads, per_thread = 16, 2000
+    before = (kernels.LAUNCHES["score_u8"], multi_kernel.LAUNCHES["prefilter_any8"])
+
+    def count():
+        for _ in range(per_thread):
+            kernels.count_launch(kernels.LAUNCHES, "score_u8")
+            kernels.count_launch(multi_kernel.LAUNCHES, "prefilter_any8")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=count) for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    assert kernels.LAUNCHES["score_u8"] - before[0] == threads * per_thread
+    assert multi_kernel.LAUNCHES["prefilter_any8"] - before[1] == threads * per_thread

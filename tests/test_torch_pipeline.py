@@ -54,6 +54,26 @@ def test_score_and_score_discrete_match_jax(protein, m, length, pseudo):
 
 
 @pytest.mark.parametrize("protein,m,length,pseudo", CASES)
+def test_max_argmax_threshold_match_jax(protein, m, length, pseudo):
+    """``Pipeline.max``, ``argmax`` and ``threshold`` of the same scores
+    as the JAX ``Pipeline``'s, the last maximum winning ties."""
+    jp, tp, js, ts = _case(protein, m, length, pseudo, seed=m + 7 * length)
+    jpipe, tpipe = JaxPipeline(), Pipeline(device="cpu")
+    got, want = tpipe.score(tp, ts), jpipe.score(jp, js)
+    if length < m:
+        assert tpipe.max(got) is jpipe.max(want) is None
+        assert tpipe.argmax(got) is jpipe.argmax(want) is None
+        assert tpipe.threshold(got, 0.0) == jpipe.threshold(want, 0.0) == []
+        return
+    assert bits(tpipe.max(got)) == bits(jpipe.max(want))
+    assert tpipe.argmax(got) == jpipe.argmax(want)
+    host = got.unstripe().data
+    for value in (float(np.median(host)), float(host.max()), float("-inf")):
+        assert tpipe.threshold(got, value) == jpipe.threshold(want, value)
+    assert tpipe.threshold(got, float(host.max())) == np.nonzero(host == host.max())[0].tolist()
+
+
+@pytest.mark.parametrize("protein,m,length,pseudo", CASES)
 def test_score_max_matches_jax(protein, m, length, pseudo):
     jp, tp, js, ts = _case(protein, m, length, pseudo, seed=m * length + 1)
     got = Pipeline(device="cpu").score_max(tp, ts)

@@ -7,13 +7,17 @@ modes.
 
 import numpy as np
 import pytest
+import torch
 
 import lightmotif_tpu as jlm
 import lightmotif_tpu_torch as tlm
+from lightmotif_tpu.ops import kernels as jax_kernels
+from lightmotif_tpu.ops import xla_ops
+from lightmotif_tpu_torch.ops import torch_ops
 
 from .data import PATTERNS, SEQUENCE
 from .torch_parity import (  # noqa: F401  (cpu_choice is a fixture)
-    cpu_choice, hit_keys, pssms, random_counts, random_ranks, sequences)
+    bits, cpu_choice, hit_keys, pssms, random_counts, random_ranks, sequences)
 
 
 def _golden_pssms(pseudo=0.1):
@@ -86,6 +90,54 @@ def test_collect_matches_jax(name, protein, m, length, pseudo, kind, block):
     if block is not None:
         seams = [p for p, _ in got if p % block > block - m]
         assert len(seams) >= 3, "hits must straddle the port's seams"
+
+
+@pytest.mark.parametrize(
+    "name,protein,m,length,pseudo,kind,block",
+    SCAN_CASES, ids=[c[0] for c in SCAN_CASES])
+def test_split_scan_segment_matches_jax(name, protein, m, length, pseudo, kind, block):
+    """``scan_launch`` then ``scan_finish`` (and ``scan_segment``, the two
+    in turn) on one segment -- the whole sequence, or the second block --
+    against ``xla_ops.scan_segment`` at an exact capacity: the candidate
+    count, the kept count and the kept hits in position order."""
+    k = 21 if protein else 5
+    rng = np.random.default_rng(length + m)
+    jp, tp = pssms(random_counts(rng, m, k), protein=protein, pseudo=pseudo)
+    data = random_ranks(rng, length, k, wildcard_runs=10)
+    n_total = length - m + 1
+    off, n_here = (0, n_total) if block is None else (block, block)
+    threshold = _threshold(tp.score_host(sequences(data, protein)[1]), kind)
+    dm = tp.to_discrete()
+    t_scaled = int(dm.scale(threshold))
+    pssm_t = torch.from_numpy(np.asarray(tp.data, np.float32))
+    dm_t = torch.from_numpy(np.asarray(dm.data, np.uint8))
+    chunk = torch.from_numpy(data[off : off + n_here + m - 1])
+
+    mask, count = torch_ops.scan_launch(chunk, n_here, dm_t, t_scaled)
+    positions, scores, keep = torch_ops.scan_finish(chunk, mask, int(count), pssm_t,
+                                                    threshold)
+    assert positions.shape == scores.shape == keep.shape == (int(count),)
+    assert torch.equal(positions, torch.sort(positions).values)
+
+    unit = jax_kernels.preferred_pad()
+    chunk_len = xla_ops.pad_length(n_here, unit) + unit
+    padded = np.full(max(off + chunk_len, length), k - 1, np.int8)
+    padded[:length] = data
+    counts, packed = xla_ops.scan_segment(
+        padded, np.int32(off), np.int32(n_here), np.asarray(jp.to_discrete().data, np.uint8),
+        np.asarray(jp.data, np.float32), np.int32(t_scaled), np.float32(threshold),
+        chunk_len, 1 << max(n_here - 1, 1).bit_length(), True)
+    want_count, want_kept, valid = np.asarray(counts).tolist()
+    assert valid and (int(count), int(keep.sum())) == (want_count, want_kept)
+    packed = np.asarray(packed)[:, :want_kept]
+    kept = (positions[keep].numpy(), bits(scores[keep].numpy()))
+    assert np.array_equal(kept[0], packed[0]) and np.array_equal(kept[1], bits(
+        packed[1].view(np.float32)))
+    got = torch_ops.scan_segment(chunk, n_here, dm_t, pssm_t, t_scaled, threshold)
+    assert np.array_equal(got[0].numpy(), kept[0]) and np.array_equal(bits(got[1].numpy()),
+                                                                       kept[1])
+    if kind != "sparse":
+        assert want_kept
 
 
 @pytest.mark.parametrize("threshold", [-100.0, -10.0, 5.0, 100.0])
