@@ -10,14 +10,16 @@ Phases, one line of output each (any failure exits non-zero):
    versions; every module of the port imported, with no JAX;
 2. build: ``nvcc`` compiles ``lightmotif_tpu_torch/ops/csrc/*.cu`` for
    ``sm_90a``, one process per source, all at once: first the production
-   build (``score.cu``, ``prefilter.cu``), then the probe build
-   (``probes.cu``), each with its own seconds;
+   build (``score.cu``, ``prefilter.cu``, ``pairs.cu``), then the probe
+   build (``probes.cu``), each with its own seconds;
 3. SASS: ``cuobjdump -sass`` of the prefilter library, the tensor-core
    instructions (``IMMA``) of every instantiation of the tensor-core
-   prefilter, the production one and P9's bits form included (each must
-   hold some; the lookup kernel of probe P7 holds none); of the scoring
-   library, K1's production instantiation adds with ``FADD`` and has no
-   ``FFMA`` (no contraction), K2's looks up with ``PRMT``;
+   prefilter, the production one, P9's bits form and phase C's two
+   gather forms included (each must hold some; the lookup kernel of
+   probe P7 holds none); of the scoring library, K1's production
+   instantiation adds with ``FADD`` and has no ``FFMA`` (no
+   contraction), K2's looks up with ``PRMT``; the pairs library adds
+   with ``FADD`` and has no ``FFMA``;
 4. K1 and K2 against their plain PyTorch versions on the card
    (``torch.equal``): DNA (through the production instantiations, and the
    generic one past K2's m = 257), protein, k = 7 and k = 256 tables,
@@ -45,28 +47,40 @@ Phases, one line of output each (any failure exits non-zero):
    at p = 1e-6) scanned over the genome by ``MultiScanner.scan_arrays``
    in one segment and in five, each equal to a per-PSSM brute force on
    the card (K1 + threshold: positions and f32 bits, -0.0 read as
-   +0.0); K3 must have been launched by the scan;
+   +0.0); K3, phase C (``lm_phase_c_bits``) and the pairs kernel
+   (``lm_pairs_rescore``, five kernels a call, each counted) once per
+   group and once per re-run at larger capacities; a scanner seeded at a capacity of 64 ratchets to the same
+   hits; a steady ``collect_arrays`` reads the card once, and its
+   dispatch reads it never (sync debug mode "error"); then phase C and
+   the pairs kernel ``torch.equal`` to their plain versions on every
+   group (bits, counters, positions, lanes, f32 bits) with each group's
+   candidate, pair and kept counts, times, launches and bounds;
 9. the prefilter modes at full size, through the package's
    ``multi.route_motifs``, ``multi.database_groups`` and
    ``multi.scan_groups``: the same database through the u16 (K5) mode
    in 1 and 5 segments, equal to the K3 mode and the brute force, and
    through the u8 (K4) mode in groups of 512 lanes, equal to the K3
-   mode (the genome has no wildcard); each must launch its kernel once
-   per group and segment.  In each mode the segment entry
+   mode (the genome has no wildcard); each must launch its kernel,
+   phase C and the pairs kernel once per group and segment and once per
+   re-run.  In each mode the segment entry
    ``multi.scan_multi_segment_fused``, given the first group's JAX
-   filters, must give that group's hits with one launch;
+   filters, must give that group's hits with one launch of each; phase C
+   and the pairs kernel equal their plain versions on every group of
+   both modes;
 10. the dense path (four DNA motifs of m 129-257) and a protein database
     (200 motifs of m 5-40 over 1,000,000 residues) against the same
     brute force; each scan must have launched K1 once per dense motif
-    and K3 once per motif group;
+    and K3 once per motif group; phase C and the pairs kernel equal their
+    plain versions on every protein group, and on a group of dense hits
+    (p = 0.02) whose rows hold more pairs than a row lists;
 11. batched records: the genome cut into seeded records of 50-2,000 bp
     (some shorter than the motif) through ``BatchReducer`` (against the
     per-record host oracle), ``BatchScanner`` at p = 1e-5 (against
     per-record Scanners) and ``MultiBatchScanner`` with the database
     (against the brute force over the concatenation, windows inside one
     record); each class's launches are counted from 0 over its own call
-    and must be K1 once, K2 once per segment and K3 once per motif group
-    and segment;
+    and must be K1 once, K2 once per segment and K3, phase C and the
+    pairs kernel once per motif group and segment;
 12. the FIMO-like CLI through its files: the database written as a
     JASPAR16 file, the genome and the records as FASTA, MX000001 as a
     one-motif file.  In this process (``cli.main``, launch counts reset
@@ -98,11 +112,14 @@ Phases, one line of output each (any failure exits non-zero):
     ``max`` and ``sharded_argmax`` the known best hit, which wins its tie
     across shards 4 and 5; ``ShardedMultiScanner`` with the database, on
     the 8 shards and on the default mesh, equal to ``MultiScanner`` and
-    the brute force (K3 once per group and shard); the dense motifs of
-    phase 10 through the mesh (K1 once per motif and shard); the host
-    reads of one call on 1 and 8 shards (never more on 8); the loops
-    over shards under the sync debug mode "error" (no read of the card
-    between shards); walls at 1, 2, 4 and 8 shards beside the
+    the brute force (K3, phase C and the pairs kernel once per group and
+    shard); one device's share of it (every shard issued) under the sync
+    debug mode "error"; the dense motifs of phase 10 through the mesh (K1
+    once per motif and shard); the host reads of one call on 1 and 8
+    shards (never more on 8; one for the steady database scan, and one
+    for ``MultiScanner.collect_arrays``); the loops over shards under the
+    sync debug mode "error" (no read of the card between shards); walls
+    at 1, 2, 4 and 8 shards beside the
     single-device walls of the same call; with two or more cards, the
     default mesh over every card equal to one card, with walls on 1..N
     cards (else ``multi_card: not run``);
@@ -112,17 +129,20 @@ Phases, one line of output each (any failure exits non-zero):
     once; with two or more cards, two NCCL processes, one card each.
     Their merged hits equal the single-process hits, every rank reports
     the known best hit and the same per-shard counts, and each path
-    launches its kernel once per shard.
+    launches its kernel once per shard; every rank's walls and its
+    database scan's split by stage are logged.
 18. times on the card (CUDA events, median of 15 samples after a
     warm-up), each kernel beside its plain version, its bound (the least
     time the card could take: bytes over HBM's rate or operations over
     the card's peak) and a ``conv1d`` library yardstick: device time per
     launch (launches queued behind a GPU spin), and one call with the
     host's launch cost; then ``score_max``, the Scanner's wall time, K3,
-    K4 and K5 at their shapes, the database scan's steady-state wall in
-    the K3 and u16 modes and, from one more run through the scanner's
-    timing hook and ``torch.profiler``, its split by stage, device-busy
-    time and host time; the batch classes' walls;
+    K4 and K5 at their shapes, the database scan's steady-state wall
+    beside the plain stages' (K3, then the plain versions of phase C and
+    the pairs kernel) in the same call, in the K3 and u16 modes and, from
+    one more run through the scanner's timing hook and ``torch.profiler``
+    after a warm-up run, its split by stage, device-busy time (the trace's
+    device events) and host time; the batch classes' walls;
 19. the host's part of one ``kernels.score_f32`` call (median enqueue
     time of 400 calls) beside the earlier wrapper's per-call work and the
     kernel's device time;
@@ -177,6 +197,12 @@ K3_SOURCE = "lightmotif_tpu_torch/ops/csrc/prefilter.cu"
 K3_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:300"
 K4_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:163"
 K5_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:213"
+# the database scan's exact stages: XLA code of the JAX scan_multi_core (no
+# Pallas kernel there), phase C and the pairs / rescore / keep that follow
+PHASE_C_SOURCE = K3_SOURCE
+PHASE_C_REPLACES = "lightmotif_tpu/ops/multi.py:868"
+PAIRS_SOURCE = "lightmotif_tpu_torch/ops/csrc/pairs.cu"
+PAIRS_REPLACES = "lightmotif_tpu/ops/multi.py:975"
 PROBE_SOURCE = "lightmotif_tpu_torch/ops/csrc/probes.cu"
 P6_REPLACES = "experiments/int8_probe.py:54"
 P7_REPLACES = "experiments/int8_probe2.py:98"
@@ -272,17 +298,31 @@ def max_abs_err(got, want) -> float:
 
 
 def reset_launches() -> None:
-    from lightmotif_tpu_torch.ops import kernels, multi_kernel
+    """Every kernel wrapper's launch count, and the database scan's re-runs
+    at larger capacities, to 0."""
+    from lightmotif_tpu_torch.ops import kernels, multi, multi_kernel, multi_stages
 
     kernels.reset_launches()
     multi_kernel.reset_launches()
+    multi_stages.reset_launches()
+    multi.reset_reruns()
 
 
 def launch_counts() -> dict:
     """The launches of every kernel wrapper since the last reset."""
-    from lightmotif_tpu_torch.ops import kernels, multi_kernel
+    from lightmotif_tpu_torch.ops import kernels, multi_kernel, multi_stages
 
-    return {**kernels.LAUNCHES, **multi_kernel.LAUNCHES}
+    return {**kernels.LAUNCHES, **multi_kernel.LAUNCHES, **multi_stages.LAUNCHES}
+
+
+def group_launches(n: int, prefilter: str = "prefilter_any8") -> dict:
+    """The launches of ``n`` motif-group segments of the database scan and
+    of its re-runs since the last reset: the prefilter, phase C and the
+    pairs wrapper once each (its five kernels)."""
+    from lightmotif_tpu_torch.ops import multi, multi_stages
+
+    n += multi.RERUNS["group"]
+    return {prefilter: n, "phase_c_bits": n, "pairs_rescore": n * multi_stages.PAIRS_KERNELS}
 
 
 def phase_card() -> None:
@@ -397,23 +437,41 @@ def phase_sass() -> int:
     from lightmotif_tpu_torch.ops import build
     from lightmotif_tpu_torch.probes import prefilter as probes
 
+    import re
+
     lib = next(p for p in build.build_info()["paths"] if "prefilter" in p.name)
     counts = sass_mma_counts(lib)
+    # mma_kernel<POS_M, CPP, PW, NW, BITS, GATHER>, by its template arguments
+    form = re.compile(r"mma_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)EE")
+    mma = {tuple(int(x) for x in hit.groups()): c for n, c in counts.items()
+           if (hit := form.search(n))}
     v = build.library().lm_prefilter_production()
     orient, cpp, pw, warps = probes.VARIANTS[v]
-    mangled = f"mma_kernelILb{int(orient == 'm')}ELi{cpp}ELi{pw}ELi{warps}ELb0EE"
-    production = [n for n in counts if mangled in n]
-    per_variant = {n.split("mma_kernel")[1].split("ELb0EEEvPKh")[0]: c
-                   for n, c in counts.items() if "mma_kernel" in n and "ELb0EEEvPKh" in n}
-    bits = [c for n, c in counts.items() if "mma_kernel" in n and "ELb1EEEvPKh" in n]
+    production = mma.get((int(orient == "m"), cpp, pw, warps, 0, 0), 0)
+    per_variant = {f"{'m' if a[0] else 'n'}{a[1]}x{a[2]}x{a[3]}": c
+                   for a, c in mma.items() if a[4:] == (0, 0)}
+    bits = [c for a, c in mma.items() if a[4:] == (1, 0)]
+    gather = {f"{a[2] * a[3]} candidates": c for a, c in mma.items() if a[4:] == (1, 1)}
     lookup = sum(c for n, c in counts.items() if "lookup_kernel" in n)
-    if (len(production) != 1 or counts[production[0]] < 1 or len(bits) != 1 or bits[0] < 1
+    if (production < 1 or len(bits) != 1 or bits[0] < 1 or len(gather) != 2
+            or min(gather.values()) < 1
             or len(per_variant) != len(probes.VARIANTS) or min(per_variant.values()) < 1):
         raise SystemExit(f"sass: a tensor-core instantiation without IMMA: {counts}")
     log("sass", library=lib.name, tool="cuobjdump -sass",
-        production=f"variant {v} {probes.VARIANTS[v]}", production_imma=counts[production[0]],
-        p9_bits_imma=bits[0], total_tensor_core=sum(counts.values()), lookup_kernel=lookup,
-        per_instantiation=per_variant)
+        production=f"variant {v} {probes.VARIANTS[v]}", production_imma=production,
+        p9_bits_imma=bits[0], phase_c_imma=gather, total_tensor_core=sum(counts.values()),
+        lookup_kernel=lookup, per_instantiation=per_variant)
+
+    # the pairs kernel's rescore adds with FADD, never FFMA; no kernel of the
+    # library contracts
+    lib = next(p for p in build.build_info()["paths"] if "pairs" in p.name)
+    ops = sass_opcodes(lib)
+    n_fadd = sum(o.count("FADD") for o in ops.values())
+    n_ffma = sum(o.count("FFMA") for o in ops.values())
+    if not any("score_rows" in n for n in ops) or n_fadd < 1 or n_ffma:
+        raise SystemExit(f"sass: the pairs library has {n_fadd} FADD and {n_ffma} FFMA")
+    log("sass", library=lib.name, functions=len(ops), fadd=n_fadd, ffma=n_ffma,
+        score_rows_fadd=sum(o.count("FADD") for n, o in ops.items() if "score_rows" in n))
 
     lib = next(p for p in build.build_info()["paths"] if "score" in p.name)
     ops = sass_opcodes(lib)
@@ -435,7 +493,7 @@ def phase_sass() -> int:
         lds=f32_ops.count("LDS"), instructions=len(f32_ops),
         score_u8=f"variant {v_u8}", prmt=u8_ops.count("PRMT"), u8_lds=u8_ops.count("LDS"),
         u8_instructions=len(u8_ops))
-    return counts[production[0]]
+    return production
 
 
 def check_kernel(name, wrapper, plain, seq, table, n_scores) -> float:
@@ -735,9 +793,179 @@ def check_scan(name, got, want) -> None:
                          f"({len(mo)} hits vs {len(want[0])})")
 
 
+def stage_inputs(group, dseq, lengths):
+    """The inputs of phase C and the pairs kernel in one group's
+    one-segment scan of a resident sequence, as ``multi.scan_groups``
+    makes them: (chunk, lanes' valid windows int32, the group's prefilter
+    output)."""
+    from lightmotif_tpu_torch.ops import multi, multi_kernel
+
+    n_valid = np.maximum(dseq.length - np.asarray(lengths)[group["ids"]] + 1, 0)
+    n_max = int(n_valid.max())
+    chunk = dseq.data[: n_max + group["m_max"] - 1]
+    lanes = (dseq.length + 1 - group["len_dev"]).clamp(0, n_max).to(torch.int32)
+    mode = next(name for name in multi.PREFILTERS if name in group)
+    maxv = getattr(multi_kernel, multi.PREFILTERS[mode])(chunk, *group[mode])
+    return chunk, lanes, maxv
+
+
+def check_stages(group, chunk, lanes, maxv, cap=None, cap_hits=None) -> dict:
+    """Phase C and the pairs kernel of one group ``torch.equal`` to their
+    plain versions on the card (bits of every candidate row; counters;
+    positions, lanes and f32 bits of the kept hits), each plain version on
+    the plain one's inputs.  By default the capacities fit: the next power
+    of two of the candidates and of the pairs.  Returns the counts, the
+    capacities and the inputs of the kernels."""
+    from lightmotif_tpu_torch.ops import multi, multi_stages
+
+    n_cand = int((maxv >= 0).sum())
+    cap = cap or 1 << max(n_cand - 1, 1).bit_length()
+    cand, count = multi.compact_candidates(maxv, cap)
+    bits = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
+    want_bits = multi_stages.phase_c_bits_plain(chunk, cand, count, *group["phase_c"], lanes)
+    rows = min(n_cand, cap)
+    if cap_hits is None:
+        probe = multi_stages.pairs_rescore_plain(want_bits, cand, count, chunk, group["pssm"],
+                                                 group["th"], 1)[0]
+        cap_hits = 1 << max(int(probe[1]) - 1, 1).bit_length()
+    counts, packed = multi_stages.pairs_rescore(bits, cand, count, chunk, group["pssm"],
+                                                group["th"], cap_hits)
+    want_counts, want_packed = multi_stages.pairs_rescore_plain(
+        want_bits, cand, count, chunk, group["pssm"], group["th"], cap_hits)
+    torch.cuda.synchronize()
+    n_kept = int(want_counts[2])
+    # the worst difference of every check: a pass bit (0 or 1), and the
+    # kept hits' positions, lanes and f32 scores
+    top = max(n_kept, min(int(counts[2]), cap_hits))
+    errs = {"phase_c_bits": float((bits[:rows] != want_bits[:rows]).any()),
+            "pairs_rescore": max(max_abs_err(packed[:2, :top], want_packed[:2, :top]),
+                                 max_abs_err(packed[2, :top].view(torch.float32),
+                                             want_packed[2, :top].view(torch.float32)))}
+    for name, err in errs.items():
+        STAGE_ERRS[name] = max(STAGE_ERRS[name], err)
+    if not torch.equal(bits[:rows], want_bits[:rows]):
+        bad = int(torch.nonzero((bits[:rows] != want_bits[:rows]).any(1))[0])
+        raise SystemExit(f"phase_c_bits != plain at candidate row {bad} of {rows}")
+    if not (torch.equal(counts, want_counts)
+            and torch.equal(packed[:, :n_kept], want_packed[:, :n_kept])):
+        raise SystemExit(f"pairs_rescore != plain: counts {counts.tolist()} vs "
+                         f"{want_counts.tolist()}")
+    got = counts.tolist()
+    return {"candidates": got[0], "pairs": got[1], "kept": got[2], "cap": cap,
+            "cap_hits": cap_hits, "args": (chunk, cand, count, bits, lanes)}
+
+
+#: The worst difference of each new kernel from its plain version over
+#: every :func:`check_stages` of the run.
+STAGE_ERRS = {"phase_c_bits": 0.0, "pairs_rescore": 0.0}
+
+
+def stage_bounds(group, row) -> dict:
+    """The least time of each new kernel on one group's inputs:
+    ``phase_c_bits``, the int8 tensor-core operations of its sums (2 per
+    multiply-add, over every candidate row, the K-wide one-hot of each
+    row its chunk needs, 16 lanes a chunk, each plane) against the
+    candidates' windows, the candidate list and the bit words; the
+    ``pairs_rescore``, the bytes of the listed rows' bit words and
+    candidates read once, the pairs' windows and table rows, and the
+    kept hits written once, against its f32 adds."""
+    planes, chunk_m = group["phase_c"][0], group["phase_c"][1]
+    n_planes, n_chunks, _, rows, k = planes.shape
+    n = min(row["candidates"], row["cap"])
+    ops = 2 * n_planes * n * k * 16 * int(chunk_m.sum())
+    c_bytes = n * (rows + 8 + 4 * n_chunks) + planes.nbytes + chunk_m.nbytes + 64 * n_chunks
+    m = group["pssm"].shape[1]
+    pairs = min(row["pairs"], row["cap_hits"])
+    p_bytes = n * (4 * n_chunks + 8) + pairs * m * 5 + 12 * row["kept"] + 16
+    return {"phase_c_bits": bound(c_bytes, ops, "int8"),
+            "pairs_rescore": bound(p_bytes, pairs * max(m - 1, 1), "f32")}
+
+
+def time_stages(group, row) -> dict:
+    """Each new kernel on a group's inputs beside its plain version
+    (CUDA events; in turns plain, kernel, kernel, plain), its bound, and
+    "none" for the library: no one PyTorch call computes either."""
+    from lightmotif_tpu_torch.ops import multi_stages
+
+    chunk, cand, count, bits, lanes = row["args"]
+    pc = group["phase_c"]
+    fns = {
+        "phase_c_bits": (lambda: multi_stages.phase_c_bits(chunk, cand, count, *pc, lanes),
+                         lambda: multi_stages.phase_c_bits_plain(chunk, cand, count, *pc,
+                                                                 lanes)),
+        "pairs_rescore": (lambda: multi_stages.pairs_rescore(
+            bits, cand, count, chunk, group["pssm"], group["th"], row["cap_hits"]),
+            lambda: multi_stages.pairs_rescore_plain(
+                bits, cand, count, chunk, group["pssm"], group["th"], row["cap_hits"])),
+    }
+    bounds = stage_bounds(group, row)
+    out = {}
+    for name, (kernel, plain) in fns.items():
+        p1 = time_cuda(plain, runs=3)
+        k1 = time_cuda(kernel, repeat=5)
+        k2 = time_cuda(kernel, repeat=5)
+        p2 = time_cuda(plain, runs=3)
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1], "library_ms": None,
+                     "runs": f"k={k1:.4f},{k2:.4f} p={p1:.4f},{p2:.4f}"}
+    return out
+
+
+def phase_stages(ms, what: str, timed: bool = False) -> dict:
+    """Phase C and the pairs kernel against their plain versions on every
+    group of a scanner's last scan, with each group's candidate, pair and
+    kept counts (and, ``timed``, each kernel's ms, plain ms and bound).
+    Returns group 0's times (``timed``)."""
+    first = None
+    for gi, group in enumerate(ms._groups):
+        row = check_stages(group, *stage_inputs(group, ms._dseq, ms.lengths))
+        fields = {}
+        if timed:
+            times = time_stages(group, row)
+            first = first or times
+            for name, t in times.items():
+                fields[name] = (f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                                f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
+                                f"runs={t['runs']}")
+        log("stages", workload=what, group=gi, lanes=group["phase_c"][2].shape[0],
+            rows=group["m_max"], candidates=row["candidates"], pairs=row["pairs"],
+            kept=row["kept"], cap=row["cap"], cap_hits=row["cap_hits"], equal_plain=True,
+            launches="phase_c_bits 1 + pairs_rescore 5 a segment", **fields)
+    return first
+
+
+def dense_hits_check() -> None:
+    """The kernels on a group whose candidate rows hold more pairs than a
+    row lists (thresholds at p = 0.02 over 2,048 lanes): at cap_hits 2**16
+    each row lists its first 64 and hit_need is 4,096 x the fullest row's
+    count, equal to the plain version's; at room for every pair, equal
+    again."""
+    from lightmotif_tpu_torch import DNA, EncodedSequence
+    from lightmotif_tpu_torch.ops import multi
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+
+    rng = np.random.default_rng(0xD15E)
+    pssms = synthetic_motifs(rng, DNA, sorted(int(w) for w in rng.integers(5, 9, 2048)))
+    ths = np.asarray([p.score_distribution().score(0.02) for p in pssms], np.float32)
+    k = len(DNA.symbols)
+    stack, lengths = multi.stack_motifs([p.data for p in pssms], k)
+    (group,) = multi.database_groups(stack, lengths, ths, np.arange(len(pssms)), k, DEVICE,
+                                     len(pssms))
+    dseq = DeviceSequence(EncodedSequence(rng.integers(0, 4, 200_000).astype(np.uint8)),
+                          DEVICE)
+    inputs = stage_inputs(group, dseq, lengths)
+    for cap_hits in (1 << 16, None):
+        row = check_stages(group, *inputs, cap_hits=cap_hits)
+        log("stages", workload="dense hits (p = 0.02, 2,048 lanes, 200,000 bp)",
+            candidates=row["candidates"], pairs=row["pairs"], kept=row["kept"],
+            cap_hits=row["cap_hits"], truncated=row["pairs"] > row["cap_hits"],
+            equal_plain=True)
+
+
 def phase_database(seq):
     """The database path at full size; returns (scanner, its launches,
     the brute force's hits, the forward strands' count matrices)."""
+    from lightmotif_tpu_torch.ops import multi
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
     from lightmotif_tpu_torch.scanner import MultiScanner
 
@@ -753,14 +981,17 @@ def phase_database(seq):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = launch_counts()
-    if launches["prefilter_any8"] < 1:
-        raise SystemExit(f"the database scan never launched K3: {launches}")
+    reruns = dict(multi.RERUNS)
+    if (launches["prefilter_any8"] < 1
+            or {k: launches[k] for k in group_launches(0)} != group_launches(len(ms._groups))):
+        raise SystemExit(f"the database scan's launches {launches}, re-runs {reruns}")
     routing = ms._route()
     log("database", live=len(routing["short_idx"]) + len(routing["dense_idx"]),
         pruned=len(pssms) - len(routing["short_idx"]) - len(routing["dense_idx"]),
         groups=len(ms._groups), group_rows=[g["m_max"] for g in ms._groups],
         dense=len(routing["dense_idx"]), hits=len(got[0]),
-        first_scan_s=f"{first_s:.3f}", launches=launches)
+        first_scan_s=f"{first_s:.3f}", launches=launches, reruns=reruns,
+        capacities=ms._group_state, host_reads=ms.host_reads)
 
     t0 = time.perf_counter()
     want = brute_force(pssms, ths, DeviceSequence(seq, DEVICE))
@@ -774,7 +1005,42 @@ def phase_database(seq):
     check_scan("database, 5 segments", five.scan_arrays(seq), want)
     log("database", check="scan_arrays == brute force", segments=5,
         segment=five.SEGMENT)
-    return ms, launches["prefilter_any8"], want, counts
+
+    # a seed capacity of 64: every group overflows and re-runs until it
+    # fits, with the same hits; then one read per scan
+    small = MultiScanner(pssms, thresholds=ths, capacity=64, device=DEVICE)
+    multi.reset_reruns()
+    check_scan("database, capacity 64", small.scan_arrays(seq), want)
+    first_reads, reruns = small.host_reads, dict(multi.RERUNS)
+    small.host_reads = 0
+    check_scan("database, capacity 64, again", small.scan_arrays(seq), want)
+    if not reruns["group"] or small.host_reads != 1:
+        raise SystemExit(f"database, capacity 64: re-runs {reruns}, steady reads "
+                         f"{small.host_reads}")
+    log("database", check="a seed capacity of 64 ratchets to the same hits", reruns=reruns,
+        first_scan_reads=first_reads, steady_reads=small.host_reads,
+        capacities=small._group_state)
+
+    # steady state: one read of the card per collect_arrays; the dispatch
+    # (every group's stages) reads nothing, under the sync debug mode
+    ms.host_reads = 0
+    check_scan("database, steady", ms.collect_arrays(), want)
+    steady_reads = ms.host_reads
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        token = ms.dispatch()
+    except RuntimeError as e:
+        raise SystemExit(f"database: the dispatch read the card: {e}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_scan("database, dispatched under the sync debug mode", ms.fetch(token), want)
+    if steady_reads != 1:
+        raise SystemExit(f"database: {steady_reads} reads in one steady collect_arrays")
+    log("database", check="MultiScanner.collect_arrays reads the card once in steady state; "
+        "its dispatch reads nothing (sync debug mode error)", host_reads=steady_reads,
+        entries=len(token["entries"]))
+    return ms, launches, want, counts
 
 
 class ModeDatabase:
@@ -797,6 +1063,7 @@ class ModeDatabase:
             raise SystemExit("modes: the database has dense motifs; the modes run no dense path")
         self.dseq = DeviceSequence(seq, DEVICE)
         self._discrete = None
+        self.state = {}  # per mode: the groups' capacities, as a scanner keeps them
 
     def lanes(self, prefilter: str) -> int:
         """Lanes per group: the scanner's 2,048 for K3 and K5,
@@ -828,11 +1095,14 @@ class ModeDatabase:
             discrete=self.discrete() if prefilter == "k4" else None)
 
     def scan(self, groups, segment: int):
-        """Hit arrays through ``groups``, sorted as ``scan_arrays`` sorts."""
+        """Hit arrays through ``groups``, sorted as ``scan_arrays`` sorts,
+        with the groups' capacities kept from scan to scan."""
         from lightmotif_tpu_torch.ops import multi
 
-        return multi.sorted_hits(multi.scan_groups(
-            self.dseq.data, self.dseq.length, self.ms.lengths, groups, self.k, segment))
+        state = self.state.setdefault(id(groups), {})
+        return multi.collect_entries(multi.scan_groups(
+            self.dseq.data, self.dseq.length, self.ms.lengths, groups, self.k, segment,
+            state=state), state=state)
 
     def segment_entry(self, prefilter: str):
         """The port's ``scan_multi_segment_fused``, given the first group's
@@ -850,12 +1120,14 @@ class ModeDatabase:
                    {"filters_t": multi.pack_filters_u8(g, ids, *self.discrete(), self.k)})
         n_valid = np.zeros((1, g["f_hi"].shape[1]), np.int64)
         n_valid[0, : ids.size] = np.maximum(self.dseq.length - ms.lengths[ids] + 1, 0)
-        multi_kernel.reset_launches()
+        chunk_len = int(n_valid.max()) + g["m_max"] - 1
+        reset_launches()
+        # capacities for every window and up to 2**20 pairs: no re-run
         pos, lanes, scores = multi.scan_multi_segment_fused(
             self.dseq.data, 0, n_valid, filters.pop("filters_t"), g["pssm"], g["th"],
-            int(n_valid.max()) + g["m_max"] - 1, 0, g["m_max"], self.k, **filters)
+            chunk_len, chunk_len, g["m_max"], self.k, cap_hits=1 << 20, **filters)
         torch.cuda.synchronize()
-        launches = dict(multi_kernel.LAUNCHES)
+        launches = {k: v for k, v in launch_counts().items() if v}
         ids_dev = torch.as_tensor(ids, device=DEVICE)
         return ids, multi.sorted_hits([(pos, ids_dev[lanes], scores)]), launches
 
@@ -871,7 +1143,7 @@ def check_segment_entry(db, prefilter: str, mode_hits, what: str) -> None:
 
     ids, got, launches = db.segment_entry(prefilter)
     name = multi.PREFILTERS[prefilter]
-    if launches[name] != 1 or sum(launches.values()) != 1:
+    if launches != group_launches(1, name):
         raise SystemExit(f"{what}: scan_multi_segment_fused launches {launches}")
     sel = np.isin(mode_hits[0], ids)
     if not (len(got[0]) and same_hits(got, [a[sel] for a in mode_hits])):
@@ -884,13 +1156,13 @@ def check_segment_entry(db, prefilter: str, mode_hits, what: str) -> None:
 def phase_modes(ms, seq, brute) -> tuple:
     """The u16 (K5) and u8 (K4) modes of the database core at full size,
     held to the K3 mode's hits (``ms.scan_arrays``) and, for K5, to the
-    brute force in 1 and 5 segments; each mode must launch its kernel
-    once per group and segment.  The segment entry, given group 0's JAX
-    filters, must give that group's hits in each mode.  Returns (the
-    ModeDatabase, K5 groups, K5 launches of the one-segment run, K4
-    launches)."""
-    from lightmotif_tpu_torch.ops import multi_kernel
-
+    brute force in 1 and 5 segments; each mode must launch its kernel,
+    phase C and the pairs kernel once per group and segment and once per
+    re-run.  The segment entry, given group 0's JAX filters, must give
+    that group's hits in each mode.  Phase C and the pairs kernel equal
+    their plain versions on every group of each mode.  Returns (the
+    ModeDatabase, K5 groups, the launches of the one-segment K5 run, the
+    K4 launches)."""
     db = ModeDatabase(ms, seq)
     want = ms.scan_arrays(seq)
     n = len(seq) - int(ms.lengths.min()) + 1
@@ -900,16 +1172,16 @@ def phase_modes(ms, seq, brute) -> tuple:
     launches5 = None
     for segments in (1, 5):
         segment = -(-n // segments)
-        multi_kernel.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         got = db.scan(groups5, segment)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        runs = dict(multi_kernel.LAUNCHES)
-        if runs["prefilter_any16"] != len(groups5) * segments or runs["prefilter_any8"]:
+        runs = {k: v for k, v in launch_counts().items() if v}
+        if runs != group_launches(len(groups5) * segments, "prefilter_any16"):
             raise SystemExit(f"u16 mode, {segments} segments, {len(groups5)} groups: "
                              f"launches {runs}")
-        launches5 = launches5 or runs["prefilter_any16"]
+        launches5 = launches5 or runs
         check_scan(f"u16 mode, {segments} segments", got, brute)
         if not same_hits(got, want):
             raise SystemExit(f"u16 mode, {segments} segments: hits != the K3 mode's")
@@ -921,13 +1193,13 @@ def phase_modes(ms, seq, brute) -> tuple:
     t0 = time.perf_counter()
     groups4 = db.groups("k4")
     pack_s = time.perf_counter() - t0
-    multi_kernel.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     got = db.scan(groups4, n)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches4 = dict(multi_kernel.LAUNCHES)
-    if launches4["prefilter_any"] != len(groups4) or launches4["prefilter_any16"]:
+    launches4 = {k: v for k, v in launch_counts().items() if v}
+    if launches4 != group_launches(len(groups4), "prefilter_any"):
         raise SystemExit(f"u8 mode, {len(groups4)} groups: launches {launches4}")
     # the genome has no wildcard, so the u8 test misses no hit
     if not same_hits(got, want):
@@ -937,7 +1209,14 @@ def phase_modes(ms, seq, brute) -> tuple:
         hits=len(got[0]), equal_k3_mode=True, launches=launches4,
         scan_s=f"{wall:.3f}", pack_s=f"{pack_s:.3f}")
     check_segment_entry(db, "k4", want, "u8 mode")
-    return db, groups5, launches5, launches4["prefilter_any"]
+    # phase C and the pairs kernel on every group of each mode
+    for what, groups in (("u16 (K5) mode", groups5), ("u8 (K4) mode", groups4)):
+        for gi, group in enumerate(groups):
+            row = check_stages(group, *stage_inputs(group, db.dseq, ms.lengths))
+            log("stages", workload=what, group=gi, lanes=group["phase_c"][2].shape[0],
+                rows=group["m_max"], candidates=row["candidates"], pairs=row["pairs"],
+                kept=row["kept"], equal_plain=True)
+    return db, groups5, launches5, launches4
 
 
 def genome_records(seq):
@@ -961,8 +1240,9 @@ def phase_batch(pssm, seq, ms) -> tuple:
     MultiBatchScanner with the database against the brute force over the
     concatenation, windows inside one record.  Each class's launches are
     counted from 0 over its own call, before its oracle runs: K1 once
-    for the reducer, K2 once per segment for the scanner, K3 once per
-    motif group and segment for the database.  Returns (records, the
+    for the reducer, K2 once per segment for the scanner, K3, phase C and
+    the pairs kernel once per motif group and segment for the database
+    (its second scan: the first settles the capacities).  Returns (records, the
     BatchReducer, the MultiBatchScanner, its hit arrays)."""
     from lightmotif_tpu_torch import Scanner
     from lightmotif_tpu_torch.batch import BatchReducer, BatchScanner, MultiBatchScanner
@@ -1015,6 +1295,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     mbs = MultiBatchScanner(ms.pssms, thresholds=ms.thresholds, device=DEVICE)
     dseq, offsets, lengths = prepared = mbs.prepare(records)
     mbs.rebind_prepared(prepared)
+    mbs.collect_arrays()  # the capacities settle
     reset_launches()
     rec, mo, local, sc = mbs.collect_arrays()
     launches_mbs = launch_counts()
@@ -1025,7 +1306,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     size = MultiScanner.GROUP_MOTIFS
     want_k3 = sum(-(-(dseq.length - int(ms.lengths[short[s:s + size]].min()) + 1)
                     // MultiScanner.SEGMENT) for s in range(0, short.size, size))
-    expect("MultiBatchScanner.collect_arrays", launches_mbs, {"prefilter_any8": want_k3})
+    expect("MultiBatchScanner.collect_arrays", launches_mbs, group_launches(want_k3))
     ids, pos, bits = brute_force(ms.pssms, ms.thresholds, dseq)
     r = np.searchsorted(offsets, pos, side="right") - 1
     lo = pos - offsets[r]
@@ -1254,10 +1535,11 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
                 and np.array_equal(bits[order], brute[2]) and not si.any()):
             raise SystemExit(f"cli database x genome != brute force "
                              f"({len(pos)} rows vs {len(brute[0])})")
-        want_k3 = k3_launches(len(seq))
-        if launches["prefilter_any8"] != want_k3 or launches["score_u8"]:
-            raise SystemExit(f"cli database x genome: launches {launches}, "
-                             f"expected prefilter_any8={want_k3}")
+        # K3, phase C and the pairs kernel once per group and segment and
+        # once per re-run at larger capacities
+        want = group_launches(k3_launches(len(seq)))
+        if {k: launches[k] for k in want} != want or launches["score_u8"]:
+            raise SystemExit(f"cli database x genome: launches {launches}, expected {want}")
         log("cli", run="database x genome", rows=len(pos), equal_brute_force=True,
             launches=launches, wall_s=f"{wall:.3f}", cli_timing=json.dumps(timing))
         genome_tsv = open(out).read()
@@ -1285,12 +1567,11 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
                                  f"MultiBatchScanner ({len(pos)} vs {len(want_b[0])})")
             flights = cli_flights([len(r) for r in records], gap,
                                   flight_bytes or (16 << 20))
-            want_k3 = sum(k3_launches(sum(n + gap for n in f) if len(f) > 1 else f[0])
-                          for f in flights)
-            if launches["prefilter_any8"] != want_k3:
+            want = group_launches(sum(
+                k3_launches(sum(n + gap for n in f) if len(f) > 1 else f[0]) for f in flights))
+            if {k: launches[k] for k in want} != want:
                 raise SystemExit(f"cli database x records ({flight_bytes}): launches "
-                                 f"{launches}, expected prefilter_any8={want_k3} over "
-                                 f"{len(flights)} flights")
+                                 f"{launches}, expected {want} over {len(flights)} flights")
             tsvs.append(open(out).read())
             log("cli", run="database x records", flight_bytes=flight_bytes or "default",
                 flights=len(flights), rows=len(pos), equal_multibatchscanner=True,
@@ -1383,6 +1664,8 @@ def phase_other_paths(seq) -> None:
             launches=launches)
         if not len(got[0]) or not n_dense:
             raise SystemExit(f"{name}: no hits or no dense motif, the check is vacuous")
+        phase_stages(ms, name)  # the protein groups (the dense set has none)
+    dense_hits_check()
 
 
 def phase_imports() -> None:
@@ -1576,7 +1859,7 @@ def mesh_k3_launches(sm) -> int:
         scanner = sm._scanners[dseq.device]
         for g in scanner._groups:
             n_valid = int(np.maximum(dseq.length - sm.lengths[g["ids"]] + 1, 0).max())
-            launches += -(-n_valid // scanner.SEGMENT)
+            launches += -(-min(n_valid, sm._bound["chunk"]) // scanner.SEGMENT)
     return launches
 
 
@@ -1594,6 +1877,7 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     at 1, 2, 4 and 8 shards beside the single-device walls of the same
     call.  Returns the launches of each kernel."""
     from lightmotif_tpu_torch import DNA, Scanner
+    from lightmotif_tpu_torch.ops import multi
     from lightmotif_tpu_torch.ops.pipeline import PAD_MULTIPLE, Pipeline
     from lightmotif_tpu_torch.parallel import (ShardedMultiScanner, ShardedScanner,
                                                make_genome_mesh, sharded_argmax)
@@ -1658,7 +1942,7 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         expect(f"ShardedMultiScanner ({label})", launch_counts(),
-               {"prefilter_any8": mesh_k3_launches(sm)})
+               group_launches(mesh_k3_launches(sm)))
         check_scan(f"mesh ShardedMultiScanner ({label})", got, brute)
         if not same_hits(got, want):
             raise SystemExit(f"mesh ShardedMultiScanner ({label}) != MultiScanner")
@@ -1667,6 +1951,29 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
             mesh=label, shards=len(devices), groups=len(sm._scanners[devices[0]]._groups),
             hits=len(got[0]),
             launches=launch_counts(), first_scan_s=f"{first_s:.3f}")
+
+    # one device's share of the database scan (its worker's issue of every
+    # shard) under the sync debug mode: no read of the card inside it
+    sm8 = scanners[f"{MESH_SHARDS} x {DEVICE}"]
+    st = sm8._bound
+    (card, scanner), = sm8._scanners.items()
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        issued = sm8._scan_device(card, st["shards"], st["chunk"])
+    except RuntimeError as e:
+        raise SystemExit(f"mesh: a device's share of the database scan read the card: {e}"
+                         ) from None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    entries = [e._replace(offset=e.offset + d * st["chunk"]) for d, shard in issued
+               for e in shard]
+    check_scan("mesh: a device's share issued under the sync debug mode",
+               multi.collect_entries(entries, state=scanner._group_state,
+                                     hints=scanner._head_hint), brute)
+    log("mesh", check="one device's share of ShardedMultiScanner (every shard's groups and "
+        "stages) issued under the sync debug mode error", shards=len(st["shards"]),
+        entries=len(entries))
 
     # the host reads of one call, on 1 and on MESH_SHARDS shards of the card
     reads = {}
@@ -1690,6 +1997,13 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
         if by_shards[MESH_SHARDS] > by_shards[1]:
             raise SystemExit(f"mesh: {name} reads the card more on {MESH_SHARDS} shards: "
                              f"{by_shards}")
+    if reads["ShardedMultiScanner.collect_arrays"] != {1: 1, MESH_SHARDS: 1}:
+        raise SystemExit(f"mesh: the steady database scan reads {reads}")
+    ms.host_reads = 0
+    ms.collect_arrays()
+    log("mesh", host_reads="MultiScanner.collect_arrays", steady=ms.host_reads)
+    if ms.host_reads != 1:
+        raise SystemExit(f"mesh: MultiScanner.collect_arrays read {ms.host_reads} times")
 
     rng = np.random.default_rng(0xDE45E)  # phase_other_paths' dense motifs
     long = synthetic_motifs(rng, DNA, [129, 150, 200, 257])
@@ -1740,20 +2054,128 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     return total
 
 
-def device_split(fn) -> tuple:
-    """One profiled run of ``fn``: its wall (ms, profiler on) and the
-    card's busy time (ms), the sum of its kernels' device times."""
-    from torch.profiler import ProfilerActivity, profile
+#: The range of a profiled run that :func:`trace_kernels` reads.
+TIMED_RANGE = "chip_smoke.timed"
+
+
+def trace_kernels(prof) -> tuple:
+    """The card's work in the recorded run of :func:`profiled`, from the
+    trace's own device events (kernels, copies and sets on the current
+    card, each with its start and duration) that start inside the
+    :data:`TIMED_RANGE` range: the busy ms, the union of their intervals
+    (so work on two streams at once counts once), the ms of each kernel
+    name (arguments dropped, equal names summed), the largest first, and
+    the number of events, inside the range and before it (the warm-up
+    run's)."""
+    import os
+    import tempfile
+
+    # the trace goes through a file of its own inside the checkout
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    card = torch.cuda.current_device()
+    lo = min(float(e["ts"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == TIMED_RANGE)
+    spans, by_name, before = [], {}, 0
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        if e.get("args", {}).get("device", card) != card:
+            continue
+        t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        if t0 < lo:
+            before += 1
+            continue
+        spans.append((t0, t0 + dur))
+        name = e.get("name", "").replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = name.split("(")[0][:90] or "unnamed"
+        by_name[name] = by_name.get(name, 0.0) + dur / 1e3
+    busy_us, end = 0.0, None
+    for t0, t1 in sorted(spans):
+        if end is None or t0 > end:
+            busy_us += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy_us += t1 - end
+            end = t1
+    return (busy_us / 1e3, sorted(by_name.items(), key=lambda kv: -kv[1]), len(spans),
+            before)
+
+
+def profiled(fn, timed=None) -> tuple:
+    """Two runs under one ``torch.profiler`` session: ``fn`` as a warm-up
+    (the tracer may miss the first kernels of a session), then ``timed``
+    (default ``fn``), the recorded one, inside the :data:`TIMED_RANGE`
+    range after the card has finished the warm-up.  Returns ``(wall ms of
+    the recorded run, profiler on, the profiler)``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    return wall, busy
+        with record_function(TIMED_RANGE):
+            t0 = time.perf_counter()
+            (timed or fn)()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    return wall, prof
+
+
+def device_split(fn) -> tuple:
+    """One profiled run of ``fn`` (:func:`profiled`): its wall (ms,
+    profiler on) and the card's busy time (ms, :func:`trace_kernels`)."""
+    wall, prof = profiled(fn)
+    return wall, trace_kernels(prof)[0]
+
+
+def stage_split(scanners, fn) -> dict:
+    """One profiled run of ``fn`` (:func:`profiled`) with the timing hook
+    of every ``MultiScanner`` in ``scanners`` on (all on the current
+    card): the ms of each stage by CUDA events (an interval counts to the
+    stage that ends it, host gaps inside it included; "end" is what
+    follows the last stage: reads, re-runs, the host's sorting), the
+    counts each stage gave (read after the run), the run's wall, the
+    card's busy time from the trace's device events (:func:`trace_kernels`)
+    with the time of each kernel and the number of events, and the rest,
+    the host's."""
+    marks = []
+
+    def mark(stage, n):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev, n))
+
+    def timed():
+        for scanner in scanners:
+            scanner.mark = mark
+        try:
+            mark("start", 0)
+            fn()
+            mark("end", 0)
+        finally:
+            for scanner in scanners:
+                scanner.mark = None
+
+    wall, prof = profiled(fn, timed)
+    stages, counts = {}, {}
+    for (_, a, _), (stage, b, _) in zip(marks, marks[1:]):
+        stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b)
+    for stage, _, n in marks[1:-1]:
+        value = n.cpu().numpy() if torch.is_tensor(n) else np.asarray(n)
+        counts[stage] = counts.get(stage, 0) + value.astype(np.int64)
+    busy, kernels, n_events, n_warm = trace_kernels(prof)
+    out = {f"{k}_ms": round(v, 4) for k, v in stages.items()}
+    out["top_kernels_ms"] = {name: round(ms, 4) for name, ms in kernels[:10]}
+    out.update({f"n_{k}": v.tolist() for k, v in counts.items()})
+    out.update(wall_ms=round(wall, 4), device_events=n_events, warmup_events=n_warm,
+               device_busy_ms=round(busy, 4) if busy else None,
+               host_ms=round(wall - busy, 4) if busy else None,
+               idle_share=round(1 - busy / wall, 4) if busy else None)
+    return out
 
 
 def walls_in_turns(sharded, single) -> tuple:
@@ -1841,8 +2263,10 @@ def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute) -> None:
         got = sm.scan_arrays(seq)
         for device in mesh:
             torch.cuda.synchronize(device)
-        if launch_counts()["prefilter_any8"] != mesh_k3_launches(sm):
-            raise SystemExit(f"mesh_cards: {k} cards, launches {launch_counts()}")
+        want_launches = group_launches(mesh_k3_launches(sm))
+        if {name: launch_counts()[name] for name in want_launches} != want_launches:
+            raise SystemExit(f"mesh_cards: {k} cards, launches {launch_counts()}, "
+                             f"expected {want_launches}")
         check_scan(f"mesh_cards ShardedMultiScanner on {k} cards", got, brute)
         if not same_hits(got, want):
             raise SystemExit(f"mesh_cards: ShardedMultiScanner on {k} cards != MultiScanner")
@@ -1905,13 +2329,15 @@ pssm, seq = cs.build_inputs()
 pssms, ths, _ = cs.synthetic_database(cs.DB_MOTIFS, cs.DB_SEED)
 mesh = make_genome_mesh([device] * shards)
 t = pssm.score_distribution().score(1e-5)
-launches, reads = {}, {}
+from lightmotif_tpu_torch.ops import multi
+launches, reads, reruns = {}, {}, {}
 def run(name, fn):
     cs.reset_launches()
     mesh_mod.reset_host_reads()
     value = fn()
     torch.cuda.synchronize()
     launches[name], reads[name] = cs.launch_counts(), mesh_mod.HOST_READS
+    reruns[name] = dict(multi.RERUNS)
     return value
 scanner = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
 hits = run("collect", scanner.collect)
@@ -1932,13 +2358,16 @@ for name, fn in (("ShardedScanner.collect", scanner.collect),
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     walls[name] = statistics.median(times[1:])
+# the database scan's split by stage on this rank, one profiled run
+split = cs.stage_split(list(sm._scanners.values()), sm.collect_arrays)
 np.savez(out, pos=np.asarray([h.position for h in hits], np.int64),
          bits=np.asarray([cs.f32_bits(h.score) for h in hits], np.uint32),
          argmax=np.asarray([cs.f32_bits(mx), am], np.int64),
          max=np.asarray([cs.f32_bits(best.score), best.position], np.int64),
          mo=mo, mpos=pos, msc=sc, shard_hits=shard_hits, multi_shard_hits=sm.shard_hits,
          k3=cs.mesh_k3_launches(sm), runs=json.dumps({"launches": launches, "reads": reads,
-                                                      "nvcc": nvcc, "walls": walls}),
+                                                      "nvcc": nvcc, "walls": walls,
+                                                      "reruns": reruns, "split": split}),
          jax=np.asarray(sorted(m for m in sys.modules
                                if m.split(".")[0] in ("jax", "lightmotif_tpu"))))
 dist.destroy_process_group()
@@ -1953,10 +2382,12 @@ def run_ranks(label: str, backend: str, cards: list, shards_each: int,
     and the database (ShardedMultiScanner).  Their merged hits must
     equal the single-process hits, every rank must report the known best
     hit and the same per-shard counts, and each path must launch its
-    kernel once per shard (K3 once per group and shard).  With
-    ``fresh_build`` the first rank starts from an empty build directory
-    and launches from two threads at once: one build.  Returns the walls
-    (ms, the slowest rank's median) of ``ShardedScanner.collect`` and
+    kernel once per shard (K3, phase C and the pairs kernel once per
+    group and shard, and once per re-run).  With ``fresh_build`` the
+    first rank starts from an empty build directory and launches from two
+    threads at once: one build.  Logs every rank's walls and its database
+    scan's split by stage; returns the walls (ms, the slowest rank's
+    median) of ``ShardedScanner.collect`` and
     ``ShardedMultiScanner.collect_arrays``, each run started on every
     rank at once."""
     import os
@@ -2015,24 +2446,37 @@ def run_ranks(label: str, backend: str, cards: list, shards_each: int,
     msc = np.concatenate([r["msc"] for r in res])
     order = np.lexsort((mpos, mo))
     check_scan(f"{label} ShardedMultiScanner", (mo[order], mpos[order], msc[order]), brute)
+    from lightmotif_tpu_torch.ops.multi_stages import PAIRS_KERNELS
+
     for r, run in zip(res, runs):
+        k3 = int(r["k3"]) + run["reruns"]["database"]["group"]
         want = {"collect": {"score_u8": shards_each}, "max": {"score_u8": shards_each},
                 "argmax": {"score_f32": shards_each},
-                "database": {"prefilter_any8": int(r["k3"])}}
+                "database": {"prefilter_any8": k3, "phase_c_bits": k3,
+                             "pairs_rescore": k3 * PAIRS_KERNELS}}
         got = {name: {k: v for k, v in counts.items() if v}
                for name, counts in run["launches"].items()}
         if got != want:
             raise SystemExit(f"{label}: launches {got}, expected {want}")
-    if fresh_build and runs[0]["nvcc"] != [runs[0]["nvcc"][0]] * 2 + [True]:
+    from lightmotif_tpu_torch.ops import build
+
+    n_sources = len(build.PRODUCTION_SOURCES)
+    if fresh_build and runs[0]["nvcc"] != [runs[0]["nvcc"][0]] * n_sources + [True]:
         raise SystemExit(f"{label}: the first launch from two threads: {runs[0]['nvcc']}")
     walls = {name: max(run["walls"][name] for run in runs) for name in runs[0]["walls"]}
     log(label, processes=len(cards), backend=backend, cards=cards, shards_each=shards_each,
         scanner_hits=[len(r["pos"]) for r in res], database_hits=[len(r["mo"]) for r in res],
         merged_equal_single=True, argmax=KNOWN_BEST_POS, shard_hits=res[0]["shard_hits"].tolist(),
         launches=[run["launches"] for run in runs], host_reads=[run["reads"] for run in runs],
+        reruns=[run["reruns"]["database"] for run in runs],
         **({"first_build": "2 threads, one nvcc per source, equal results"}
            if fresh_build else {}),
-        walls_ms={k: f"{v:.4f}" for k, v in walls.items()}, wall_s=f"{wall:.3f}")
+        slowest_walls_ms={k: f"{v:.4f}" for k, v in walls.items()}, wall_s=f"{wall:.3f}")
+    # every rank's walls and its database scan's split by stage
+    for rank, run in enumerate(runs):
+        log(label, rank=rank, card=cards[rank],
+            walls_ms={k: f"{v:.4f}" for k, v in run["walls"].items()},
+            database_split=json.dumps(run["split"]))
     return walls
 
 
@@ -2293,7 +2737,8 @@ def phase_times(pssm, seq) -> dict:
 
 def phase_database_times(ms, seq) -> tuple:
     """K3 at a database group's shape beside its plain version, the
-    database scan's steady-state wall and its split by stage."""
+    database scan's steady-state wall beside the plain stages' wall on
+    the card (in turns), and its split by stage."""
     from lightmotif_tpu_torch.ops import multi_kernel, torch_ops
 
     dseq = ms._dseq
@@ -2306,7 +2751,7 @@ def phase_database_times(ms, seq) -> tuple:
     n = chunk.shape[0] - group["m_max"] + 1
     if not torch.equal(kernel()[:n], plain()[:n]):
         raise SystemExit("prefilter_any8 != plain at the database group's shape")
-    lanes = group["t_eff"].shape[0]
+    lanes = group["phase_c"][2].shape[0]
     # device time per launch, in turns: plain, kernel, kernel, plain
     p1 = time_cuda(plain, runs=3)
     k1 = time_cuda(kernel, repeat=3)
@@ -2324,55 +2769,64 @@ def phase_database_times(ms, seq) -> tuple:
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, library_ms=f"{lib_ms:.4f}",
         library="conv1d + amax", library_equal=lib_equal)
 
-    walls = []
-    for _ in range(RUNS + 1):
-        t0 = time.perf_counter()
-        ms.scan_arrays(seq)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls[1:])
+    # the scan's steady-state wall beside the plain stages' on the card, in
+    # turns (plain, kernels, kernels, plain)
+    plain = lambda: plain_stages_scan(ms)  # noqa: E731
+    if not same_hits(plain(), ms.scan_arrays(seq)):
+        raise SystemExit("database: the plain stages' hits != scan_arrays'")
+    p1, k1 = wall_ms(plain, runs=5), wall_ms(lambda: ms.scan_arrays(seq))
+    k2, p2 = wall_ms(lambda: ms.scan_arrays(seq)), wall_ms(plain, runs=5)
+    med = statistics.median
+    walls = k1 + k2
+    wall = min(med(k1), med(k2))
     log("times", op=f"MultiScanner.scan_arrays wall, steady state, {len(ms.pssms)} PSSMs",
-        ms=f"{wall:.4f}", p90_ms=f"{sorted(walls[1:])[int(0.9 * RUNS)]:.4f}",
-        pssm_gpos_s=f"{len(ms.pssms) * len(seq) / wall / 1e6:.3f}")
+        ms=f"{wall:.4f}", p90_ms=f"{sorted(walls)[int(0.9 * len(walls))]:.4f}",
+        pssm_gpos_s=f"{len(ms.pssms) * len(seq) / wall / 1e6:.3f}",
+        plain_stages_ms=f"{min(med(p1), med(p2)):.4f}",
+        runs=f"kernels={med(k1):.4f},{med(k2):.4f} plain={med(p1):.4f},{med(p2):.4f}",
+        plain_stages="K3, then phase_c_bits_plain and pairs_rescore_plain at room for "
+        "every pair")
 
-    # split by stage, on the real path: the scanner's timing hook records
-    # a CUDA event as each stage's work is queued, and an interval counts
-    # to the stage that ends it (host gaps inside a stage included).  The
-    # same run is profiled: device busy = the sum of its kernels' device
-    # times, host = the run's wall minus that
-    from torch.profiler import ProfilerActivity, profile
-
-    stages: dict = {}
-    counts: dict = {}
-    marks = []
-
-    def mark(stage, n):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((stage, ev))
-        counts[stage] = counts.get(stage, 0) + n
-
-    ms.mark = mark
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mark("start", 0)
-        ms.scan_arrays(seq)
-        torch.cuda.synchronize()
-        run_wall = (time.perf_counter() - t0) * 1e3
-    ms.mark = None
-    for (_, a), (stage, b) in zip(marks, marks[1:]):
-        stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b)
-    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    # split by stage, on the real path (the scanner's timing hook records a
+    # CUDA event as each stage's work is queued) in one profiled run
     log("times", op="database scan by stage (one profiled run, CUDA events)",
-        **{f"{k}_ms": f"{v:.4f}" for k, v in stages.items()},
-        run_wall_ms=f"{run_wall:.4f}",
-        device_busy_ms=f"{busy:.4f}" if busy else "not measured",
-        host_ms=f"{run_wall - busy:.4f}" if busy else "not measured",
-        idle_share=f"{1 - busy / run_wall:.4f}" if busy else "not measured",
-        **{f"n_{k}": v for k, v in counts.items() if k not in ("start", "k3")})
+        **stage_split([ms], lambda: ms.scan_arrays(seq)))
     return entry
+
+
+def plain_stages_scan(ms):
+    """The database scan of a ``MultiScanner``'s bound sequence through
+    the plain versions of the exact stages on the card: each group's K3
+    (the kernel), every candidate, ``phase_c_bits_plain`` and
+    ``pairs_rescore_plain`` at room for every pair, each group and segment
+    reading the card in between; hits sorted as ``scan_arrays`` sorts."""
+    from lightmotif_tpu_torch.ops import multi, multi_stages
+
+    dseq = ms._dseq
+    if ms._route()["dense_idx"].size:
+        raise SystemExit("the plain stages' scan takes no dense motif")
+    parts = []
+    for group in ms._groups:
+        chunk, lanes, maxv = stage_inputs(group, dseq, ms.lengths)
+        cand, count = multi.compact_candidates(maxv, max(int((maxv >= 0).sum()), 1))
+        bits = multi_stages.phase_c_bits_plain(chunk, cand, count, *group["phase_c"], lanes)
+        cap_hits = max(int(torch_popcount(bits)), 1)
+        while True:
+            counts, packed = multi_stages.pairs_rescore_plain(
+                bits, cand, count, chunk, group["pssm"], group["th"], cap_hits)
+            if int(counts[1]) <= cap_hits:
+                break
+            cap_hits = int(counts[1])
+        kept = packed[:, : int(counts[2])]
+        parts.append((kept[0].to(torch.int64), group["ids_dev"][kept[1].to(torch.int64)],
+                      kept[2].view(torch.float32)))
+    return multi.sorted_hits(parts)
+
+
+def torch_popcount(words: torch.Tensor) -> torch.Tensor:
+    """The set bits of an int32 tensor, summed."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    return ((words[..., None] >> shifts) & 1).sum()
 
 
 def time_prefilter(name, seq, args, m, what: str) -> dict:
@@ -2427,7 +2881,7 @@ def phase_mode_times(ms, seq, db, groups5) -> dict:
     group = groups5[0]
     n_valid = np.maximum(dseq.length - ms.lengths + 1, 0)
     chunk = dseq.data[: int(n_valid[group["ids"]].max()) + group["m_max"] - 1]
-    lanes = group["t_eff"].shape[0]
+    lanes = group["phase_c"][2].shape[0]
     out["prefilter_any16"] = time_prefilter(
         "prefilter_any16", chunk, group["k5"], group["m_max"],
         f"database group 0: {chunk.shape[0]}x{lanes} lanes, m={group['m_max']}")
@@ -2678,7 +3132,7 @@ def phase_score_probes(pssm, seq, ms, times) -> dict:
     group = ms._groups[0]
     n_valid = np.maximum(ms._dseq.length - ms.lengths + 1, 0)
     chunk = ms._dseq.data[: int(n_valid[group["ids"]].max()) + group["m_max"] - 1]
-    lanes = np.zeros(group["t_eff"].shape[0], np.int32)
+    lanes = np.zeros(group["phase_c"][2].shape[0], np.int32)
     lanes[: len(group["ids"])] = n_valid[group["ids"]]
     nv = torch.from_numpy(lanes).to(DEVICE)
     args = group["k3"]
@@ -2689,7 +3143,7 @@ def phase_score_probes(pssm, seq, ms, times) -> dict:
     # K3's bound on the same inputs, or the bits' bytes (one int32 word per
     # position and 16 lanes) if they take longer
     k3_bound = prefilter_bound(chunk, *args)
-    bits_bytes = chunk.shape[0] * (1 + 4 * group["t_eff"].shape[0] // 16)
+    bits_bytes = chunk.shape[0] * (1 + 4 * group["phase_c"][2].shape[0] // 16)
     bound_ms, bound_by = max(k3_bound, (bits_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
     out["prefilter_bits"] = {"source": K3_SOURCE, "replaces": P9_REPLACES,
                              "launches": launches["P9"], "max_abs_err": 0.0,
@@ -2720,9 +3174,12 @@ def main(argv: list) -> int:
     errs.update(phase_k4k5(cases, seq))
     del cases
     launches, scanner_hits = phase_main_path(pssm, seq)
-    ms, launches["prefilter_any8"], brute, counts = phase_database(seq)
-    db, groups5, launches["prefilter_any16"], launches["prefilter_any"] = phase_modes(
-        ms, seq, brute)
+    ms, db_launches, brute, counts = phase_database(seq)
+    launches.update({name: db_launches[name] for name in group_launches(0)})
+    db, groups5, launches5, launches4 = phase_modes(ms, seq, brute)
+    launches["prefilter_any16"] = launches5["prefilter_any16"]
+    launches["prefilter_any"] = launches4["prefilter_any"]
+    stage_times = phase_stages(ms, "database (K3 mode)", timed=True)
     phase_other_paths(seq)
     records, br, mbs, batch_hits = phase_batch(pssm, seq, ms)
     phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute)
@@ -2736,6 +3193,7 @@ def main(argv: list) -> int:
     phase_mesh_procs(scanner_hits, brute)
     times = phase_times(pssm, seq)
     times["prefilter_any8"] = phase_database_times(ms, seq)
+    times.update(stage_times)
     times.update(phase_mode_times(ms, seq, db, groups5))
     phase_batch_times(pssm, records, br, mbs)
     phase_host_cost(pssm, seq)
@@ -2744,7 +3202,10 @@ def main(argv: list) -> int:
     sources = {"score_f32": (SOURCE, REPLACES), "score_u8": (SOURCE, REPLACES),
                "prefilter_any8": (K3_SOURCE, K3_REPLACES),
                "prefilter_any": (K3_SOURCE, K4_REPLACES),
-               "prefilter_any16": (K3_SOURCE, K5_REPLACES)}
+               "prefilter_any16": (K3_SOURCE, K5_REPLACES),
+               "phase_c_bits": (PHASE_C_SOURCE, PHASE_C_REPLACES),
+               "pairs_rescore": (PAIRS_SOURCE, PAIRS_REPLACES)}
+    errs.update(STAGE_ERRS)  # the worst of every check of the two
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

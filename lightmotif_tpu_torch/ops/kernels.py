@@ -44,12 +44,12 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def count_launch(counts: dict, name: str) -> None:
-    """Add one to ``counts[name]`` under a lock: ``+=`` on a dict entry is
-    not atomic, and a sharded database scan launches from one thread per
-    device."""
+def count_launch(counts: dict, name: str, n: int = 1) -> None:
+    """Add ``n`` kernel launches to ``counts[name]`` under a lock: ``+=``
+    on a dict entry is not atomic, and a sharded database scan launches
+    from one thread per device."""
     with _COUNT_LOCK:
-        counts[name] += 1
+        counts[name] += n
 
 
 def _check(seq: torch.Tensor, table: torch.Tensor, table_dtype, n_scores: int):

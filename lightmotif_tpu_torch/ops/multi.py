@@ -3,32 +3,41 @@
 Counterpart of :mod:`lightmotif_tpu.ops.multi`.  The host packers
 (:func:`fine_discretize` to :func:`pack_dense_motif`) are numpy and
 give the JAX package's arrays byte for byte; :func:`pack_motif_group`
-adds the layouts the port's device stages read (``k3``, ``fine``,
-``t_eff``), and :func:`group_from_filters` builds them from the JAX
-filters of any prefilter mode.  :func:`route_motifs`,
-:func:`pack_database` and :func:`database_groups` split a whole motif
-database into those groups, in any mode, for :func:`scan_groups`.
+adds the layouts the port's device stages read (``k3`` and
+``phase_c``), and :func:`group_from_filters` builds them from the JAX filters of any
+prefilter mode.  :func:`route_motifs`, :func:`pack_database` and
+:func:`database_groups` split a whole motif database into those groups,
+in any mode, for :func:`scan_groups`.
 
-The device stages (:func:`scan_multi_core`) are the torch version of
-the JAX ``scan_multi_core`` on one segment:
+The device stages (:func:`scan_multi_core`) are the JAX
+``scan_multi_core`` on one segment, at its fixed capacities, with no
+read of the device:
 
 1. the prefilter, chosen in the JAX order from the filters the group
    holds: K3 (``k3``, the JAX ``filters_i8``), else K5 (``k5``,
    ``filters_fine``), else K4 (``k4``, the u8 ``filters_t``); each gives
    ``max_mo (sum - t_eff)`` of every window start, and ``>= 0`` marks a
    candidate (:mod:`.multi_kernel` states the three formulas);
-2. candidates: one ``torch.nonzero``, exact, so there are no capacities
-   and no retry;
-3. phase C: the test per (candidate, motif lane) inside the lane's valid
-   windows, as one one-hot matmul against the group's ``fine`` planes
-   with its own thresholds ``t_eff``: the byte planes of ``d16`` (the
-   u16 test ``sum16 - t >= 0``) or the u8 cells (``sum8 - t >= 0``),
-   exact either way (see :func:`phase_c_filters`);
-4. pairs: ``torch.nonzero`` of the phase-C mask, which lists them in
-   ascending (position, motif lane) order -- the order the JAX bit-pack
-   and lowest-set-bit extraction produce;
-5. :func:`rescore_multi`: the exact f32 score of each pair, and the keep
-   mask ``score >= threshold``.
+2. candidates: the first ``cap`` of them, compacted by
+   ``torch.nonzero_static``, and their exact count, on the device
+   (:func:`compact_candidates`);
+3. phase C (:func:`.multi_stages.phase_c_bits`): the test per
+   (candidate, motif lane) inside the lane's valid windows, against the
+   group's ``phase_c`` cells and thresholds: the byte planes of ``d16``
+   (the u16 test ``sum16 - t >= 0``) or the u8 cells (``sum8 - t >=
+   0``), exact either way, as pass bits;
+4. pairs, rescore, keep (:func:`.multi_stages.pairs_rescore`): the
+   pairs of those bits in ascending (position, motif lane) order -- the
+   order the JAX bit-pack and lowest-set-bit extraction produce -- within
+   the JAX core's ``cap_hits``, their exact f32 scores, and the hits
+   with ``score >= threshold`` front-compacted into ``packed[3,
+   cap_hits]``, with ``counts = [candidates, hit_need, n_kept, valid]``.
+
+A caller re-runs a segment with doubled capacities while ``candidates >
+cap`` or ``hit_need > cap_hits`` (:func:`settle_entries`); the hits are
+exact at any capacity, only the number of reads changes.  ``valid`` is
+always 1: compaction at ``cap`` is complete at any density (the JAX
+package's ``dense`` compaction).
 
 The u16 test has no false negatives against the f32 threshold
 (:func:`fine_discretize`), so the hits are the exact ones; the u8 test
@@ -38,12 +47,15 @@ without wildcards).
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from . import multi_kernel
+from . import kernels, multi_kernel, multi_stages
+from .multi_stages import phase_c, rescore_multi
 
 __all__ = [
     "fine_discretize",
@@ -55,22 +67,37 @@ __all__ = [
     "pack_filters_k3",
     "pack_filters_k5",
     "pack_filters_k4",
-    "phase_c_filters",
     "stack_motifs",
     "pack_motif_group",
     "group_bucket",
     "DENSE_BUCKET",
     "pack_dense_motif",
     "group_to_device",
-    "candidates",
+    "lanes",
+    "compact_candidates",
     "phase_c",
-    "phase_c_pairs",
     "rescore_multi",
     "PREFILTERS",
     "scan_multi_core",
+    "dense_core",
     "group_from_filters",
     "scan_multi_segment_fused",
+    "DEFAULT_CAPACITY",
+    "HEAD_SLOTS",
+    "RERUNS",
+    "reset_reruns",
+    "head_width",
+    "seed_capacities",
+    "Entry",
     "scan_groups",
+    "dense_entry",
+    "read_host",
+    "read_sorted",
+    "settle_entries",
+    "fits",
+    "collect_device",
+    "merge_hits",
+    "collect_entries",
     "sorted_hits",
     "route_motifs",
     "pack_database",
@@ -78,17 +105,18 @@ __all__ = [
     "database_groups",
 ]
 
-#: Bound on the ``[candidates, 2 * motif lanes]`` f32 product of one
-#: phase-C block (elements; 512 MiB, about 1.5 GiB of scratch with its
-#: int32 copies).  Swept on an NVIDIA H100 80GB HBM3 (700 W) over the
-#: 4,692-PSSM database scan of a 4.6 Mbp genome (~250,000 candidates):
-#: ``scan_arrays`` wall 131-162 ms at 2**22, 71 ms at 2**25, 61 ms at
-#: 2**27 -- fewer, larger matmuls.
-PHASE_C_ELEMS = 1 << 27
+#: Seed candidate capacity of a segment, the JAX package's; a group's
+#: hit capacity starts at ``DEFAULT_CAPACITY * max(1, lanes // 1024)``
+#: (:func:`seed_capacities`).  Both ratchet per group.
+DEFAULT_CAPACITY = 1 << 16
 
-#: Pairs per exact-rescore block (bounds the ``[pairs, m]`` gathers);
-#: 2**18 was the best of 2**14, 2**16 and 2**18 in the same sweep.
-RESCORE_BLOCK = 1 << 18
+#: Hit slots read with the counters of an entry before any hint
+#: (:func:`head_width`), the JAX package's.
+HEAD_SLOTS = 8192
+
+#: Entries re-run at larger capacities since the last
+#: :func:`reset_reruns`: motif-group segments and dense motifs.
+RERUNS = {"group": 0, "dense": 0}
 
 #: ``t_eff`` of a lane that never passes: K3's, and K5's (the JAX u16
 #: filters' -1024 hi guard, ``256 * 1024``).
@@ -427,35 +455,6 @@ def _trim_rows(cells) -> np.ndarray:
     return cells[:, : int(nz[-1]) + 1 if nz.size else 1]
 
 
-def phase_c_filters(data16, byte_planes: bool = True):
-    """f32 filters of the phase-C matmul, row ``j * K + s``.
-
-    With ``byte_planes`` (the u16 test): ``[m * K, 2 * m_pad]``, column
-    ``mo`` holding ``data16[mo] >> 8`` and column ``m_pad + mo``
-    ``data16[mo] & 255``.  Without (the u8 test): ``[m * K, m_pad]``, the
-    cells themselves.
-
-    One-hot windows times these filters give the sums exactly at every
-    ``torch.set_float32_matmul_precision``: the operands are 0/1 and
-    integers that bf16 holds exactly (bytes, or u8 cells after the JAX
-    package's bf16 cast: at most 8 significant bits; TF32 keeps 11, bf16
-    8), every product is exact, and every sum is an integer below
-    ``2**24`` (``m * 255`` for a byte plane; :func:`pack_filters_k4`
-    refuses u8 filters that could go past it)."""
-    mcount, m, k = data16.shape
-    bpw = multi_kernel.BITS_PER_WORD
-    m_pad = -(-mcount // bpw) * bpw
-    flat = np.asarray(data16).reshape(mcount, m * k).T
-    if not byte_planes:
-        out = np.zeros((m * k, m_pad), np.float32)
-        out[:, :mcount] = flat
-        return out
-    out = np.zeros((m * k, 2 * m_pad), np.float32)
-    out[:, :mcount] = flat >> 8
-    out[:, m_pad:m_pad + mcount] = flat & 255
-    return out
-
-
 def stack_motifs(matrices, k: int):
     """Stack per-motif matrices ``[m_i, K]`` into ``[M, m_max, K]`` with
     zero padding, plus the lengths ``[M]``."""
@@ -481,9 +480,11 @@ def pack_motif_group(ids, gm: int, m_bucket: int, pssm_stack,
     Returns the JAX keys (``f_hi``, ``f_lo``, ``f_hi8``, ``f_lo8``,
     ``adj``, ``pssm``, ``th``, ``m_max``, ``count``, ``widths``,
     ``rsplits``, ``pre4``), each byte-identical to the JAX packer's,
-    and the port's: ``k3`` (:func:`pack_filters_k3`), ``fine``
-    (:func:`phase_c_filters`) and ``t_eff`` (phase C's u16 thresholds:
-    ``k3``'s before its row shifts).
+    and the port's: ``k3`` (:func:`pack_filters_k3`); ``phase_c``, the
+    planes of phase C's test (:func:`pack_filters_k5`: ``k3``'s planes,
+    with the thresholds of the JAX ``filters_fine`` that the JAX phase C
+    reads, never-pass and padded lanes at 262144); and ``t_eff``, ``k3``'s
+    thresholds before its row shifts.
     """
     mw = min(m_bucket, pssm_stack.shape[1])
     th_g = np.full(gm, np.inf, np.float32)
@@ -535,7 +536,7 @@ def pack_motif_group(ids, gm: int, m_bucket: int, pssm_stack,
         "rsplits": tuple(rsplits),
         "pre4": pre4,
         "k3": pack_filters_k3(d16, t16),
-        "fine": phase_c_filters(d16),
+        "phase_c": pack_filters_k5(d16, t16),
         "t_eff": _k3_thresholds(t16, f_hi.shape[1], K3_NEVER).astype(np.int32),
     }
 
@@ -566,105 +567,38 @@ def pack_dense_motif(pssm_data, k: int):
 # -- device stages ------------------------------------------------------------
 
 
-def group_to_device(g: dict, device: torch.device) -> dict:
-    """The tensors of a packed group that the device stages read (K3,
-    and phase C on the u16 byte planes)."""
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+def _dev(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
+
+def group_to_device(g: dict, device: torch.device) -> dict:
+    """The tensors of a packed group that the device stages read: K3, phase
+    C's planes (K3's, shared) and thresholds, and the exact rescore's stack
+    and thresholds."""
+    k3 = tuple(_dev(a, device) for a in g["k3"])
     return {
-        "k3": tuple(dev(a) for a in g["k3"]),
-        "fine": dev(g["fine"]),
-        "byte_planes": True,
-        "t_eff": dev(g["t_eff"]),
-        "pssm": dev(g["pssm"]),
-        "th": dev(g["th"]),
+        "k3": k3,
+        "phase_c": (k3[0], k3[1], _dev(g["phase_c"][2], device)),
+        "pssm": _dev(g["pssm"], device),
+        "th": _dev(g["th"], device),
         "m_max": g["m_max"],
     }
 
 
-def _windows(chunk: torch.Tensor, positions: torch.Tensor, m: int,
-             k: int) -> torch.Tensor:
-    """int64 ``[n, m]`` ranks ``chunk[p + j]``; the wildcard past the end
-    of the chunk and for ranks ``>= K``."""
-    lp = chunk.shape[0]
-    idx = positions[:, None] + torch.arange(m, device=chunk.device)
-    sym = chunk[idx.clamp(max=lp - 1)].to(torch.int64).clamp(max=k - 1)
-    return torch.where(idx < lp, sym, k - 1)
+def lanes(group: dict) -> int:
+    """A device group's motif lanes, padded to whole 16-lane words."""
+    return group["phase_c"][2].shape[0]
 
 
-def candidates(maxv: torch.Tensor) -> torch.Tensor:
-    """Ascending window starts where some motif lane may pass (K3's
-    ``max >= 0``); the count is exact."""
-    return torch.nonzero(maxv >= 0).flatten()
+def compact_candidates(maxv: torch.Tensor, cap: int):
+    """The first ``cap`` window starts where some motif lane may pass, and
+    their count, with no read of the device: ``(cand int64 [cap], count
+    int64 [])``; slots past the count hold 0."""
+    mask = maxv >= 0
+    return torch.nonzero_static(mask, size=cap, fill_value=0).flatten(), mask.sum()
 
 
-def phase_c(chunk: torch.Tensor, positions: torch.Tensor, fine: torch.Tensor,
-            t_eff: torch.Tensor, m: int, k: int, byte_planes: bool = True) -> torch.Tensor:
-    """``sum - t_eff`` of every (candidate, motif lane) as int32
-    ``[n, m_pad]``, exactly (see :func:`phase_c_filters`): ``sum16`` when
-    ``fine`` holds the two byte planes (``byte_planes``), else the u8 sum
-    of the cells it holds."""
-    n = positions.shape[0]
-    m_pad = t_eff.shape[0]
-    sym = _windows(chunk, positions, m, k)
-    onehot = torch.zeros((n, m * k), dtype=torch.float32, device=chunk.device)
-    onehot.scatter_(1, sym + torch.arange(m, device=chunk.device) * k, 1.0)
-    planes = (onehot @ fine).to(torch.int32)  # [n, 2 * m_pad] or [n, m_pad]
-    if not byte_planes:
-        return planes - t_eff
-    return 256 * planes[:, :m_pad] + planes[:, m_pad:] - t_eff
-
-
-def phase_c_pairs(chunk: torch.Tensor, cand: torch.Tensor, n_valid: torch.Tensor,
-                  group: dict, k: int):
-    """(position, motif lane) pairs that pass the group's phase-C test
-    inside the lane's valid windows, in ascending (position, lane)
-    order."""
-    m_pad = group["t_eff"].shape[0]
-    blk = max(1, PHASE_C_ELEMS // (2 * m_pad))
-    rows, lanes = [], []
-    for b0 in range(0, cand.shape[0], blk):
-        pos = cand[b0 : b0 + blk]
-        part = phase_c(chunk, pos, group["fine"], group["t_eff"],
-                       group["m_max"], k, group["byte_planes"])
-        mask = (part >= 0) & (pos[:, None] < n_valid[None, :])
-        pair = torch.nonzero(mask)
-        rows.append(pos[pair[:, 0]])
-        lanes.append(pair[:, 1])
-    if not rows:
-        empty = torch.zeros(0, dtype=torch.int64, device=chunk.device)
-        return empty, empty
-    return torch.cat(rows), torch.cat(lanes)
-
-
-def rescore_multi(chunk: torch.Tensor, pssms: torch.Tensor, positions: torch.Tensor,
-                  lanes: torch.Tensor) -> torch.Tensor:
-    """Exact f32 scores of (position, motif lane) pairs.
-
-    The sequential ascending-j sum over every row of the group's
-    ``[M, m, K]`` stack, written as a loop of elementwise adds starting
-    from row 0's value; zero-padded rows add +0.0, as in the JAX
-    package.  (The JAX package may start from its ``pre4`` prefix
-    table instead; that gives the same bits, so the port has one path.)
-    Every valid pair's window lies inside ``chunk``."""
-    _, m, k = pssms.shape
-    flat = pssms.reshape(-1)
-    jj = torch.arange(m, device=chunk.device) * k
-    out = torch.empty(positions.shape, dtype=torch.float32, device=chunk.device)
-    for b0 in range(0, positions.shape[0], RESCORE_BLOCK):
-        pos = positions[b0 : b0 + RESCORE_BLOCK]
-        lane = lanes[b0 : b0 + RESCORE_BLOCK]
-        sym = _windows(chunk, pos, m, k)
-        val = flat[(lane * (m * k))[:, None] + jj + sym]
-        acc = val[:, 0]
-        for j in range(1, m):
-            acc = acc + val[:, j]
-        out[b0 : b0 + RESCORE_BLOCK] = acc
-    return out
-
-
-def _no_mark(stage: str, n: int) -> None:
+def _no_mark(stage: str, n) -> None:
     pass
 
 
@@ -674,36 +608,76 @@ def _no_mark(stage: str, n: int) -> None:
 PREFILTERS = {"k3": "prefilter_any8", "k5": "prefilter_any16", "k4": "prefilter_any"}
 
 
-def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict,
-                    k: int, mark=None):
-    """Hits of one motif group in one segment.
+def _check_capacities(cap: int, cap_hits: int, m_pad: int) -> None:
+    if cap < 1 or cap_hits < 1:
+        raise ValueError(f"capacities must be positive, got cap={cap}, cap_hits={cap_hits}")
+    n_words = m_pad // multi_kernel.BITS_PER_WORD
+    if min(cap, cap_hits) * n_words >= 2**31 or cap_hits * multi_kernel.BITS_PER_WORD >= 2**31:
+        # the JAX core's guard, kept so that both refuse the same capacities
+        raise OverflowError(
+            f"hit capacity {cap_hits} (x {n_words} words / x "
+            f"{multi_kernel.BITS_PER_WORD} bits) exceeds int32 indexing; lower the "
+            "thresholds or scan fewer motifs per pass")
+
+
+def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict, k: int,
+                    cap: int, cap_hits: int | None = None, mark=None):
+    """One motif group in one segment, at fixed capacities, with no read
+    of the device: ``(counts int32 [4], packed int32 [3, cap_hits])``.
 
     ``chunk``: uint8 ranks of the segment's window starts plus the
-    group's ``m - 1`` halo; ``n_valid``: int64 ``[m_pad]`` window starts
-    of each lane that this segment owns (0 for padded lanes); ``group``:
-    the device tensors of :func:`group_to_device` or
-    :func:`group_from_filters`.  Returns ``(positions, lanes, scores)``
-    of the kept hits in ascending (position, lane) order: positions
-    relative to the chunk, lanes within the group, f32 scores.
+    group's ``m - 1`` halo; ``n_valid``: int32 (or int64) ``[m_pad]``
+    window starts of each lane that this segment owns (0 for padded
+    lanes); ``group``: the device tensors of :func:`group_to_device` or
+    :func:`group_from_filters`; ``cap`` bounds the candidates,
+    ``cap_hits`` (default ``cap``) the pairs and the kept hits.
+    ``packed[:, :n_kept]`` holds the kept hits in ascending (position,
+    lane) order: positions relative to the chunk, lanes within the group,
+    f32 bits; ``counts = [candidates, hit_need, n_kept, 1]``, the JAX
+    core's (re-run with a larger ``cap`` while ``candidates > cap``, a
+    larger ``cap_hits`` while ``hit_need > cap_hits``).
 
     ``mark``, a timing hook, is called once each stage's work is queued
-    with the stage's name and the count it produced: (the prefilter's
-    key, window starts), ``("candidates", n)``, ``("phase_c", pairs)``,
-    ``("rescore", kept hits)``.
+    with the stage's name and its count, an int or a tensor on the device
+    that the hook must not read until the work is done: (the prefilter's
+    key, window starts), ``("candidates", count)``, ``("phase_c", count)``
+    (it tests the first ``cap`` of them), ``("pairs_rescore", counts)``.
     """
     mark = mark or _no_mark
+    cap = int(cap)
+    cap_hits = cap if cap_hits is None else int(cap_hits)
+    _check_capacities(cap, cap_hits, lanes(group))
     mode = next(name for name in PREFILTERS if name in group)
     maxv = getattr(multi_kernel, PREFILTERS[mode])(chunk, *group[mode])
     mark(mode, maxv.shape[0])
-    cand = candidates(maxv)
-    mark("candidates", cand.shape[0])
-    positions, lanes = phase_c_pairs(chunk, cand, n_valid, group, k)
-    mark("phase_c", positions.shape[0])
-    scores = rescore_multi(chunk, group["pssm"], positions, lanes)
-    keep = scores >= group["th"][lanes]
-    positions, lanes, scores = positions[keep], lanes[keep], scores[keep]
-    mark("rescore", positions.shape[0])
-    return positions, lanes, scores
+    cand, count = compact_candidates(maxv, cap)
+    mark("candidates", count)
+    bits = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
+                                     n_valid.to(torch.int32))
+    mark("phase_c", count)
+    counts, packed = multi_stages.pairs_rescore(bits, cand, count, chunk, group["pssm"],
+                                                group["th"], cap_hits)
+    mark("pairs_rescore", counts)
+    return counts, packed
+
+
+def dense_core(data: torch.Tensor, pssm: torch.Tensor, threshold: torch.Tensor,
+               n_valid: int, cap: int):
+    """One dense motif over a sequence, at a fixed capacity, with no read
+    of the device (the JAX ``_dense_motif_scan_fn``): K1's exact scores of
+    the first ``n_valid`` window starts, ``>= threshold`` (an f32 scalar
+    on the device), the first ``cap`` hits.  Returns ``(counts int32 [4],
+    packed int32 [3, cap])`` in the form of :func:`scan_multi_core`:
+    ``counts = [hits, hits, min(hits, cap), 1]``, ``packed`` positions,
+    lane 0 and f32 bits."""
+    scores = kernels.score_f32(data, pssm, n_valid)[:n_valid]
+    mask = scores >= threshold
+    count = mask.sum()
+    pos = torch.nonzero_static(mask, size=cap, fill_value=0).flatten()
+    packed = torch.stack([pos.to(torch.int32), torch.zeros_like(pos, dtype=torch.int32),
+                          scores[pos].view(torch.int32)])
+    counts = torch.stack([count, count, count.clamp(max=cap), torch.ones_like(count)])
+    return counts.to(torch.int32), packed
 
 
 def group_from_filters(pssms, thresholds, m_max: int, k: int, device,
@@ -731,20 +705,13 @@ def group_from_filters(pssms, thresholds, m_max: int, k: int, device,
         mode, (cells, t_pre) = "k3", _cells_i8(*filters_i8, k, widths)
     else:
         mode, (cells, t_pre) = ("k5", u16) if u16 is not None else ("k4", u8)
-    byte_planes = u16 is not None
-    fine, t_c = u16 if byte_planes else u8
-    planes = phase_c_filters(fine[:, :m_max], byte_planes=byte_planes)
-
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
+    cells_c, t_c = u16 if u16 is not None else u8
     return {
-        mode: tuple(dev(a) for a in _plane_table(_trim_rows(cells), t_pre)),
-        "fine": dev(planes),
-        "byte_planes": byte_planes,
-        "t_eff": dev(np.asarray(t_c, np.int32)),
-        "pssm": dev(np.asarray(pssms, np.float32)),
-        "th": dev(np.asarray(thresholds, np.float32)),
+        mode: tuple(_dev(a, device) for a in _plane_table(_trim_rows(cells), t_pre)),
+        "phase_c": tuple(_dev(a, device)
+                         for a in _plane_table(_trim_rows(cells_c[:, :m_max]), t_c)),
+        "pssm": _dev(np.asarray(pssms, np.float32), device),
+        "th": _dev(np.asarray(thresholds, np.float32), device),
         "m_max": int(m_max),
     }
 
@@ -761,12 +728,15 @@ def scan_multi_segment_fused(seq, off, n_valid_here, filters_t, pssms,
     uint8 tensor on the device to run on, the segment is ``seq[off :
     off + chunk_len]``, ``n_valid_here`` holds the ``[1, m_pad]`` (or
     ``[m_pad]``) valid window starts of each lane, and the filters go
-    through :func:`group_from_filters`.  ``cap``, ``cap_hits`` and
-    ``dense`` size the JAX package's compaction buffers; compaction here
-    is exact, so they are unused, and so are ``rsplits`` and ``pre4``
-    (the port has one rescore, which gives the same bits).  Returns
-    ``(positions, lanes, scores)`` of the kept hits in (position, lane)
-    order: the JAX ``packed[:, :n_kept]``.
+    through :func:`group_from_filters`.  The segment runs
+    :func:`scan_multi_core` at ``cap`` and ``cap_hits`` (default
+    ``cap``), and again at doubled capacities while they overflow, so the
+    result is exact at any capacity.  ``dense`` (the JAX compaction mode:
+    the port's is always complete), ``rsplits`` and ``pre4`` (the port has
+    one rescore, which gives the same bits) are unused.  Returns
+    ``(positions, lanes, scores)``, the JAX ``packed[:, :n_kept]`` on
+    ``seq``'s device: int64 positions in the segment, int64 lanes and f32
+    scores, in (position, lane) order.
 
     Every call unpacks the filters and uploads the group again, a host
     cost paid per segment.  A loop over segments or groups should pack
@@ -777,47 +747,280 @@ def scan_multi_segment_fused(seq, off, n_valid_here, filters_t, pssms,
                                filters_t=filters_t, filters_fine=filters_fine,
                                widths=widths, filters_i8=filters_i8)
     off = int(off)
-    n_valid = torch.as_tensor(np.asarray(n_valid_here, np.int64).reshape(-1),
+    n_valid = torch.as_tensor(np.asarray(n_valid_here, np.int32).reshape(-1),
                               device=seq.device)
-    return scan_multi_core(seq[off : off + chunk_len], n_valid, group, k)
+    entry = _core_entry(seq[off : off + chunk_len], n_valid, group, k, 0, 0, max(int(cap), 1),
+                        max(int(cap_hits or cap), 1))
+    (entry,), _ = settle_entries([entry], [read_host(entry.counts)], [0])
+    packed = entry.packed[:, : int(read_host(entry.counts)[2])]
+    return packed[0].to(torch.int64), packed[1].to(torch.int64), packed[2].view(torch.float32)
+
+
+# -- entries: a group's segment, dispatched, and its read ------------------------
+
+
+def reset_reruns() -> None:
+    for kind in RERUNS:
+        RERUNS[kind] = 0
+
+
+def head_width(hint: int, cap: int) -> int:
+    """Hit slots of an entry read with its counters, from a sticky
+    ``n_kept`` hint: :data:`HEAD_SLOTS`, grown in steps of a quarter
+    (8192, 16384, 24576, 32768, 40960, 51200, ...), at most ``cap``.  The
+    JAX package's ladder; a head too short costs one more read."""
+    width = HEAD_SLOTS
+    while width < hint:
+        width += max(HEAD_SLOTS, width >> 2)
+    return min(cap, width)
+
+
+def seed_capacities(group: dict, capacity: int = DEFAULT_CAPACITY) -> tuple:
+    """A group's first ``(cap, cap_hits)``, as the JAX ``MultiScanner``
+    seeds them: the hit capacity grows with the group's lanes, so a first
+    whole-database scan does not overflow on the expected hits."""
+    return capacity, capacity * max(1, group["pssm"].shape[0] // 1024)
+
+
+class Entry(NamedTuple):
+    """One dispatched segment of a motif group (or one dense motif): its
+    counters and packed hits on the device (:func:`scan_multi_core`), the
+    group (``ids`` maps its lanes to database indices), the offset of its
+    chunk in the scanned sequence, its capacity key and capacities, and
+    ``rerun(cap, cap_hits)``, which dispatches it again at other
+    capacities and returns the new entry."""
+
+    counts: torch.Tensor
+    packed: torch.Tensor
+    group: dict
+    offset: int
+    key: object
+    cap: int
+    cap_hits: int
+    rerun: Callable
+
+
+def _core_entry(chunk, n_valid, group, k, offset, key, cap, cap_hits, mark=None) -> Entry:
+    counts, packed = scan_multi_core(chunk, n_valid, group, k, cap, cap_hits, mark)
+    return Entry(counts, packed, group, offset, key, cap, cap_hits,
+                 functools.partial(_core_entry, chunk, n_valid, group, k, offset, key))
+
+
+def _group_tables(group: dict, lengths) -> torch.Tensor:
+    """The group's tables of the scan on its device, uploaded once and
+    kept in it: the database indices of its lanes (``ids_dev``) and, the
+    one returned, the motif length of each lane (``len_dev``, int32
+    ``[m_pad]``, ``2**30`` for padded lanes: no window)."""
+    if "len_dev" not in group:
+        device = group["pssm"].device
+        m_pad = lanes(group)
+        lens = np.full(m_pad, 1 << 30, np.int32)
+        lens[: len(group["ids"])] = np.asarray(lengths)[group["ids"]]
+        group["len_dev"] = torch.as_tensor(lens, device=device)
+        group.setdefault("ids_dev", torch.as_tensor(np.asarray(group["ids"]), device=device))
+    return group["len_dev"]
 
 
 def scan_groups(data: torch.Tensor, length: int, lengths, groups, k: int,
-                segment: int, mark=None) -> list:
-    """Hits of motif groups over a device sequence, segment by segment.
+                segment: int, mark=None, state=None,
+                capacity: int = DEFAULT_CAPACITY, owned: int | None = None) -> list:
+    """Dispatch motif groups over a device sequence, segment by segment,
+    with no read of the device.
 
     ``data``: the uint8 ranks (padded past ``length``); ``lengths``: the
     motif length of each database index; each group, from
-    :func:`group_to_device` or :func:`group_from_filters`, also holds
-    its database indices as ``ids`` (numpy) and ``ids_dev`` (on the
-    device).  Each segment carries its group's ``m - 1`` halo.  Returns
-    one ``(positions, motif ids, scores)`` triple of device tensors per
-    (group, segment) with a window to scan, in that order.
+    :func:`database_groups` (or :func:`group_to_device` /
+    :func:`group_from_filters` with its database indices as ``ids``).
+    Each segment carries its group's ``m - 1`` halo.  ``owned``: the
+    window starts past which no hit is kept (a shard's share; every lane's
+    valid windows are cut there on the device).  ``state`` maps a group's
+    index to its ``(cap, cap_hits)`` (the scanner's ratchets); a group
+    without one starts at :func:`seed_capacities` of ``capacity``.
+    Returns one :class:`Entry` per (group, segment) with a window to scan,
+    in that order; :func:`collect_entries` (or :func:`sorted_hits`) reads
+    their hits.
     """
     n_valid = np.maximum(length - np.asarray(lengths) + 1, 0).astype(np.int64)
+    if owned is not None:
+        n_valid = np.minimum(n_valid, int(owned))
     n_total = int(n_valid.max(initial=0))
-    parts = []
-    for group in groups:
+    state = {} if state is None else state
+    entries = []
+    for gi, group in enumerate(groups):
         ids = group["ids"]
-        m_pad = group["t_eff"].shape[0]
+        cap, cap_hits = state.get(gi) or seed_capacities(group, capacity)
+        lens = _group_tables(group, lengths)
         for off in range(0, n_total, segment):
-            n_here = np.zeros(m_pad, np.int64)
-            n_here[: len(ids)] = np.clip(n_valid[ids] - off, 0, segment)
-            n_max = int(n_here.max())
+            n_max = int(np.clip(n_valid[ids] - off, 0, segment).max(initial=0))
             if n_max == 0:
                 continue
             # the segment's window starts plus the group's halo
             chunk = data[off : off + n_max + group["m_max"] - 1]
-            pos, lanes, scores = scan_multi_core(
-                chunk, torch.as_tensor(n_here, device=data.device), group, k, mark)
-            parts.append((pos + off, group["ids_dev"][lanes], scores))
-    return parts
+            top = segment if owned is None else min(segment, int(owned) - off)
+            lanes = (length - off + 1 - lens).clamp_(0, top)
+            entries.append(_core_entry(chunk, lanes, group, k, off, gi, cap, cap_hits, mark))
+    return entries
+
+
+def dense_entry(data: torch.Tensor, pssm: torch.Tensor, threshold: torch.Tensor,
+                n_valid: int, cap: int, index: int) -> Entry:
+    """The :class:`Entry` of one dense motif (:func:`dense_core`), database
+    index ``index``, capacity key ``("dense", index)``."""
+    counts, packed = dense_core(data, pssm, threshold, n_valid, cap)
+    group = {"ids": np.asarray([index]),
+             "ids_dev": torch.full((1,), index, dtype=torch.int64, device=data.device)}
+    return Entry(counts, packed, group, 0, ("dense", index), cap, cap,
+                 lambda c, h: dense_entry(data, pssm, threshold, n_valid, max(c, h), index))
+
+
+def read_host(tensor: torch.Tensor) -> np.ndarray:
+    """A tensor on the host, as numpy: from a CUDA device through a pinned
+    buffer (a direct copy at the link's rate, not staged through pageable
+    memory), then the device's stream synchronised."""
+    if tensor.device.type != "cuda":
+        return tensor.cpu().numpy()
+    out = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    out.copy_(tensor, non_blocking=True)
+    torch.cuda.current_stream(tensor.device).synchronize()
+    return out.numpy()
+
+
+
+def _overflowed(entry: Entry, counts) -> bool:
+    n_cand, need, _, valid = (int(v) for v in counts)
+    return n_cand > entry.cap or need > entry.cap_hits or not valid
+
+
+def read_sorted(entries: list, read=read_host, hints=None):
+    """Every entry's counters and the heads of their hits, merged and
+    sorted on the device by (motif, position), in one read: ``(counts
+    int32 [entries, 4], hits int32 [3, total], widths)`` on the host,
+    ``hits`` rows positions in the scanned sequence, database motif ids
+    and f32 bits, the valid slots first.  An entry's head is its first
+    ``widths[i]`` slots (:func:`head_width` of its hint in ``hints``, a
+    capacity key's last ``n_kept``); it holds every kept hit of the entry
+    when ``n_kept <= widths[i]``.  The entries lie on one device, whose
+    groups hold their ``ids_dev``; the work on the device is the same few
+    ops whatever the number of entries."""
+    hints = {} if hints is None else hints
+    widths = [head_width(hints.get(e.key, 0), e.cap_hits) for e in entries]
+    device = entries[0].counts.device
+    # every group's database indices in one table, and per entry: its
+    # chunk's offset, its group's first row there, its last lane
+    tables = {}
+    for e in entries:
+        tables.setdefault(id(e.group), e.group)
+    base = dict(zip(tables, np.cumsum([0] + [len(g["ids"]) for g in tables.values()])))
+    info = torch.tensor([[e.offset, base[id(e.group)], len(e.group["ids"]) - 1, w]
+                         for e, w in zip(entries, widths)], dtype=torch.int64, device=device)
+    total = sum(widths)
+    entry = torch.repeat_interleave(torch.arange(len(entries), device=device), info[:, 3],
+                                    output_size=total)
+    counts = torch.stack([e.counts for e in entries])
+    slot = torch.arange(total, device=device) - (torch.cumsum(info[:, 3], 0) - info[:, 3])[entry]
+    head = torch.cat([e.packed[:, :w] for e, w in zip(entries, widths)], dim=1).to(torch.int64)
+    # slots past an entry's n_kept hold anything: clamp their lanes
+    lanes = torch.minimum(head[1].clamp_(min=0), info[entry, 2])
+    ids = torch.cat([g["ids_dev"] for g in tables.values()])[info[entry, 1] + lanes]
+    pos = head[0] + info[entry, 0]
+    key = torch.where(slot < counts[entry, 2], (ids << 40) | pos, torch.iinfo(torch.int64).max)
+    order = torch.argsort(key)
+    flat = read(torch.cat([counts.reshape(-1), torch.stack([pos[order], ids[order],
+                                                            head[2][order]]).to(torch.int32)
+                           .reshape(-1)]))
+    n = len(entries)
+    return flat[: 4 * n].reshape(n, 4), flat[4 * n :].reshape(3, -1), widths
+
+
+def settle_entries(entries: list, counts, widths, read=read_host, state=None, hints=None) -> list:
+    """Re-run, at doubled capacities until they fit, the entries whose
+    counters (from :func:`read_sorted`) overflowed, reading each re-run's
+    counters; keep each capacity key's capacities in ``state`` (the
+    largest any entry needed) and its largest ``n_kept`` in ``hints``
+    (the last value halved first, so one heavy scan stops widening the
+    heads).  Returns ``(entries, complete)``: the settled entries, and
+    whether the heads read already held every kept hit of every entry."""
+    state = {} if state is None else state
+    hints = {} if hints is None else hints
+    settled, kept, complete = [], {}, True
+    for e, c, w in zip(entries, counts, widths):
+        while _overflowed(e, c):
+            n_cand, need = int(c[0]), int(c[1])
+            cap = max(e.cap, 1 << (n_cand - 1).bit_length()) if n_cand > e.cap else e.cap
+            cap_hits = (max(e.cap_hits, 1 << (need - 1).bit_length()) if need > e.cap_hits
+                        else e.cap_hits)
+            e = e.rerun(cap, cap_hits)._replace(offset=e.offset)
+            kernels.count_launch(RERUNS, "dense" if isinstance(e.key, tuple) else "group")
+            c = read(e.counts)
+            complete = False
+        old = state.get(e.key, (0, 0))
+        state[e.key] = (max(old[0], e.cap), max(old[1], e.cap_hits))
+        kept[e.key] = max(kept.get(e.key, 0), int(c[2]))
+        complete = complete and int(c[2]) <= w
+        settled.append(e)
+    for key, n in kept.items():
+        hints[key] = max(hints.get(key, 0) >> 1, n)
+    return settled, complete
+
+
+def fits(entries: list, counts, widths) -> bool:
+    """Whether :func:`read_sorted`'s read holds every kept hit: no entry
+    overflowed its capacities or keeps more hits than its head holds."""
+    return not any(_overflowed(e, c) or int(c[2]) > w
+                   for e, c, w in zip(entries, counts, widths))
+
+
+def collect_device(entries: list, read=read_host, state=None, hints=None, first=None):
+    """Hit arrays ``(motif_ids int32, positions int64, scores float32)``,
+    ordered by (motif, position), of dispatched entries on one device:
+    one read (:func:`read_sorted`, or ``first``, its result) when every
+    entry fits its capacities and its head; else the re-runs and one more
+    read."""
+    hints = {} if hints is None else hints
+    counts, hits, widths = first or read_sorted(entries, read, hints)
+    entries, complete = settle_entries(entries, counts, widths, read, state, hints)
+    if not complete:
+        counts, hits, _ = read_sorted(entries, read, hints)
+    return _hit_arrays(hits[:, : int(counts[:, 2].sum())])
+
+
+def _hit_arrays(hits):
+    return hits[1].copy(), hits[0].astype(np.int64), hits[2].view(np.float32)
+
+
+def merge_hits(parts: list):
+    """One ``(motif_ids, positions, scores)`` ordered by (motif, position)
+    from several such arrays (one per device)."""
+    parts = [p for p in parts if len(p[0])]
+    if not parts:
+        return (np.zeros(0, np.int32), np.zeros(0, np.int64), np.zeros(0, np.float32))
+    if len(parts) == 1:
+        return parts[0]
+    motif_ids, positions, scores = (np.concatenate(column) for column in zip(*parts))
+    # (motif, position) is unique per hit: one sort of the packed key
+    order = torch.argsort(torch.from_numpy((motif_ids.astype(np.int64) << 40) | positions))
+    order = order.numpy()
+    return motif_ids[order], positions[order], scores[order]
+
+
+def collect_entries(entries: list, read=read_host, state=None, hints=None):
+    """Hit arrays ``(motif_ids int32, positions int64, scores float32)`` of
+    dispatched entries, ordered by (motif, position): :func:`collect_device`
+    on each device (one read each in steady state), merged."""
+    by_device = {}
+    for e in entries:
+        by_device.setdefault(e.counts.device, []).append(e)
+    return merge_hits([collect_device(ents, read, state, hints)
+                       for ents in by_device.values()])
 
 
 def sorted_hits(parts):
-    """Hit arrays ``(motif_ids int32, positions int64, scores float32)``
-    on the host, ordered by (motif, position), from ``(positions, motif
-    ids, scores)`` device triples such as :func:`scan_groups` returns."""
+    """Hit arrays ``(motif_ids int32, positions int64, scores float32)`` on
+    the host, ordered by (motif, position), from :func:`scan_groups`'
+    entries (read by :func:`collect_entries`) or from ``(positions, motif
+    ids, scores)`` triples of tensors."""
+    if parts and isinstance(parts[0], Entry):
+        return collect_entries(parts)
     if not parts:
         return (np.zeros(0, np.int32), np.zeros(0, np.int64),
                 np.zeros(0, np.float32))
@@ -933,5 +1136,6 @@ def database_groups(pssm_stack, lengths, thresholds, ids, k: int, device,
                                        **filters)
         group["ids"] = g_ids
         group["ids_dev"] = torch.as_tensor(g_ids, device=device)
+        _group_tables(group, lengths)
         groups.append(group)
     return groups

@@ -28,11 +28,12 @@ device a fixed number of times per call, whatever the number of shards:
   scores the larger position (the reference's last-max rule,
   ``pli/mod.rs:146``) -- and read the result once;
 * :class:`ShardedMultiScanner` runs a :class:`~.scanner.MultiScanner`
-  per distinct device (the prefilter K3, and K1 for dense motifs).  That
-  scan reads counts between its stages, so each distinct device scans
-  its shards in a worker thread of its own; the caller joins the
-  workers, then reads each device's per-shard counts once and its hits
-  once.
+  per distinct device (the prefilter K3 and the exact stages at fixed
+  capacities, and K1 for dense motifs).  Each distinct device issues its
+  shards in a worker thread of its own, with no read; the caller then
+  reads every entry's counters and hit head, one read per device, and
+  only a device with an entry that overflowed its capacities (or
+  outgrew its head) goes back to its worker to re-run and read it.
 
 :data:`HOST_READS` counts this module's reads of the device
 (:func:`reset_host_reads` sets it to 0).
@@ -48,10 +49,11 @@ CUDA device under NCCL (each process calls ``torch.cuda.set_device``
 before ``init_process_group``).  Other backends are refused.  Once a
 process group is initialised the exchange runs, one rank included.
 
-The JAX package's fixed-capacity hit buffers, their ratchets and retries
-are not needed: compaction at the exact count is exact.  ``cap`` is
-accepted for signature compatibility and unused, ``pad_unit`` sets only
-the shard alignment, and no scan raises ``OverflowError``.
+The single-PSSM scans compact at the exact count, read between their
+two steps, so they need no capacities: their ``cap`` is accepted for
+signature compatibility and unused.  The database scan keeps the JAX
+package's capacities and ratchets (``cap`` seeds them, per device).
+``pad_unit`` sets the shard alignment.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ def _to_host(tensor: torch.Tensor) -> np.ndarray:
     global HOST_READS
     with _READS_LOCK:
         HOST_READS += 1
-    return tensor.cpu().numpy()
+    return multi.read_host(tensor)
 
 
 def make_genome_mesh(devices=None) -> list:
@@ -547,13 +549,15 @@ class ShardedMultiScanner:
     ``chunk + m_max - 1`` symbols or at the genome's end, so every window
     a shard owns lies inside it whatever the motif's length.  Each shard
     is scanned by its device's ``MultiScanner`` (K3 and the exact stages
-    for the motif groups, K1 for the dense motifs) and keeps the hits at
-    positions below ``chunk``.  Hits come out ordered by (motif,
-    position), those of this process's shards; ``shard_hits`` holds the
-    hits of every shard of every process after a fetch.
+    for the motif groups, K1 for the dense motifs) with its windows cut at
+    ``chunk`` on the device: a window past it belongs to the next shard.
+    Hits come out ordered by (motif, position), those of this process's
+    shards; ``shard_hits`` holds the hits of every shard of every process
+    after a fetch.
 
-    ``cap`` is unused (compaction is exact); ``pad_unit`` sets the shard
-    alignment; ``single_bucket`` buckets every group to the longest
+    ``cap`` seeds the capacities of each device's scanner (they ratchet
+    per group, shared by the device's shards); ``pad_unit`` sets the
+    shard alignment; ``single_bucket`` buckets every group to the longest
     motif, as the CLI does.
     """
 
@@ -571,7 +575,7 @@ class ShardedMultiScanner:
         self.pad_unit = pad_unit
         self.shard_hits = None
         self._scanners = {
-            dev: MultiScanner(self.pssms, thresholds=thresholds,
+            dev: MultiScanner(self.pssms, thresholds=thresholds, capacity=self.cap,
                               single_bucket=single_bucket, device=dev)
             for dev in dict.fromkeys(self.mesh)}
         for scanner in self._scanners.values():
@@ -606,26 +610,28 @@ class ShardedMultiScanner:
 
     def _scan_device(self, device, shards: list, chunk: int) -> list:
         """One worker's work: this device's shards, one after another,
-        through its ``MultiScanner``.  Returns ``(shard, positions, motif
-        ids, scores, owned mask, owned count)`` on the device for each
-        shard with hits; a hit at ``pos >= chunk`` belongs to the next
-        shard."""
+        issued through its ``MultiScanner`` with their windows cut at
+        ``chunk``, with no read.  Returns ``(shard, entries)`` for each
+        shard (:class:`~.ops.multi.Entry`)."""
         scanner = self._scanners[device]
-        rows = []
-        for d, dseq in shards:
-            found = scanner.bind(dseq).dispatch()["parts"]
-            if found:
-                pos, ids, scores = (torch.cat(column) for column in zip(*found))
-                own = pos < chunk
-                rows.append((d, pos, ids, scores, own, own.sum()))
-        return rows
+        return [(d, scanner.bind(dseq, owned=chunk).dispatch()["entries"])
+                for d, dseq in shards]
+
+    def _collect(self, device, entries: list, first) -> tuple:
+        """The hits of one device's entries, given their first read: the
+        re-runs of the entries that overflowed and the reads they need,
+        counted in :data:`HOST_READS` (none when every entry fits)."""
+        scanner = self._scanners[device]
+        return multi.collect_device(entries, _to_host, scanner._group_state,
+                                    scanner._head_hint, first)
 
     def dispatch(self) -> dict:
         """Scan the bound genome on every shard and return a token for
-        :meth:`fetch`; the token holds the hits on the devices.  Each
-        distinct device scans its shards in a worker of its own
-        (:func:`_on_each_device`); then one read per device brings its
-        per-shard counts."""
+        :meth:`fetch`.  Each distinct device issues its shards in a worker
+        of its own (:func:`_on_each_device`) with no read; then one read
+        per device brings every entry's counters and hit head, and only
+        the devices with an entry that overflowed (or outgrew its head)
+        settle it in their worker."""
         st = self._bound
         if st is None:
             raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
@@ -633,33 +639,34 @@ class ShardedMultiScanner:
         by_device = {}
         for d, dseq in st["shards"]:
             by_device.setdefault(dseq.device, []).append((d, dseq))
-        found = _on_each_device({
+        issued = _on_each_device({
             device: functools.partial(self._scan_device, device, shards, chunk)
             for device, shards in by_device.items()})
-        rows = [row for device_rows in found.values() for row in device_rows]
-        parts, local = [], dict.fromkeys((d for d, _ in st["shards"]), 0)
-        for (d, pos, ids, scores, own, _), n in zip(rows, _read_counts([r[-1] for r in rows])):
-            local[d] = n
-            if n:
-                keep = torch_ops.compact_mask(own, n)
-                parts.append((pos[keep] + d * chunk, ids[keep], scores[keep]))
-        return {"parts": parts, "local": local, "n_shards": st["n_shards"]}
+        work, parts = {}, []
+        for device, rows in issued.items():
+            entries = [e._replace(offset=e.offset + d * chunk)
+                       for d, shard in rows for e in shard]
+            if not entries:
+                continue
+            first = multi.read_sorted(entries, _to_host, self._scanners[device]._head_hint)
+            job = functools.partial(self._collect, device, entries, first)
+            if multi.fits(entries, first[0], first[2]):
+                parts.append(job())  # no read
+            else:
+                work[device] = job
+        parts += _on_each_device(work).values()
+        hits = multi.merge_hits(parts)
+        shard, kept = np.unique(hits[1] // chunk, return_counts=True)
+        local = dict.fromkeys((d for d, _ in st["shards"]), 0)
+        local.update(zip(shard.tolist(), kept.tolist()))
+        return {"hits": hits, "local": local, "n_shards": st["n_shards"]}
 
     def fetch_arrays(self, token):
         """Hit arrays ``(motif_ids int32, positions int64, scores
         float32)`` of a :meth:`dispatch` token, ordered by (motif,
-        position): one read per distinct device."""
-        by_device = {}
-        for part in token["parts"]:
-            by_device.setdefault(part[0].device, []).append(part)
-        host = []
-        for parts in by_device.values():
-            pos, ids, scores = (torch.cat(column) for column in zip(*parts))
-            packed = torch.from_numpy(_to_host(torch.stack(
-                [pos, ids.to(torch.int64), scores.view(torch.int32).to(torch.int64)])))
-            host.append((packed[0], packed[1], packed[2].to(torch.int32).view(torch.float32)))
+        position); the per-shard counts go through the exchange."""
         self.shard_hits = _gather_counts(token["local"], token["n_shards"])
-        return multi.sorted_hits(host)
+        return token["hits"]
 
     def fetch(self, token) -> list:
         """:meth:`fetch_arrays` as :class:`~.scanner.MultiHit` s."""

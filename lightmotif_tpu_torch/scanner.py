@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .matrix import ScoringMatrix
-from .ops import kernels, multi, multi_kernel, torch_ops
+from .ops import multi, multi_kernel, torch_ops
 from .ops.pipeline import DeviceSequence, as_device_seq, resolve_device
 
 __all__ = ["Hit", "Scanner", "MultiHit", "MultiScanner"]
@@ -35,9 +35,10 @@ __all__ = ["Hit", "Scanner", "MultiHit", "MultiScanner"]
 #: one segment.
 DEFAULT_SEGMENT = 1 << 24
 
-#: Kept for API parity with the JAX package, whose compaction works in
-#: fixed-capacity buffers.  Compaction here is exact, so it is unused.
-DEFAULT_CAPACITY = 1 << 16
+#: Seed capacity of the database scan's fixed-size buffers (candidates
+#: per segment of a motif group, hits per dense motif), the JAX
+#: package's; the ``Scanner``'s compaction is exact and does not use it.
+DEFAULT_CAPACITY = multi.DEFAULT_CAPACITY
 
 
 @functools.total_ordering
@@ -280,9 +281,19 @@ class MultiScanner:
     where the JAX package runs its windows path: the hits are the same.
 
     ``thresholds`` may be a scalar or one value per motif.  Hits come
-    out ordered by (motif, position).  ``capacity`` is kept for API
-    parity with the JAX package; compaction here is exact, so it is
-    unused.
+    out ordered by (motif, position).
+
+    The scan runs at fixed capacities, as the JAX package's does:
+    :meth:`dispatch` issues every group and segment and every dense motif
+    with no read of the device, and :meth:`fetch` reads every entry's
+    counters and the head of its hits in one read, re-runs the entries
+    whose capacities overflowed at doubled capacities, and reads the hits
+    past a head in one more.  ``capacity`` seeds each group's candidate
+    capacity (its hit capacity grows with its lanes,
+    :func:`~.ops.multi.seed_capacities`) and each dense motif's; the
+    capacities each needed are kept across scans and binds, so a steady
+    scan reads the device once (:attr:`host_reads` counts the reads).
+    The hits do not depend on the capacities.
     """
 
     #: Motifs per prefilter group (the JAX package's value; hits do not
@@ -313,25 +324,36 @@ class MultiScanner:
             thresholds = [float(thresholds)] * len(self.pssms)
         self.thresholds = np.asarray(thresholds, dtype=np.float32)
         self.capacity = int(capacity)
+        if self.capacity < 1:
+            raise ValueError("capacity must be positive")
         self.device = resolve_device(device)
         self._routing = None  # {"short_idx", "dense_idx"}, fixed per scanner
         self._groups = None  # packed motif groups on the device
-        self._dense_dev = {}  # padded dense-path PSSMs on the device
+        self._dense_dev = {}  # dense motif -> its padded PSSM and threshold on the device
         self._dseq = None
         self._bound = None  # the bound host object
+        self._owned = None  # window starts past which no hit is kept
+        self._group_state = {}  # capacity key -> (cap, cap_hits): the ratchets
+        self._head_hint = {}  # capacity key -> its last n_kept: the head widths
+        #: reads of the device by :meth:`fetch` since the scanner was made
+        self.host_reads = 0
         #: timing hook, ``mark(stage, count)``: called as each stage's
-        #: device work is queued, with the count it produced (the stages
-        #: of :func:`~.ops.multi.scan_multi_core`, then ``"dense"`` with
-        #: the dense path's hits and ``"fetch"`` with all hits); ``None``
-        #: = off
+        #: device work is queued, with its count, an int or a tensor on
+        #: the device that the hook must not read (the stages of
+        #: :func:`~.ops.multi.scan_multi_core`, then ``"dense"`` with the
+        #: dense motifs' hits and ``"fetch"`` with all hits); ``None`` =
+        #: off
         self.mark = None
         if seq is not None:
             self.bind(seq)
 
-    def bind(self, seq) -> "MultiScanner":
+    def bind(self, seq, owned: int | None = None) -> "MultiScanner":
         """Bind a (new) sequence; the packed motif groups are reused.
-        Re-binding the same object is a no-op (do not mutate a bound
-        sequence in place)."""
+        Re-binding the same object uploads nothing (do not mutate a bound
+        sequence in place).  ``owned``: keep only hits at window starts
+        below it (a shard's share, cut on the device); ``None``: every
+        window."""
+        self._owned = None if owned is None else int(owned)
         if seq is not None and self._dseq is not None and (
                 seq is self._bound or seq is self._dseq):
             return self
@@ -370,55 +392,66 @@ class MultiScanner:
         return self._routing
 
     def _pack(self) -> list:
-        """Pack and upload the motif groups (K3), once per scanner."""
+        """Pack and upload the motif groups (K3) and the dense motifs'
+        padded PSSMs and f32 thresholds, once per scanner, so that a scan
+        uploads nothing."""
         if self._groups is None:
+            k = self.pssms[0].alphabet.size
             self._groups = multi.database_groups(
                 self.pssm_stack, self.lengths, self.thresholds,
-                self._route()["short_idx"], self.pssms[0].alphabet.size,
-                self.device, self.GROUP_MOTIFS, single_bucket=self.single_bucket)
+                self._route()["short_idx"], k, self.device, self.GROUP_MOTIFS,
+                single_bucket=self.single_bucket)
+            for i in self._route()["dense_idx"].tolist():
+                pssm_pad, _ = multi.pack_dense_motif(self.pssms[i].data, k)
+                self._dense_dev[i] = (torch.as_tensor(pssm_pad, device=self.device),
+                                      torch.tensor(self.thresholds[i], device=self.device))
         return self._groups
 
     def dispatch(self) -> dict:
-        """Scan the bound sequence on the device and return a token for
-        :meth:`fetch`.  The token holds the hits on the device, so
-        binding another sequence before fetching is allowed."""
+        """Issue the scan of the bound sequence, every motif group and
+        segment and every dense motif, with no read of the device; returns
+        a token for :meth:`fetch`.  The token holds the results on the
+        device, so binding another sequence before fetching is allowed."""
         dseq = self._dseq
         if dseq is None:
             raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
         n_valid = np.maximum(dseq.length - self.lengths + 1, 0).astype(np.int64)
+        if self._owned is not None:
+            n_valid = np.minimum(n_valid, self._owned)
         if int(n_valid.max(initial=0)) == 0:
-            return {"parts": []}
+            return {"entries": []}
         seg = int(self.SEGMENT)
         if seg < 1:
             raise ValueError("SEGMENT must be positive")
         k = self.pssms[0].alphabet.size
-        parts = multi.scan_groups(dseq.data, dseq.length, self.lengths,
-                                  self._pack(), k, seg, self.mark)
-        n_fused = len(parts)
-        for i in self._route()["dense_idx"]:
-            i = int(i)
-            n_i = int(n_valid[i])
-            if n_i == 0:
-                continue
-            pssm_i = self._dense_dev.get(i)
-            if pssm_i is None:
-                pssm_pad, _ = multi.pack_dense_motif(self.pssms[i].data, k)
-                pssm_i = self._dense_dev[i] = torch.as_tensor(
-                    pssm_pad, device=self.device)
-            scores = kernels.score_f32(dseq.data, pssm_i, n_i)[:n_i]
-            th = torch.tensor(self.thresholds[i], device=self.device)
-            pos = torch.nonzero(scores >= th).flatten()
-            parts.append((pos, torch.full_like(pos, i), scores[pos]))
-        if self.mark is not None and self._route()["dense_idx"].size:
-            self.mark("dense", sum(int(p.shape[0]) for p, _, _ in parts[n_fused:]))
-        return {"parts": parts}
+        groups = self._pack()
+        dense_idx = self._route()["dense_idx"]
+        entries = multi.scan_groups(dseq.data, dseq.length, self.lengths, groups, k, seg,
+                                    self.mark, self._group_state, self.capacity,
+                                    self._owned)
+        n_fused = len(entries)
+        for i in dense_idx.tolist():
+            if n_valid[i]:
+                cap, _ = self._group_state.get(("dense", i), (self.capacity, self.capacity))
+                entries.append(multi.dense_entry(dseq.data, *self._dense_dev[i],
+                                                 int(n_valid[i]), cap, i))
+        if self.mark is not None and dense_idx.size:
+            dense = [e.counts[2] for e in entries[n_fused:]]
+            self.mark("dense", torch.stack(dense).sum() if dense else 0)
+        return {"entries": entries}
+
+    def _read(self, tensor: torch.Tensor) -> np.ndarray:
+        self.host_reads += 1
+        return multi.read_host(tensor)
 
     def fetch(self, token):
         """Hit arrays ``(motif_ids int32, positions int64, scores
         float32)`` of a :meth:`dispatch` token, ordered by (motif,
-        position)."""
-        out = multi.sorted_hits(token["parts"])
-        if self.mark is not None and token["parts"]:
+        position): one read of every entry's counters and hit head, and
+        more only for entries that overflowed or outgrew their heads."""
+        out = multi.collect_entries(token["entries"], self._read, self._group_state,
+                                    self._head_hint)
+        if self.mark is not None and token["entries"]:
             self.mark("fetch", len(out[0]))
         return out
 

@@ -131,7 +131,7 @@ def test_a_read_only_package_still_builds(read_only_package, fresh, fake_nvcc, m
     monkeypatch.setenv("HOME", str(fresh / "home"))
     info = build.build_info()
     cache = fresh / "home" / ".cache" / "lightmotif-tpu" / "cuda"
-    assert [p.parent for p in info["paths"]] == [cache, cache]
+    assert [p.parent for p in info["paths"]] == [cache] * len(build.PRODUCTION_SOURCES)
     assert all(p.is_file() for p in info["paths"])
     assert not list(read_only_package.parent.glob("liblm-*"))
 
@@ -140,14 +140,15 @@ def test_production_build_leaves_the_probes_out(fresh, fake_nvcc, monkeypatch):
     monkeypatch.setenv(build.ENV, str(fresh / "cache"))
     info = build.build_info()
     built = sorted(pathlib.Path(line).name for line in fake_nvcc.read_text().split())
-    assert built == ["prefilter.cu", "score.cu"]  # compiled together, in any order
-    assert [p.name.split("-")[1] for p in info["compiled"]] == ["score", "prefilter"]
+    # compiled together, in any order
+    assert built == ["pairs.cu", "prefilter.cu", "score.cu"]
+    assert [p.name.split("-")[1] for p in info["compiled"]] == ["score", "prefilter", "pairs"]
     assert build.build_info() is info  # built once per process
     probes = build.build_info(probes=True)
     built = [pathlib.Path(line).name for line in fake_nvcc.read_text().split()]
-    assert built[2:] == ["probes.cu"]
+    assert built[3:] == ["probes.cu"]
     assert [p.name.split("-")[1] for p in probes["compiled"]] == ["probes"]
-    assert probes["paths"][:2] == info["paths"]
+    assert probes["paths"][:3] == info["paths"]
     # a second process finds every library and compiles nothing
     monkeypatch.setattr(build, "_INFO", {})
     assert build.build_info(probes=True)["compiled"] == []
@@ -172,7 +173,7 @@ def test_symbol_sets_split_production_from_probes():
 
 
 def test_production_wrappers_reach_library_and_probes_probe_library():
-    for rel in ("ops/kernels.py", "ops/multi_kernel.py"):
+    for rel in ("ops/kernels.py", "ops/multi_kernel.py", "ops/multi_stages.py"):
         src = (PACKAGE / rel).read_text()
         assert "build.library()" in src and "probe_library" not in src, rel
     for path in sorted((PACKAGE / "probes").glob("*.py")):

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from lightmotif_tpu_torch import DNA, PROTEIN, CountMatrix, EncodedSequence, batch
-from lightmotif_tpu_torch.ops import kernels, multi, multi_kernel, torch_ops
+from lightmotif_tpu_torch.ops import kernels, multi, multi_kernel, multi_stages, torch_ops
 from lightmotif_tpu_torch.probes import prefilter as probes
 from lightmotif_tpu_torch.probes import scoring
 from lightmotif_tpu_torch.scanner import MultiScanner
@@ -79,10 +79,10 @@ def test_multiscanner_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize("precision", ["highest", "high", "medium"])
 def test_phase_c_is_exact_on_the_card_at_every_matmul_precision(cuda, precision):
-    # cells up to 65535 (full hi and lo bytes) and the longest fused rows;
-    # "high" lets the matmul run in TF32 (11 significant bits), "medium" in
-    # bf16 (8): the byte-plane operands keep at most 8 and every sum stays
-    # below 2**24, so each precision gives the exact integers
+    # cells up to 65535 (full hi and lo bytes, two planes) and the longest
+    # fused rows; "high" lets a matmul run in TF32 (11 significant bits),
+    # "medium" in bf16 (8): phase C sums the planes' integer cells, so each
+    # precision gives the exact integers
     rng = np.random.default_rng(17)
     m, k, count = 128, 5, 37
     stack = rng.normal(scale=4.0, size=(count, m, k)).astype(np.float32)
@@ -96,11 +96,11 @@ def test_phase_c_is_exact_on_the_card_at_every_matmul_precision(cuda, precision)
     positions = np.arange(0, seq.size - m + 1, 3)
     want = np.zeros((positions.size, g["t_eff"].shape[0]), np.int64)
     want[:, :count] = sum(d16[:, j, seq[positions + j]].T for j in range(m))
-    want -= g["t_eff"]
+    want -= np.where(g["t_eff"] == multi.K3_NEVER, multi.K5_NEVER, g["t_eff"])
     # the CPU result is the reference the card is held to
     cpu = multi.group_to_device(g, torch.device("cpu"))
-    ref = multi.phase_c(torch.from_numpy(seq), torch.from_numpy(positions),
-                        cpu["fine"], cpu["t_eff"], m, k)
+    planes, _, t_c = cpu["phase_c"]
+    ref = multi.phase_c(torch.from_numpy(seq), torch.from_numpy(positions), planes, t_c)
     assert np.array_equal(ref.numpy(), want)
     group = multi.group_to_device(g, cuda)
     saved = torch.get_float32_matmul_precision()
@@ -108,7 +108,7 @@ def test_phase_c_is_exact_on_the_card_at_every_matmul_precision(cuda, precision)
         torch.set_float32_matmul_precision(precision)
         part = multi.phase_c(torch.from_numpy(seq).to(cuda),
                              torch.from_numpy(positions).to(cuda),
-                             group["fine"], group["t_eff"], m, k)
+                             group["phase_c"][0], group["phase_c"][2])
         torch.cuda.synchronize()
     finally:
         torch.set_float32_matmul_precision(saved)
@@ -365,3 +365,106 @@ def test_p9_bits_match_plain_on_the_card(cuda):
     assert probes.LAUNCHES["prefilter_bits"] == 1
     assert got.shape == (60_000, lanes // 16) and torch.equal(got, want)
     assert (want != 0).sum() > 1000  # not vacuous
+
+
+def _stage_inputs(group, dseq, lengths):
+    """Phase C's and the pairs kernel's inputs in a group's one-segment
+    scan: chunk, lanes' valid windows (int32), the prefilter's output."""
+    n_valid = np.maximum(dseq.length - np.asarray(lengths)[group["ids"]] + 1, 0)
+    n_max = int(n_valid.max())
+    chunk = dseq.data[: n_max + group["m_max"] - 1]
+    lanes = (dseq.length + 1 - group["len_dev"]).clamp(0, n_max).to(torch.int32)
+    return chunk, lanes, multi_kernel.prefilter_any8(chunk, *group["k3"])
+
+
+@pytest.mark.parametrize("alphabet,widths", [(DNA, [5, 6, 8, 10, 12, 15, 20, 33] * 4),
+                                             (PROTEIN, [5, 9, 14, 21, 32] * 4)],
+                         ids=["dna", "protein"])
+def test_phase_c_and_pairs_kernels_match_plain(cuda, alphabet, widths):
+    # a database scan ratcheting up from a capacity of 64 keeps the CPU's
+    # hits, and each group's two kernels equal their plain versions, at
+    # capacities that fit and below the need
+    rng = np.random.default_rng(23)
+    motifs = _motifs(rng, widths, alphabet)
+    ths = [p.score_distribution().score(1e-3) for p in motifs]
+    k = len(alphabet.symbols)
+    seq = EncodedSequence(rng.integers(0, k - 1, size=300_000).astype(np.uint8), alphabet)
+    ms = MultiScanner(motifs, seq, ths, device=cuda, capacity=64)
+    multi_stages.reset_launches()
+    got = ms.scan_arrays(seq)
+    launches = dict(multi_stages.LAUNCHES)
+    want = MultiScanner(motifs, seq, ths, device="cpu").scan_arrays(seq)
+    assert launches["phase_c_bits"] > len(ms._groups)
+    assert launches["pairs_rescore"] == launches["phase_c_bits"] * multi_stages.PAIRS_KERNELS
+    assert len(want[0]) > 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    for group in ms._groups:
+        chunk, lanes, maxv = _stage_inputs(group, ms._dseq, ms.lengths)
+        n = int((maxv >= 0).sum())
+        for cap, cap_hits in ((n + 1000, 1 << 18), (max(n // 2, 1), 64)):
+            cand, count = multi.compact_candidates(maxv, cap)
+            bits = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
+            plain = multi_stages.phase_c_bits_plain(chunk, cand, count, *group["phase_c"], lanes)
+            counts, packed = multi_stages.pairs_rescore(bits, cand, count, chunk, group["pssm"],
+                                                        group["th"], cap_hits)
+            want_counts, want_packed = multi_stages.pairs_rescore_plain(
+                plain, cand, count, chunk, group["pssm"], group["th"], cap_hits)
+            torch.cuda.synchronize()
+            rows, n_kept = min(n, cap), int(want_counts[2])
+            assert torch.equal(bits[:rows], plain[:rows])
+            assert torch.equal(counts, want_counts) and n_kept > 0
+            assert torch.equal(packed[:, :n_kept], want_packed[:, :n_kept])
+
+
+def test_database_dispatch_reads_nothing_back_from_the_card(cuda):
+    # every group's stages and the dense motifs are issued with no read of
+    # the card; the fetch reads it once
+    rng = np.random.default_rng(29)
+    motifs = _motifs(rng, [6, 9, 12, 20, 150], DNA)
+    ths = [p.score_distribution().score(1e-4) for p in motifs]
+    seq = EncodedSequence(rng.integers(0, 4, size=200_000).astype(np.uint8))
+    ms = MultiScanner(motifs, seq, ths, device=cuda)
+    want = ms.scan_arrays(seq)
+    torch.cuda.synchronize()
+    saved = torch.cuda.get_sync_debug_mode()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        token = ms.dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
+    ms.host_reads = 0
+    got = ms.fetch(token)
+    assert ms.host_reads == 1 and len(got[0]) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_stage_wrappers_launch_or_raise(cuda, monkeypatch):
+    # with the kernels' build failing, a CUDA tensor gets the error, never
+    # the plain version
+    from lightmotif_tpu_torch.ops import build
+
+    rng = np.random.default_rng(31)
+    motifs = _motifs(rng, [6, 9, 12], DNA)
+    k = len(DNA.symbols)
+    stack, lengths = multi.stack_motifs([p.data for p in motifs], k)
+    g = multi.pack_motif_group(np.arange(3), 3, int(lengths.max()), stack,
+                               np.full(3, -3.0, np.float32), k)
+    group = multi.group_to_device(g, cuda)
+    chunk = torch.from_numpy(rng.integers(0, 4, 10_000).astype(np.uint8)).to(cuda)
+    maxv = multi_kernel.prefilter_any8(chunk, *group["k3"])
+    cand, count = multi.compact_candidates(maxv, 4096)
+    lanes = torch.full((g["t_eff"].shape[0],), 9_000, dtype=torch.int32, device=cuda)
+    bits = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
+    torch.cuda.synchronize()
+
+    def fail():
+        raise RuntimeError("nvcc failed (a stand-in)")
+
+    monkeypatch.setattr(build, "library", fail)
+    before = dict(multi_stages.LAUNCHES)
+    with pytest.raises(RuntimeError, match="a stand-in"):
+        multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
+    with pytest.raises(RuntimeError, match="a stand-in"):
+        multi_stages.pairs_rescore(bits, cand, count, chunk, group["pssm"], group["th"], 4096)
+    assert multi_stages.LAUNCHES == before

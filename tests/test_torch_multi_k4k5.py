@@ -211,14 +211,14 @@ def test_jax_filters_unpack_to_the_port_cells(ragged):
                                   filters_i8=(hi8, lo8, adj), widths=widths)
     k3 = multi.pack_filters_k3(d16, t16)
     assert all(np.array_equal(a, b.numpy()) for a, b in zip(k3, i8["k3"]))
-    assert "k5" not in i8 and i8["byte_planes"]
+    assert "k5" not in i8
     fine = multi.group_from_filters(g["pssm"], g["th"], m_max, k, "cpu",
                                     filters_fine=(g["f_hi"], g["f_lo"]), widths=widths)
     k5 = multi.pack_filters_k5(d16, t16)
     assert all(np.array_equal(a, b.numpy()) for a, b in zip(k5, fine["k5"]))
-    # phase C reads the fine filters, with their thresholds
-    assert np.array_equal(fine["fine"].numpy(), multi.phase_c_filters(d16))
-    assert np.array_equal(fine["t_eff"].numpy(), k5[2])
+    # phase C reads the fine filters, with their thresholds, in both
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(k5, fine["phase_c"]))
+    assert all(np.array_equal(a, b.numpy()) for a, b in zip(k5, i8["phase_c"]))
 
 
 def _small(device="cpu"):

@@ -128,8 +128,10 @@ def test_modes_keep_the_same_hits_without_wildcards(name, protein, widths, pvalu
     # the port's own scanner groups (K3, u16 phase C at t3) keep them too
     group = multi.group_to_device(multi.pack_motif_group(
         np.arange(g["count"]), g["count"], m_max, g["pssm"], g["th"], k), "cpu")
-    own = multi.scan_multi_core(torch.from_numpy(seq), torch.from_numpy(n_valid), group, k)
-    assert _triples(*own) == hits["k3"]
+    counts, packed = multi.scan_multi_core(torch.from_numpy(seq), torch.from_numpy(n_valid),
+                                           group, k, TILE)
+    own = packed[:, : counts[2]]
+    assert _triples(own[0], own[1], own[2].view(torch.float32)) == hits["k3"]
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -141,9 +143,12 @@ def test_phase_c_pairs_contain_the_kept_hits(name, protein, widths, pvalue, wild
     assert mode in group and not (set(multi.PREFILTERS) - {mode}) & set(group)
     chunk = torch.from_numpy(seq)
     maxv = getattr(multi_kernel, multi.PREFILTERS[mode])(chunk, *group[mode])
-    pos, lanes = multi.phase_c_pairs(chunk, multi.candidates(maxv),
-                                     torch.from_numpy(n_valid), group, k)
-    pairs = set(zip(pos.tolist(), lanes.tolist()))
+    cand = torch.nonzero(maxv >= 0).flatten()
+    planes, _, t_c = group["phase_c"]
+    mask = ((multi.phase_c(chunk, cand, planes, t_c) >= 0)
+            & (cand[:, None] < torch.from_numpy(n_valid)))
+    rows, lanes = torch.nonzero(mask, as_tuple=True)
+    pairs = set(zip(cand[rows].tolist(), lanes.tolist()))
     kept = _port(mode, g, k, m_max, seq, n_valid, args)
     assert kept[0].numel() and set(zip(kept[0].tolist(), kept[1].tolist())) <= pairs
 
@@ -152,15 +157,15 @@ def test_k4_mode_phase_c_is_the_u8_test():
     g, k, m_max, seq, n_valid, args = _setup(*CASES[0])
     group = multi.group_from_filters(g["pssm"], g["th"], m_max, k, "cpu",
                                      filters_t=args["filters_t"])
-    assert group["fine"].shape == (m_max * k, g["f_hi"].shape[1])
+    planes, _, t_c = group["phase_c"]
+    assert planes.shape[0] == 1 and planes.shape[1] * 16 == g["f_hi"].shape[1]  # u8 cells
     positions = torch.arange(0, TILE - m_max + 1, 13)
-    assert group["byte_planes"] is False
-    part = multi.phase_c(torch.from_numpy(seq), positions, group["fine"],
-                         group["t_eff"], m_max, k, byte_planes=False)
-    # the u8 cells, read back from the slot layout
-    cells = multi._slot_cells(args["filters_t"], k).astype(np.int64)[:, :m_max]
+    part = multi.phase_c(torch.from_numpy(seq), positions, planes, t_c)
+    # the u8 cells and thresholds, read back from the slot layout
+    cells, t4 = multi._cells_k4(args["filters_t"], k)
+    cells = cells.astype(np.int64)[:, :m_max]
     p = positions.numpy()
-    want = sum(cells[:, j, seq[p + j]].T for j in range(m_max)) - group["t_eff"].numpy()
+    want = sum(cells[:, j, seq[p + j]].T for j in range(m_max)) - t4
     assert part.dtype == torch.int32 and np.array_equal(part.numpy(), want)
     # the maximum over lanes is K4's value at each position
     maxv = multi_kernel.prefilter_any(torch.from_numpy(seq), *group["k4"])
@@ -221,7 +226,8 @@ def test_database_groups_scan_like_the_multiscanner_in_each_mode(mode, monkeypat
     groups = multi.database_groups(stack, lengths, ths, short, k, "cpu", 16,
                                    prefilter=mode, discrete=discrete)
     assert len(groups) == 3 and all(mode in g for g in groups)
-    assert all(g["byte_planes"] == (mode != "k4") for g in groups)
+    # phase C's u16 cells in two byte planes, its u8 cells in one
+    assert all(g["phase_c"][0].shape[0] == (1 if mode == "k4" else 2) for g in groups)
     assert sorted(np.concatenate([g["ids"] for g in groups]).tolist()) == sorted(short.tolist())
     for segment in (len(seq), 9_000):
         got = multi_triples(multi.sorted_hits(multi.scan_groups(

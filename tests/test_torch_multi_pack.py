@@ -115,10 +115,11 @@ def test_port_layouts_hold_the_jax_numbers(name):
         r_mo[m_pad - wd:] += rpb
     assert np.array_equal(g["t_eff"], 128 * 257 * r_mo - g["adj"][:, 0])
     assert np.array_equal(t_k3, g["t_eff"] - shift.sum(axis=1))
-    # phase-C planes: 256 * hi + lo == d16
-    fine = g["fine"]
-    planes = fine.T.reshape(2, m_pad, m_bucket, k).astype(np.int64)
-    assert np.array_equal(256 * planes[0] + planes[1], full)
+    # phase C: K3's planes, with never-pass and padded lanes at K5's never
+    pc_planes, pc_chunk_m, t_c = g["phase_c"]
+    assert np.array_equal(pc_planes, planes) and np.array_equal(pc_chunk_m, chunk_m)
+    t_never = np.where(g["t_eff"] == multi.K3_NEVER, multi.K5_NEVER, g["t_eff"])
+    assert np.array_equal(t_c, t_never - shift.sum(axis=1))
 
 
 def test_host_helpers_match_jax():

@@ -175,10 +175,14 @@ def test_timing_hook_sees_every_stage_and_changes_no_hit(monkeypatch):
     ms.mark = lambda stage, n: seen.append((stage, n))
     assert multi_triples(ms.scan_arrays(tseq)) == want
     stages = [s for s, _ in seen]
-    assert stages == ["k3", "candidates", "phase_c", "rescore"] * 3 + ["dense", "fetch"]
+    assert stages == ["k3", "candidates", "phase_c", "pairs_rescore"] * 3 + ["dense", "fetch"]
+    # the counts stay on the device until the fetch: the candidates (which
+    # phase C tests), the core's counters [candidates, pairs, kept, valid]
     n = dict.fromkeys(stages, 0)
     for s, c in seen:
         n[s] += c
-    assert n["k3"] >= 12_000 - 20 + 1 and n["candidates"] >= n["phase_c"] >= n["rescore"]
-    assert n["rescore"] + n["dense"] == n["fetch"] == len(want)
+    assert n["phase_c"] == n["candidates"] == n["pairs_rescore"][0]
+    kept = n["pairs_rescore"][2]
+    assert n["k3"] >= 12_000 - 20 + 1 and n["candidates"] >= n["pairs_rescore"][1] >= kept
+    assert kept + n["dense"] == n["fetch"] == len(want)
     assert n["dense"] == sum(mo in (4, 5) for mo, _, _ in want) > 0

@@ -17,6 +17,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 import lightmotif_tpu as jlm
 import lightmotif_tpu_torch as tlm
@@ -141,6 +142,48 @@ def test_dispatch_fetch_after_rebind(genome):
     for got, js in ((got1, jseq), (got2, j2)):
         want = JaxMultiScanner(motifs, js, [-12.0, -4.0, -6.0]).collect_arrays()
         assert got == multi_triples(want) and got
+
+
+@pytest.mark.parametrize("segment", [None, 7_000])
+def test_ratchet_from_a_capacity_of_one_keeps_the_hits(genome, monkeypatch, segment):
+    # every group and dense motif overflows at first and re-runs at doubled
+    # capacities until it fits: the hits are the JAX package's all the way,
+    # and once the ratchets have settled a scan reads the device once
+    jseq, tseq = genome
+    motifs = make_motifs() + [p.reverse_complement() for p in make_motifs()]
+    thresholds = THRESHOLDS * 2
+    want = multi_triples(JaxMultiScanner(motifs, jseq, thresholds).collect_arrays())
+    monkeypatch.setattr(MultiScanner, "GROUP_MOTIFS", 2)
+    monkeypatch.setattr(MultiScanner, "DENSE_M_LIMIT", 12)  # the two m = 15 motifs
+    pssms, ths = convert.motif_set(motifs, thresholds)
+    ms = MultiScanner(pssms, tseq, ths, capacity=1, device="cpu")
+    if segment:
+        ms.SEGMENT = segment
+    assert multi_triples(ms.scan_arrays(tseq)) == want and want
+    assert len(ms._groups) == 2 and ms._route()["dense_idx"].tolist() == [0, 3]
+    assert set(ms._group_state) == {0, 1, ("dense", 0), ("dense", 3)}
+    assert all(cap > 1 for cap, _ in ms._group_state.values())
+    first = ms.host_reads
+    assert first > 1  # the re-runs read again
+    ms.host_reads = 0
+    for _ in range(2):
+        assert multi_triples(ms.scan_arrays(tseq)) == want
+    assert ms.host_reads == 2  # one read per collect_arrays
+
+
+def test_steady_scan_reads_the_device_once_per_collect(genome):
+    jseq, tseq = genome
+    pssms, ths = convert.motif_set(make_motifs(), [-12.0, -4.0, -6.0])
+    ms = MultiScanner(pssms, tseq, ths, device="cpu")
+    ms.collect_arrays()
+    for n in range(1, 4):
+        ms.host_reads = 0
+        hits = ms.collect_arrays()
+        assert ms.host_reads == 1 and len(hits[0])
+    # a token's entries hold the counters and hits on the device
+    token = ms.dispatch()
+    assert token["entries"] and all(e.counts.dtype == torch.int32 for e in token["entries"])
+    assert ms.host_reads == 1  # dispatch reads nothing
 
 
 def test_cpu_scan_leaves_jax_out(tmp_path):

@@ -443,18 +443,22 @@ def test_one_rank_gloo_group_runs_the_exchange(pssms, genome, database, tmp_path
 # -- the host reads and the workers ---------------------------------------------
 
 
-@pytest.mark.parametrize("path", ["sharded_scan", "collect", "max", "argmax"])
-def test_host_reads_do_not_grow_with_shards(pssms, genome, path):
+@pytest.mark.parametrize("path", ["sharded_scan", "collect", "max", "argmax", "database"])
+def test_host_reads_do_not_grow_with_shards(pssms, genome, database, path):
     """The reads of the device per call are the same on 1, 2 and 8
-    shards of one device: every shard is issued before the host reads."""
+    shards of one device: every shard is issued before the host reads.
+    The database scan, once its capacities have settled, reads each
+    distinct device once."""
     tp = pssms[1]
     dm = tp.to_discrete()
     seq = tlm.EncodedSequence(genome)
+    _, tps, db_genome, ths = database
     reads = []
     for shards in (1, 2, 8):
         mesh = cpu_mesh(shards)
         sc = tpar.ShardedScanner(tp, seq, threshold=-8.0, mesh=mesh, pad_unit=256)
         sc._prep()
+        sm = tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=mesh, pad_unit=256)
         call = {
             "sharded_scan": lambda: tpar.sharded_scan(
                 np.asarray(tp.data), np.asarray(dm.data), genome, -8.0, dm.scale(-8.0),
@@ -463,12 +467,40 @@ def test_host_reads_do_not_grow_with_shards(pssms, genome, path):
             "max": sc.max,
             "argmax": lambda: tpar.sharded_argmax(np.asarray(tp.data), genome, mesh=mesh,
                                                   pad_unit=256),
+            "database": lambda: sm.scan_arrays(db_genome),
         }[path]
+        if path == "database":
+            call()  # the first scan settles the capacities and the heads
         tmesh.reset_host_reads()
         call()
         reads.append(tmesh.HOST_READS)
-    # the candidate counts and the kept hits; the best, once
-    assert reads == [1 if path == "argmax" else 2] * 3
+    # the candidate counts and the kept hits; the best, once; the database
+    # scan's counters with its hit heads, once per device
+    assert reads == [1 if path in ("argmax", "database") else 2] * 3
+
+
+@pytest.mark.parametrize("shards", MESHES)
+def test_sharded_ratchet_from_a_capacity_of_one(database, shards, monkeypatch):
+    """Every entry of every shard overflows at first and re-runs in its
+    device's worker: the hits are MultiScanner's, and the next scan reads
+    the device once."""
+    monkeypatch.setattr(MultiScanner, "DENSE_M_LIMIT", 12)  # m = 14 goes dense
+    _, tps, genome, ths = database
+    seq = tlm.EncodedSequence(genome)
+    want = MultiScanner(tps, seq, ths, device="cpu").scan_arrays(seq)
+    sm = tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=cpu_mesh(shards), cap=1,
+                                  pad_unit=1024)
+    (scanner,) = sm._scanners.values()
+    assert scanner._route()["dense_idx"].tolist() == [1]
+    tmesh.reset_host_reads()
+    got = sm.scan_arrays(genome)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want)) and len(got[0])
+    assert tmesh.HOST_READS > 1 and all(c > 1 for c, _ in scanner._group_state.values())
+    assert sm.shard_hits.sum() == len(got[0])
+    tmesh.reset_host_reads()
+    again = sm.scan_arrays(genome)
+    assert tmesh.HOST_READS == 1
+    assert all(np.array_equal(a, b) for a, b in zip(again, want))
 
 
 @pytest.mark.parametrize("pairs,want", [
