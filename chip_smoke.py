@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 1-2, 5, 8, 16-17 alone
+    python3 chip_smoke.py --parent DIR  # all, then phase 22 against DIR
+    python3 chip_smoke.py --stages-only --parent DIR  # phases 1-3, 22
 
 Phases, one line of output each (any failure exits non-zero):
 
@@ -10,16 +12,17 @@ Phases, one line of output each (any failure exits non-zero):
    versions; every module of the port imported, with no JAX;
 2. build: ``nvcc`` compiles ``lightmotif_tpu_torch/ops/csrc/*.cu`` for
    ``sm_90a``, one process per source, all at once: first the production
-   build (``score.cu``, ``prefilter.cu``, ``pairs.cu``), then the probe
-   build (``probes.cu``), each with its own seconds;
+   build (``score.cu``, ``prefilter.cu``, ``phase_c.cu``, ``pairs.cu``),
+   then the probe build (``probes.cu``), each with its own seconds;
 3. SASS: ``cuobjdump -sass`` of the prefilter library, the tensor-core
    instructions (``IMMA``) of every instantiation of the tensor-core
-   prefilter, the production one, P9's bits form and phase C's two
-   gather forms included (each must hold some; the lookup kernel of
-   probe P7 holds none); of the scoring library, K1's production
+   prefilter, the production one and P9's bits form included (each must
+   hold some; the lookup kernel of probe P7 holds none), and phase C's
+   kernel (``phase_c.cu``); of the scoring library, K1's production
    instantiation adds with ``FADD`` and has no ``FFMA`` (no
    contraction), K2's looks up with ``PRMT``; the pairs library adds
-   with ``FADD`` and has no ``FFMA``;
+   with ``FADD`` and has no ``FFMA``; the ``ptxas -v`` registers and
+   spills of phase C's and the pairs library's kernels;
 4. K1 and K2 against their plain PyTorch versions on the card
    (``torch.equal``): DNA (through the production instantiations, and the
    generic one past K2's m = 257), protein, k = 7 and k = 256 tables,
@@ -48,7 +51,7 @@ Phases, one line of output each (any failure exits non-zero):
    in one segment and in five, each equal to a per-PSSM brute force on
    the card (K1 + threshold: positions and f32 bits, -0.0 read as
    +0.0); K3, phase C (``lm_phase_c_bits``) and the pairs kernel
-   (``lm_pairs_rescore``, five kernels a call, each counted) once per
+   (``lm_pairs_rescore``, two kernels a call, each counted) once per
    group and once per re-run at larger capacities; a scanner seeded at a capacity of 64 ratchets to the same
    hits; a steady ``collect_arrays`` reads the card once, and its
    dispatch reads it never (sync debug mode "error"); then phase C and
@@ -162,7 +165,18 @@ Phases, one line of output each (any failure exits non-zero):
     family B, the diagnostic bodies (io only, floor, nosel, noroll, add,
     K2 writing uint8); family C, the op chains over 4,718,592 bytes; P13's
     host parity (the pairwise association changes windows, the prefix
-    forms none); P9, the per-lane pass bits beside K3 at database group 0.
+    forms none); P9, the per-lane pass bits beside K3 at database group 0;
+22. with ``--parent DIR`` (another checkout, e.g. a ``git archive`` of the
+    parent commit): the parent's phase C and pairs kernel built from DIR's
+    sources beside this tree's, both held to the plain versions on every
+    database group, the prefilter's IMMA counts of both equal, the
+    ``ptxas -v`` lines of both, each kernel and the two together timed
+    in turns (parent, change, change, parent), K3 and P9 of both equal and
+    timed in turns, phase C by candidate count
+    at group 0, this tree's phase C at every slice that fits, each pairs
+    call split by kernel name (the profiler's device events), and the
+    ``scan_arrays`` walls of both checkouts, each in a process of its own,
+    in turns.
 
 The line before the last is a JSON object with one entry per kernel
 (launches counted on the path that runs it, with the counts reset just
@@ -199,7 +213,7 @@ K4_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:163"
 K5_REPLACES = "lightmotif_tpu/ops/multi_kernel.py:213"
 # the database scan's exact stages: XLA code of the JAX scan_multi_core (no
 # Pallas kernel there), phase C and the pairs / rescore / keep that follow
-PHASE_C_SOURCE = K3_SOURCE
+PHASE_C_SOURCE = "lightmotif_tpu_torch/ops/csrc/phase_c.cu"
 PHASE_C_REPLACES = "lightmotif_tpu/ops/multi.py:868"
 PAIRS_SOURCE = "lightmotif_tpu_torch/ops/csrc/pairs.cu"
 PAIRS_REPLACES = "lightmotif_tpu/ops/multi.py:975"
@@ -318,7 +332,7 @@ def launch_counts() -> dict:
 def group_launches(n: int, prefilter: str = "prefilter_any8") -> dict:
     """The launches of ``n`` motif-group segments of the database scan and
     of its re-runs since the last reset: the prefilter, phase C and the
-    pairs wrapper once each (its five kernels)."""
+    pairs wrapper once each (its two kernels)."""
     from lightmotif_tpu_torch.ops import multi, multi_stages
 
     n += multi.RERUNS["group"]
@@ -430,10 +444,12 @@ def score_mangled(variant: int, discrete: bool) -> str:
 def phase_sass() -> int:
     """The prefilter library's SASS: every tensor-core instantiation, the
     production one and P9's bits form included, must hold tensor-core
-    instructions; the lookup kernel (P7's baseline) holds none.  The
-    scoring library's: K1's production instantiation adds with FADD and
-    never with FFMA (no contraction), K2's looks up with PRMT.  Returns
-    the production prefilter's IMMA count."""
+    instructions; the lookup kernel (P7's baseline) holds none.  Phase C's
+    kernel holds IMMA too; the pairs library adds with FADD, never FFMA;
+    both with their ``ptxas -v`` registers and spills.  The scoring
+    library's: K1's production instantiation adds with FADD and never with
+    FFMA (no contraction), K2's looks up with PRMT.  Returns the
+    production prefilter's IMMA count."""
     from lightmotif_tpu_torch.ops import build
     from lightmotif_tpu_torch.probes import prefilter as probes
 
@@ -441,26 +457,35 @@ def phase_sass() -> int:
 
     lib = next(p for p in build.build_info()["paths"] if "prefilter" in p.name)
     counts = sass_mma_counts(lib)
-    # mma_kernel<POS_M, CPP, PW, NW, BITS, GATHER>, by its template arguments
-    form = re.compile(r"mma_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)EE")
+    # mma_kernel<POS_M, CPP, PW, NW, BITS>, by its template arguments
+    form = re.compile(r"mma_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EE")
     mma = {tuple(int(x) for x in hit.groups()): c for n, c in counts.items()
            if (hit := form.search(n))}
     v = build.library().lm_prefilter_production()
     orient, cpp, pw, warps = probes.VARIANTS[v]
-    production = mma.get((int(orient == "m"), cpp, pw, warps, 0, 0), 0)
+    production = mma.get((int(orient == "m"), cpp, pw, warps, 0), 0)
     per_variant = {f"{'m' if a[0] else 'n'}{a[1]}x{a[2]}x{a[3]}": c
-                   for a, c in mma.items() if a[4:] == (0, 0)}
-    bits = [c for a, c in mma.items() if a[4:] == (1, 0)]
-    gather = {f"{a[2] * a[3]} candidates": c for a, c in mma.items() if a[4:] == (1, 1)}
+                   for a, c in mma.items() if a[4] == 0}
+    bits = [c for a, c in mma.items() if a[4] == 1]
     lookup = sum(c for n, c in counts.items() if "lookup_kernel" in n)
-    if (production < 1 or len(bits) != 1 or bits[0] < 1 or len(gather) != 2
-            or min(gather.values()) < 1
+    if (production < 1 or len(bits) != 1 or bits[0] < 1
             or len(per_variant) != len(probes.VARIANTS) or min(per_variant.values()) < 1):
         raise SystemExit(f"sass: a tensor-core instantiation without IMMA: {counts}")
     log("sass", library=lib.name, tool="cuobjdump -sass",
         production=f"variant {v} {probes.VARIANTS[v]}", production_imma=production,
-        p9_bits_imma=bits[0], phase_c_imma=gather, total_tensor_core=sum(counts.values()),
+        p9_bits_imma=bits[0], total_tensor_core=sum(counts.values()),
         lookup_kernel=lookup, per_instantiation=per_variant)
+
+    # phase C on the tensor cores
+    log_text = build.build_info()["log"]
+    lib = next(p for p in build.build_info()["paths"] if "phase_c" in p.name)
+    ops = sass_opcodes(lib)
+    imma = {n: sum(op == "IMMA" for op in o) for n, o in ops.items() if "phase_c_kernel" in n}
+    if len(imma) != 1 or min(imma.values()) < 1:
+        raise SystemExit(f"sass: phase C's kernel without IMMA: {imma}")
+    log("sass", library=lib.name, phase_c_imma=min(imma.values()),
+        instructions=sum(len(o) for o in ops.values()),
+        ptxas=" | ".join(ptxas_lines(log_text, ("phase_c_kernel",))))
 
     # the pairs kernel's rescore adds with FADD, never FFMA; no kernel of the
     # library contracts
@@ -468,10 +493,11 @@ def phase_sass() -> int:
     ops = sass_opcodes(lib)
     n_fadd = sum(o.count("FADD") for o in ops.values())
     n_ffma = sum(o.count("FFMA") for o in ops.values())
-    if not any("score_rows" in n for n in ops) or n_fadd < 1 or n_ffma:
+    if not any("keep_pairs" in n for n in ops) or n_fadd < 1 or n_ffma:
         raise SystemExit(f"sass: the pairs library has {n_fadd} FADD and {n_ffma} FFMA")
     log("sass", library=lib.name, functions=len(ops), fadd=n_fadd, ffma=n_ffma,
-        score_rows_fadd=sum(o.count("FADD") for n, o in ops.items() if "score_rows" in n))
+        keep_pairs_fadd=sum(o.count("FADD") for n, o in ops.items() if "keep_pairs" in n),
+        ptxas=" | ".join(ptxas_lines(log_text, ("row_offsets", "keep_pairs"))))
 
     lib = next(p for p in build.build_info()["paths"] if "score" in p.name)
     ops = sass_opcodes(lib)
@@ -821,14 +847,15 @@ def check_stages(group, chunk, lanes, maxv, cap=None, cap_hits=None) -> dict:
     n_cand = int((maxv >= 0).sum())
     cap = cap or 1 << max(n_cand - 1, 1).bit_length()
     cand, count = multi.compact_candidates(maxv, cap)
-    bits = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
+    bits, pcnt = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
     want_bits = multi_stages.phase_c_bits_plain(chunk, cand, count, *group["phase_c"], lanes)
+    want_pcnt = multi_stages.row_popcounts(want_bits, count)
     rows = min(n_cand, cap)
     if cap_hits is None:
         probe = multi_stages.pairs_rescore_plain(want_bits, cand, count, chunk, group["pssm"],
                                                  group["th"], 1)[0]
         cap_hits = 1 << max(int(probe[1]) - 1, 1).bit_length()
-    counts, packed = multi_stages.pairs_rescore(bits, cand, count, chunk, group["pssm"],
+    counts, packed = multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk, group["pssm"],
                                                 group["th"], cap_hits)
     want_counts, want_packed = multi_stages.pairs_rescore_plain(
         want_bits, cand, count, chunk, group["pssm"], group["th"], cap_hits)
@@ -837,7 +864,8 @@ def check_stages(group, chunk, lanes, maxv, cap=None, cap_hits=None) -> dict:
     # the worst difference of every check: a pass bit (0 or 1), and the
     # kept hits' positions, lanes and f32 scores
     top = max(n_kept, min(int(counts[2]), cap_hits))
-    errs = {"phase_c_bits": float((bits[:rows] != want_bits[:rows]).any()),
+    errs = {"phase_c_bits": max(float((bits[:rows] != want_bits[:rows]).any()),
+                                max_abs_err(pcnt, want_pcnt)),
             "pairs_rescore": max(max_abs_err(packed[:2, :top], want_packed[:2, :top]),
                                  max_abs_err(packed[2, :top].view(torch.float32),
                                              want_packed[2, :top].view(torch.float32)))}
@@ -846,13 +874,16 @@ def check_stages(group, chunk, lanes, maxv, cap=None, cap_hits=None) -> dict:
     if not torch.equal(bits[:rows], want_bits[:rows]):
         bad = int(torch.nonzero((bits[:rows] != want_bits[:rows]).any(1))[0])
         raise SystemExit(f"phase_c_bits != plain at candidate row {bad} of {rows}")
+    if not torch.equal(pcnt, want_pcnt):
+        bad = int(torch.nonzero(pcnt != want_pcnt)[0])
+        raise SystemExit(f"phase_c_bits' row popcounts != plain at row {bad}")
     if not (torch.equal(counts, want_counts)
             and torch.equal(packed[:, :n_kept], want_packed[:, :n_kept])):
         raise SystemExit(f"pairs_rescore != plain: counts {counts.tolist()} vs "
                          f"{want_counts.tolist()}")
     got = counts.tolist()
     return {"candidates": got[0], "pairs": got[1], "kept": got[2], "cap": cap,
-            "cap_hits": cap_hits, "args": (chunk, cand, count, bits, lanes)}
+            "cap_hits": cap_hits, "args": (chunk, cand, count, bits, pcnt, lanes)}
 
 
 #: The worst difference of each new kernel from its plain version over
@@ -887,14 +918,14 @@ def time_stages(group, row) -> dict:
     "none" for the library: no one PyTorch call computes either."""
     from lightmotif_tpu_torch.ops import multi_stages
 
-    chunk, cand, count, bits, lanes = row["args"]
+    chunk, cand, count, bits, pcnt, lanes = row["args"]
     pc = group["phase_c"]
     fns = {
         "phase_c_bits": (lambda: multi_stages.phase_c_bits(chunk, cand, count, *pc, lanes),
                          lambda: multi_stages.phase_c_bits_plain(chunk, cand, count, *pc,
                                                                  lanes)),
         "pairs_rescore": (lambda: multi_stages.pairs_rescore(
-            bits, cand, count, chunk, group["pssm"], group["th"], row["cap_hits"]),
+            bits, pcnt, cand, count, chunk, group["pssm"], group["th"], row["cap_hits"]),
             lambda: multi_stages.pairs_rescore_plain(
                 bits, cand, count, chunk, group["pssm"], group["th"], row["cap_hits"])),
     }
@@ -914,12 +945,16 @@ def time_stages(group, row) -> dict:
 def phase_stages(ms, what: str, timed: bool = False) -> dict:
     """Phase C and the pairs kernel against their plain versions on every
     group of a scanner's last scan, with each group's candidate, pair and
-    kept counts (and, ``timed``, each kernel's ms, plain ms and bound).
-    Returns group 0's times (``timed``)."""
+    kept counts and phase C's geometry (and, ``timed``, each kernel's ms,
+    plain ms and bound, and the two together against the sum of their
+    bounds, since phase C now counts each row's pairs for the pairs
+    kernel).  Returns group 0's times (``timed``)."""
+    from lightmotif_tpu_torch.ops import multi_stages
+
     first = None
     for gi, group in enumerate(ms._groups):
         row = check_stages(group, *stage_inputs(group, ms._dseq, ms.lengths))
-        fields = {}
+        fields = {"phase_c_geometry": multi_stages.phase_c_geometry(group["phase_c"][0])}
         if timed:
             times = time_stages(group, row)
             first = first or times
@@ -927,10 +962,13 @@ def phase_stages(ms, what: str, timed: bool = False) -> dict:
                 fields[name] = (f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
                                 f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
                                 f"runs={t['runs']}")
+            fields["both"] = (f"ms={sum(t['ms'] for t in times.values()):.4f} "
+                              f"bound_ms={sum(t['bound_ms'] for t in times.values()):.4f}")
         log("stages", workload=what, group=gi, lanes=group["phase_c"][2].shape[0],
             rows=group["m_max"], candidates=row["candidates"], pairs=row["pairs"],
             kept=row["kept"], cap=row["cap"], cap_hits=row["cap_hits"], equal_plain=True,
-            launches="phase_c_bits 1 + pairs_rescore 5 a segment", **fields)
+            launches=f"phase_c_bits 1 + pairs_rescore {multi_stages.PAIRS_KERNELS} a segment",
+            **fields)
     return first
 
 
@@ -2829,6 +2867,335 @@ def torch_popcount(words: torch.Tensor) -> torch.Tensor:
     return ((words[..., None] >> shifts) & 1).sum()
 
 
+# -- the exact stages of another checkout, for timings in turns ---------------
+
+#: Candidate counts at which phase C is timed at database group 0: one
+#: block of 256 of the parent's kernel, one and two waves of 132 blocks, all.
+CHAIN_COUNTS = (256, 33_792, 67_584)
+
+
+class ParentStages:
+    """Phase C and the pairs kernel of another checkout of this repository
+    (``--parent DIR``, e.g. a ``git archive`` of the parent commit),
+    built from DIR's ``prefilter.cu`` and ``pairs.cu`` with the port's
+    nvcc flags into a temporary directory and called through ctypes with
+    the signatures of ``lm_phase_c_bits``, ``lm_pairs_scratch`` and
+    ``lm_pairs_rescore`` there: those of the earlier design, in which phase
+    C was a form of the prefilter's kernel and the pairs took five
+    kernels; and K3 (``lm_prefilter_any8``) and P9 (``lm_prefilter_bits``),
+    which shared ``prefilter.cu`` with that phase C."""
+
+    SIGNATURES = {
+        "lm_phase_c_bits": ("plpplpiiiippppp", "i"),
+        "lm_pairs_scratch": ("ll", "l"),
+        "lm_pairs_rescore": ("pippllplppiiipppp", "i"),
+        "lm_prefilter_any8": ("plpiiiipppp", "i"),
+        "lm_prefilter_bits": ("plpiiiippppp", "i"),
+    }
+
+    def __init__(self, root: str):
+        import ctypes
+        import os
+        import tempfile
+
+        from lightmotif_tpu_torch.ops import build
+
+        self.root = os.path.abspath(root)
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-parent-")
+        csrc = os.path.join(self.root, "lightmotif_tpu_torch", "ops", "csrc")
+        jobs = []
+        for name in ("prefilter", "pairs"):
+            out = os.path.join(self.dir, f"lib{name}.so")
+            jobs.append((out, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", out,
+                 os.path.join(csrc, f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        self.log = ""
+        self.paths = [out for out, _ in jobs]
+        types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
+        fns = {}
+        for out, proc in jobs:
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise SystemExit(f"parent: nvcc failed on {out}\n{text[-4000:]}")
+            self.log += text
+            lib = ctypes.CDLL(out)
+            for name, (args, res) in self.SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes = [types[c] for c in args]
+                    fn.restype = types[res]
+                    fns[name] = fn
+        self.fns = fns
+
+    def phase_c_bits(self, chunk, cand, count, planes, chunk_m, t_eff, n_valid):
+        n_planes, n_chunks, _, rows, k = planes.shape
+        cap = cand.shape[0]
+        out = torch.empty((cap, n_chunks), dtype=torch.int32, device=chunk.device)
+        err = self.fns["lm_phase_c_bits"](
+            chunk.data_ptr(), chunk.shape[0], cand.data_ptr(), count.data_ptr(), cap,
+            planes.data_ptr(), n_planes, n_chunks, rows, k, chunk_m.data_ptr(),
+            t_eff.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"parent: lm_phase_c_bits failed: CUDA error {err}")
+        return out
+
+    def prefilter(self, name, seq, planes, chunk_m, t_eff, n_valid=None):
+        """K3 (``n_valid`` None) or P9's pass bits, as the parent builds them."""
+        n_planes, n_chunks, _, rows, k = planes.shape
+        lp = seq.shape[0]
+        shape = (lp,) if n_valid is None else (lp, n_chunks)
+        out = torch.empty(shape, dtype=torch.int32, device=seq.device)
+        extra = () if n_valid is None else (n_valid.data_ptr(),)
+        err = self.fns[name](seq.data_ptr(), lp, planes.data_ptr(), n_planes, n_chunks, rows,
+                             k, chunk_m.data_ptr(), t_eff.data_ptr(), *extra, out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"parent: {name} failed: CUDA error {err}")
+        return out
+
+    def pairs_rescore(self, bits, cand, count, chunk, pssm, th, cap_hits):
+        cap = cand.shape[0]
+        scratch = torch.empty(self.fns["lm_pairs_scratch"](cap, cap_hits), dtype=torch.uint8,
+                              device=chunk.device)
+        packed = torch.empty((3, cap_hits), dtype=torch.int32, device=chunk.device)
+        counts = torch.empty(4, dtype=torch.int32, device=chunk.device)
+        n_motifs, m, k = pssm.shape
+        err = self.fns["lm_pairs_rescore"](
+            bits.data_ptr(), bits.shape[1], cand.data_ptr(), count.data_ptr(), cap, cap_hits,
+            chunk.data_ptr(), chunk.shape[0], pssm.data_ptr(), th.data_ptr(), n_motifs, m, k,
+            scratch.data_ptr(), packed.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"parent: lm_pairs_rescore failed: CUDA error {err}")
+        return counts, packed
+
+
+def ptxas_lines(log: str, names) -> list:
+    """The ``ptxas -v`` lines (registers, spills, shared memory) of the
+    kernels whose mangled names contain one of ``names``."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            keep = any(n in line for n in names)
+        if keep and ("entry function" in line or "registers" in line or "spill" in line
+                     or "stack frame" in line):
+            out.append(line.strip())
+    return out
+
+
+def kernel_split(fn, calls: int = 5) -> dict:
+    """The card's ms per call of each kernel ``fn`` launches, by name, from
+    one profiled run of ``calls`` calls (:func:`profiled`), and the
+    busy ms per call.  A profiled run whose trace holds no device event (the
+    tracer drops one now and then) is profiled once more."""
+    for _ in range(2):
+        _, prof = profiled(lambda: [fn() for _ in range(calls)])
+        busy, by_name, _, _ = trace_kernels(prof)
+        if by_name:
+            break
+    out = {name: round(ms / calls, 4) for name, ms in by_name}
+    out["busy"] = round(busy / calls, 4)
+    return out
+
+
+SCAN_WALL_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from lightmotif_tpu_torch.scanner import MultiScanner
+torch.cuda.set_device(0)
+pssm, seq = cs.build_inputs()
+pssms, ths, _ = cs.synthetic_database(cs.DB_MOTIFS, cs.DB_SEED)
+ms = MultiScanner(pssms, thresholds=ths, device=cs.DEVICE)
+hits = ms.scan_arrays(seq)
+walls = cs.wall_ms(lambda: ms.scan_arrays(seq))
+print(json.dumps({"hits": len(hits[0]), "walls": walls}))
+"""
+
+
+def scan_walls(root: str, cache: str) -> dict:
+    """The database's steady ``scan_arrays`` walls of the checkout at
+    ``root``, in a process of its own that imports that checkout's
+    package and ``chip_smoke`` (the same seeded genome and database),
+    building into ``cache``."""
+    import os
+
+    proc = subprocess.run(
+        [sys.executable, "-c", SCAN_WALL_CHILD], cwd=root, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=root, LIGHTMOTIF_TPU_COMPILE_CACHE=cache))
+    if proc.returncode != 0:
+        raise SystemExit(f"scan walls of {root} failed\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def phase_parent(ms, root: str) -> None:
+    """This tree's phase C and pairs kernel beside the parent checkout's
+    at ``root`` on the database groups' inputs, both held to the plain
+    versions, timed in turns (parent, change, change, parent): each
+    kernel per group and the two together (phase C now counts the rows'
+    pairs for the pairs kernel), K3 and P9 at group 0
+    (:func:`parent_prefilters`), phase C at group 0 by candidate count
+    (:data:`CHAIN_COUNTS`) and this tree's phase C at every slice that
+    fits, each pairs call split by kernel name (the profiler's device
+    events), the ``ptxas -v`` lines of both builds, and the
+    ``scan_arrays`` walls of both checkouts in processes of their own, in
+    turns."""
+    import os
+    import shutil
+    import tempfile
+
+    from lightmotif_tpu_torch.ops import build, multi, multi_stages
+
+    import re
+
+    parent = ParentStages(root)
+    # K3-K5's and P9's instantiations keep their tensor-core instructions:
+    # the parent's mma_kernel<..., BITS, GATHER = false> against this tree's
+    # mma_kernel<..., BITS>
+    forms = {}
+    for who, path, pattern in (
+            ("parent", parent.paths[0], r"mma_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb0EE"),
+            ("change", next(p for p in build.build_info()["paths"] if "prefilter" in p.name),
+             r"mma_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EE")):
+        form = re.compile(pattern)
+        forms[who] = {hit.groups(): c for n, c in sass_mma_counts(path).items()
+                      if (hit := form.search(n))}
+    if forms["parent"] != forms["change"] or not forms["change"]:
+        raise SystemExit(f"parent: the prefilter's IMMA counts changed: {forms}")
+    log("parent", prefilter_imma_unchanged=True, instantiations=len(forms["change"]),
+        imma={"/".join(k): v for k, v in forms["change"].items()})
+    for line in ptxas_lines(parent.log, ("ELb1ELb1EE", "row_counts", "scan_blocks",
+                                         "score_rows", "write_rows")):
+        log("parent", ptxas=line)
+    for line in ptxas_lines(build.build_info()["log"], ("phase_c_kernel", "row_offsets",
+                                                        "keep_pairs")):
+        log("change", ptxas=line)
+    for gi, group in enumerate(ms._groups):
+        chunk, lanes, maxv = stage_inputs(group, ms._dseq, ms.lengths)
+        row = check_stages(group, chunk, lanes, maxv)
+        _, cand, count, bits, pcnt, _ = row["args"]
+        pc = group["phase_c"]
+        rows = min(row["candidates"], row["cap"])
+        want_bits = multi_stages.phase_c_bits_plain(chunk, cand, count, *pc, lanes)
+        old_bits = parent.phase_c_bits(chunk, cand, count, *pc, lanes)
+        want = multi_stages.pairs_rescore_plain(want_bits, cand, count, chunk, group["pssm"],
+                                                group["th"], row["cap_hits"])
+        old = parent.pairs_rescore(old_bits, cand, count, chunk, group["pssm"], group["th"],
+                                   row["cap_hits"])
+        n_kept = int(want[0][2])
+        if not (torch.equal(old_bits[:rows], want_bits[:rows]) and torch.equal(old[0], want[0])
+                and torch.equal(old[1][:, :n_kept], want[1][:, :n_kept])):
+            raise SystemExit(f"parent: group {gi}: the parent's kernels != plain")
+
+        def new_c(n=count):
+            return multi_stages.phase_c_bits(chunk, cand, n, *pc, lanes)
+
+        def old_c(n=count):
+            return parent.phase_c_bits(chunk, cand, n, *pc, lanes)
+
+        def new_p():
+            return multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk, group["pssm"],
+                                              group["th"], row["cap_hits"])
+
+        def old_p():
+            return parent.pairs_rescore(old_bits, cand, count, chunk, group["pssm"],
+                                        group["th"], row["cap_hits"])
+
+        times, sums = {}, [0.0, 0.0]
+        for name, (fa, fb) in (("phase_c_bits", (old_c, new_c)),
+                               ("pairs_rescore", (old_p, new_p))):
+            a1, b1 = time_cuda(fa, repeat=5), time_cuda(fb, repeat=5)
+            b2, a2 = time_cuda(fb, repeat=5), time_cuda(fa, repeat=5)
+            sums[0] += min(a1, a2)
+            sums[1] += min(b1, b2)
+            times[name] = (f"parent_ms={min(a1, a2):.4f} ms={min(b1, b2):.4f} "
+                           f"runs=p:{a1:.4f},{a2:.4f}/c:{b1:.4f},{b2:.4f}")
+        bounds = stage_bounds(group, row)
+        log("parent", group=gi, candidates=row["candidates"], pairs=row["pairs"],
+            kept=row["kept"], equal_plain=True, **times,
+            both=f"parent_ms={sums[0]:.4f} ms={sums[1]:.4f}",
+            bound_ms=f"c={bounds['phase_c_bits'][0]:.4f},p={bounds['pairs_rescore'][0]:.4f},"
+            f"both={bounds['phase_c_bits'][0] + bounds['pairs_rescore'][0]:.4f}",
+            geometry=multi_stages.phase_c_geometry(pc[0]))
+        slices = {}
+        for hint in (1, 2, 4, 8, 16, 32):
+            try:
+                geometry = multi_stages.phase_c_geometry(pc[0], hint)
+            except ValueError:
+                continue  # no room for this slice
+            got = multi_stages.phase_c_bits(chunk, cand, count, *pc, lanes, hint)
+            if not (torch.equal(got[0][:rows], want_bits[:rows]) and torch.equal(got[1], pcnt)):
+                raise SystemExit(f"parent: group {gi}: phase C at slice {hint} != plain")
+            ms_hint = time_cuda(lambda: multi_stages.phase_c_bits(
+                chunk, cand, count, *pc, lanes, hint), repeat=5)
+            slices[hint] = (f"{ms_hint:.4f} ms ({geometry['warps']} warps x "
+                            f"{geometry['per_sm']}/SM, {geometry['smem']} B)")
+        log("change", group=gi, phase_c_by_slice=slices)
+        if gi == 0:
+            parent_prefilters(parent, group, chunk, lanes)
+            for cut in CHAIN_COUNTS + (row["candidates"],):
+                n = torch.full_like(count, min(cut, rows))
+                a1, b1 = time_cuda(lambda: old_c(n), repeat=5), time_cuda(lambda: new_c(n), repeat=5)
+                b2, a2 = time_cuda(lambda: new_c(n), repeat=5), time_cuda(lambda: old_c(n), repeat=5)
+                log("parent", group=gi, phase_c_count=min(cut, rows),
+                    parent_ms=f"{min(a1, a2):.4f}", ms=f"{min(b1, b2):.4f}")
+            log("parent", group=gi, pairs_split_parent=kernel_split(old_p))
+            log("parent", group=gi, pairs_split=kernel_split(new_p))
+    caches = {who: tempfile.mkdtemp(prefix=f"chip-smoke-{who}-") for who in ("parent", "change")}
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        runs = [scan_walls(root, caches["parent"]), scan_walls(here, caches["change"]),
+                scan_walls(here, caches["change"]), scan_walls(root, caches["parent"])]
+    finally:
+        for path in caches.values():
+            shutil.rmtree(path, ignore_errors=True)
+    med = [statistics.median(r["walls"]) for r in runs]
+    if len({r["hits"] for r in runs}) != 1:
+        raise SystemExit(f"parent: scan hits differ: {[r['hits'] for r in runs]}")
+    log("parent", op="scan_arrays wall, steady, own process each, in turns",
+        hits=runs[0]["hits"], parent_ms=f"{min(med[0], med[3]):.4f}",
+        ms=f"{min(med[1], med[2]):.4f}",
+        runs=f"p:{med[0]:.4f},{med[3]:.4f}/c:{med[1]:.4f},{med[2]:.4f}")
+
+
+def parent_prefilters(parent, group, chunk, lanes) -> None:
+    """K3 and P9 of this tree beside the parent's on a group's inputs: the
+    same output, and their times in turns (parent, change, change,
+    parent), so that the removal of the earlier phase C form from
+    ``prefilter.cu`` shows as no change."""
+    from lightmotif_tpu_torch.ops import multi_kernel
+    from lightmotif_tpu_torch.probes import prefilter as pprobes
+
+    args = group["k3"]
+    n = chunk.shape[0] - group["m_max"] + 1
+    pairs = {
+        "prefilter_any8": (lambda: parent.prefilter("lm_prefilter_any8", chunk, *args),
+                           lambda: multi_kernel.prefilter_any8(chunk, *args)),
+        "prefilter_bits": (lambda: parent.prefilter("lm_prefilter_bits", chunk, *args, lanes),
+                           lambda: pprobes.prefilter_bits(chunk, *args, lanes)),
+    }
+    for name, (old, new) in pairs.items():
+        if not torch.equal(old()[:n], new()[:n]):
+            raise SystemExit(f"parent: {name} of the parent and this tree differ")
+        a1, b1 = time_cuda(old, repeat=3, runs=5), time_cuda(new, repeat=3, runs=5)
+        b2, a2 = time_cuda(new, repeat=3, runs=5), time_cuda(old, repeat=3, runs=5)
+        log("parent", kernel=name, equal=True, parent_ms=f"{min(a1, a2):.4f}",
+            ms=f"{min(b1, b2):.4f}", runs=f"p:{a1:.4f},{a2:.4f}/c:{b1:.4f},{b2:.4f}")
+
+
+def stage_scanner(seq):
+    """The database's ``MultiScanner`` after one scan of the genome (its
+    groups and capacities settled)."""
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    pssms, ths, _ = synthetic_database(DB_MOTIFS, DB_SEED)
+    ms = MultiScanner(pssms, thresholds=ths, device=DEVICE)
+    ms.scan_arrays(seq)
+    return ms
+
+
 def time_prefilter(name, seq, args, m, what: str) -> dict:
     """A prefilter kernel beside its plain version (in turns: plain,
     kernel, kernel, plain), its bound and its library computation."""
@@ -3160,8 +3527,12 @@ def main(argv: list) -> int:
     torch.cuda.set_device(0)
     if argv == ["--mesh-only"]:
         return mesh_only()
-    if argv:
-        print(f"chip_smoke: unknown arguments {argv} (--mesh-only or none)", file=sys.stderr)
+    if len(argv) == 3 and argv[:2] == ["--stages-only", "--parent"]:
+        return stages_only(argv[2])
+    parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
+    if argv and parent is None:
+        print(f"chip_smoke: unknown arguments {argv} (--mesh-only, --parent DIR, "
+              "--stages-only --parent DIR, or none)", file=sys.stderr)
         return 2
     phase_card()
     phase_imports()
@@ -3199,6 +3570,8 @@ def main(argv: list) -> int:
     phase_host_cost(pssm, seq)
     probe_entries = phase_probes(ms, seq, times)
     probe_entries.update(phase_score_probes(pssm, seq, ms, times))
+    if parent is not None:
+        phase_parent(ms, parent)
     sources = {"score_f32": (SOURCE, REPLACES), "score_u8": (SOURCE, REPLACES),
                "prefilter_any8": (K3_SOURCE, K3_REPLACES),
                "prefilter_any": (K3_SOURCE, K4_REPLACES),
@@ -3217,6 +3590,20 @@ def main(argv: list) -> int:
          **{key: e[key] for key in keys}}
         for name, e in probe_entries.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def stages_only(parent: str) -> int:
+    """The exact stages alone: the build, the database scanned once, then
+    :func:`phase_parent` against the checkout at ``parent``."""
+    phase_card()
+    phase_build()
+    phase_sass()
+    _, seq = build_inputs()
+    phase_parent(stage_scanner(seq), parent)
+    print(json.dumps({"ok": True, "stages_only": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

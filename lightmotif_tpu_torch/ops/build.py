@@ -10,8 +10,9 @@ its source and the flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is.
 
 Production and probes are built apart.  :func:`library` builds and loads
-``score.cu``, ``prefilter.cu`` and ``pairs.cu`` and asks only for the
-entry points the production wrappers call (:data:`PRODUCTION_SYMBOLS`); :func:`probe_library`
+``score.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu`` and asks
+only for the entry points the production wrappers call
+(:data:`PRODUCTION_SYMBOLS`); :func:`probe_library`
 adds ``probes.cu`` and the probes' entry points (:data:`PROBE_SYMBOLS`).  A
 scan never waits for, or depends on, the probe code.
 
@@ -67,7 +68,7 @@ PACKAGE_BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ENV = "LIGHTMOTIF_TPU_COMPILE_CACHE"
 
 #: The sources of the production entry points, and those of the probes.
-PRODUCTION_SOURCES = ("score.cu", "prefilter.cu", "pairs.cu")
+PRODUCTION_SOURCES = ("score.cu", "prefilter.cu", "phase_c.cu", "pairs.cu")
 PROBE_SOURCES = ("probes.cu",)
 
 NVCC_FLAGS = [
@@ -96,12 +97,14 @@ PRODUCTION_SYMBOLS = {
         [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
     "lm_prefilter_any16": (
         [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
-    "lm_phase_c_smem": ([_INT, _INT, _INT], _I64),
+    "lm_phase_c_geom": ([_INT, _INT, _INT, _INT, _INT], _INT),
+    "lm_phase_c_smem": ([_INT, _INT, _INT, _INT, _INT], _I64),
     "lm_phase_c_bits": (
-        [_P, _I64, _P, _P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P], _INT),
+        [_P, _I64, _P, _P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P, _INT, _P],
+        _INT),
     "lm_pairs_scratch": ([_I64, _I64], _I64),
     "lm_pairs_rescore": (
-        [_P, _INT, _P, _P, _I64, _I64, _P, _I64, _P, _P, _INT, _INT, _INT, _P, _P, _P, _P],
+        [_P, _INT, _P, _P, _P, _I64, _I64, _P, _I64, _P, _P, _INT, _INT, _INT, _P, _P, _P, _P],
         _INT),
 }
 
@@ -273,9 +276,8 @@ def _build(names) -> dict:
 
 def build_info(probes: bool = False) -> dict:
     """Compile the libraries that are not up to date, all at once:
-    ``score.cu``, ``prefilter.cu`` and ``pairs.cu``, and ``probes.cu``
-    with ``probes``.
-    Returns ``paths`` (one library per source), ``compiled`` (the ones
+    ``score.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu``, and
+    ``probes.cu`` with ``probes``.  Returns ``paths`` (one library per source), ``compiled`` (the ones
     this call built), ``seconds`` (wall time of the build, 0.0 when
     every library was found) and the compilers' ``log`` (``ptxas -v``
     lines included).  Each form is built once per process."""
@@ -310,7 +312,8 @@ def _load(probes: bool) -> SimpleNamespace:
 
 def library() -> SimpleNamespace:
     """The production entry points (:data:`PRODUCTION_SYMBOLS`), with their
-    signatures set, from ``score.cu``, ``prefilter.cu`` and ``pairs.cu``."""
+    signatures set, from ``score.cu``, ``prefilter.cu``, ``phase_c.cu`` and
+    ``pairs.cu``."""
     lib = _LIBS.get(False)  # no lock once loaded: every launch asks
     return lib if lib is not None else _load(False)
 

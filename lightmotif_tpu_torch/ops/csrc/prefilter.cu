@@ -99,23 +99,8 @@
 // A warp ORs the bits of a chunk's 16 lanes across its eight lane groups with
 // __shfl_xor_sync and one thread per position stores the word.
 //
-// Phase C of the database scan (lm_phase_c_bits) is that bits epilogue on
-// the instantiation's GATHER form: its positions are not a contiguous range
-// but the compacted candidates cand[0 : min(count, cap)] (int64, count read
-// on the device), and bits row i is candidate i.  It replaces the XLA code
-// of lightmotif_tpu/ops/multi.py::scan_multi_core's phase_c (:868), which
-// tests every (candidate, motif lane) with a one-hot matmul against the
-// u16 byte planes (or the u8 cells) and phase C's own thresholds; here the
-// same test is the same exact integer sum, sum_q 256^q (X B_q) - t_eff >= 0,
-// masked by p < n_valid[lane].  Candidate windows do not overlap, so a block
-// stages each of its TP candidates' windows as a one-hot run of its own,
-// 8 * ks + 4 words long (ks = the k-steps read): the runs start on a word,
-// so one copy serves every fragment, and the 4-word pad spreads the eight
-// candidates of a fragment over distinct banks.  Blocks past the count exit
-// at once, so the grid is sized by cap and the host reads nothing.  Bound:
-// 2 * P * candidates * K * 16 * sum(chunk_m) int8 operations; every block
-// streams the group's planes through shared memory for TP candidates, so
-// it moves the planes cap / TP times (from L2).
+// Phase C of the database scan, the same test over compacted candidates,
+// is a kernel of its own: phase_c.cu.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -140,36 +125,27 @@ constexpr int MAX_STAGE_CHUNKS = 32;
 struct Geom {
   int ks_max;  // 32-deep k-steps of the deepest lane: ceil(rows * K / 32)
   int ls;      // staged bytes per lane and plane: ks_max * 32 + 16
-  int cw;      // 32-bit words per one-hot copy, = 8 modulo 32 (GATHER: per
-               // candidate run, 8 * ks_read + 4)
-  int npos;    // sequence positions staged (GATHER: candidates, tp)
+  int cw;      // 32-bit words per one-hot copy, = 8 modulo 32
+  int npos;    // sequence positions staged
   int spc;     // lane chunks per stage, a multiple of cpp
   int stage;   // bytes of one stage: spc * planes * 16 * ls
   long long smem;
 };
 
 __host__ __device__ inline Geom geom(int tp, int cpp, int rows, int k, int planes,
-                                     int blocks_per_sm, bool gather = false) {
+                                     int blocks_per_sm) {
   Geom g;
   g.ks_max = (rows * k + 31) / 32;
   g.ls = g.ks_max * 32 + 16;
   // the last byte any fragment reads is (tp - 1) * K + ks * 32 - 1, ks the
   // larger of ks_max and the KSR k-steps kept in registers
   const int ks_read = g.ks_max > KSR ? g.ks_max : KSR;
-  long long fixed;
-  if (gather) {
-    // one run per candidate, its int64 position beside it
-    g.cw = 8 * ks_read + 4;
-    g.npos = tp;
-    fixed = 4LL * tp * g.cw + 8LL * tp;
-  } else {
-    int words = ((tp - 1) * k + ks_read * 32) / 4 + 2;
-    words = words < 8 ? 8 : words;
-    g.cw = (words - 8 + 31) / 32 * 32 + 8;
-    // every position a byte of a copy names: (4 * cw + 2) / K
-    g.npos = (4 * g.cw + 8) / k + 2;
-    fixed = 4LL * 4 * g.cw + (g.npos + 15) / 16 * 16;
-  }
+  int words = ((tp - 1) * k + ks_read * 32) / 4 + 2;
+  words = words < 8 ? 8 : words;
+  g.cw = (words - 8 + 31) / 32 * 32 + 8;
+  // every position a byte of a copy names: (4 * cw + 2) / K
+  g.npos = (4 * g.cw + 8) / k + 2;
+  const long long fixed = 4LL * 4 * g.cw + (g.npos + 15) / 16 * 16;
   // as many whole passes per stage as two stages and the fixed part allow
   // within the target, and at least one
   const long long chunk = static_cast<long long>(planes) * CH * g.ls;
@@ -393,37 +369,26 @@ __host__ __device__ constexpr int blocks_per_sm(int warps, int pw, int cpp) {
   return warps <= 8 && pw * cpp <= 64 ? 2 : 1;
 }
 
-template <bool POS_M, int CPP, int PW, int NW, bool BITS = false, bool GATHER = false>
+template <bool POS_M, int CPP, int PW, int NW, bool BITS = false>
 __global__ void __launch_bounds__(32 * NW, blocks_per_sm(NW, PW, CPP))
 mma_kernel(const uint8_t* __restrict__ seq, long long lp,
            const uint8_t* __restrict__ planes, int n_planes, int n_chunks,
            int rows, int k, const int* __restrict__ chunk_m,
            const int* __restrict__ t_eff, int* __restrict__ out,
-           const int* __restrict__ n_valid, const long long* __restrict__ cand,
-           const long long* __restrict__ count, long long cap) {
+           const int* __restrict__ n_valid) {
   static_assert(!BITS || !POS_M, "the bits epilogue reads the positions-as-columns fragments");
-  static_assert(!GATHER || BITS, "the gather form writes pass bits");
   constexpr int NTHREADS = 32 * NW;
-  constexpr int TP = NW * PW;                   // positions (GATHER: candidates) per block
+  constexpr int TP = NW * PW;                   // positions per block
   constexpr int NF = POS_M ? PW / 16 : PW / 8;  // X fragments per warp
   static_assert(PW % 16 == 0, "PW: whole 16-position tiles");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const Geom g = geom(TP, CPP, rows, k, n_planes, blocks_per_sm(NW, PW, CPP), GATHER);
+  const Geom g = geom(TP, CPP, rows, k, n_planes, blocks_per_sm(NW, PW, CPP));
   unsigned char* stages = smem;
   uint32_t* oh = reinterpret_cast<uint32_t*>(smem + 2 * g.stage);
   uint8_t* tile = reinterpret_cast<uint8_t*>(oh + 4 * g.cw);
-  long long* cpos = reinterpret_cast<long long*>(oh + TP * g.cw);  // GATHER
 
   const long long base = static_cast<long long>(blockIdx.x) * TP;
-  // GATHER: the candidates this launch holds; a block past them has nothing to do
-  long long n_rows = 0;
-  if constexpr (GATHER) {
-    n_rows = min(__ldg(count), cap);
-    if (base >= n_rows) {
-      return;
-    }
-  }
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -467,59 +432,38 @@ mma_kernel(const uint8_t* __restrict__ seq, long long lp,
 
   const uint8_t wildcard = static_cast<uint8_t>(k - 1);
   uint8_t* oh0 = reinterpret_cast<uint8_t*>(oh);
-  if constexpr (GATHER) {
-    // candidate i's window: rows symbols from cand[base + i], the wildcard
-    // past the end and for any rank >= K, one-hot in run i (K bytes a row)
-    for (int i = tid; i < TP; i += NTHREADS) {
-      cpos[i] = base + i < n_rows ? cand[base + i] : 0;
-    }
-    uint4* oh4 = reinterpret_cast<uint4*>(oh);
-    for (int w = tid; w < TP * g.cw / 4; w += NTHREADS) oh4[w] = make_uint4(0u, 0u, 0u, 0u);
-    __syncthreads();
-    for (int t = tid; t < TP * rows; t += NTHREADS) {
-      const int i = t / rows;
-      const int j = t - i * rows;
-      if (base + i < n_rows) {
-        const long long p = cpos[i] + j;
-        const uint8_t s = p < lp ? seq[p] : wildcard;
-        oh0[i * 4 * g.cw + j * k + (s < wildcard ? s : wildcard)] = 1;
-      }
-    }
-  } else {
-    // the block's symbols, the wildcard past the end and for any rank >= K
-    for (int i = tid; i < g.npos; i += NTHREADS) {
-      const long long p = base + i;
-      const uint8_t s = p < lp ? seq[p] : wildcard;
-      tile[i] = s < wildcard ? s : wildcard;
-    }
-    // copy 0 is the one-hot stream itself: K bytes per position, zero past
-    // the staged positions
-    for (int w = tid; w < g.cw; w += NTHREADS) oh[w] = 0;
-    __syncthreads();
-    for (int i = tid; i < g.npos; i += NTHREADS) {
-      const int b = i * k + tile[i];
-      if (b < 4 * g.cw) oh0[b] = 1;
-    }
-    __syncthreads();
-    // copy c, word w: the bytes OH[4w + c .. 4w + c + 3], a funnel shift of
-    // words w and w + 1 of copy 0
-    for (int w = tid; w < g.cw; w += NTHREADS) {
-      const uint32_t lo = oh[w];
-      const uint32_t hi = w + 1 < g.cw ? oh[w + 1] : 0u;
+  // the block's symbols, the wildcard past the end and for any rank >= K
+  for (int i = tid; i < g.npos; i += NTHREADS) {
+    const long long p = base + i;
+    const uint8_t s = p < lp ? seq[p] : wildcard;
+    tile[i] = s < wildcard ? s : wildcard;
+  }
+  // copy 0 is the one-hot stream itself: K bytes per position, zero past
+  // the staged positions
+  for (int w = tid; w < g.cw; w += NTHREADS) oh[w] = 0;
+  __syncthreads();
+  for (int i = tid; i < g.npos; i += NTHREADS) {
+    const int b = i * k + tile[i];
+    if (b < 4 * g.cw) oh0[b] = 1;
+  }
+  __syncthreads();
+  // copy c, word w: the bytes OH[4w + c .. 4w + c + 3], a funnel shift of
+  // words w and w + 1 of copy 0
+  for (int w = tid; w < g.cw; w += NTHREADS) {
+    const uint32_t lo = oh[w];
+    const uint32_t hi = w + 1 < g.cw ? oh[w + 1] : 0u;
 #pragma unroll
-      for (int c = 1; c < 4; ++c) oh[c * g.cw + w] = __funnelshift_r(lo, hi, 8 * c);
-    }
+    for (int c = 1; c < 4; ++c) oh[c * g.cw + w] = __funnelshift_r(lo, hi, 8 * c);
   }
 
   // this thread's one-hot words: the row (POS_M) or column (else) of its
   // first fragment, at k-byte tig * 4; every other fragment of the thread is
-  // a multiple of 4 bytes away, so one copy serves them all (GATHER: every
-  // run starts on a word, and fragments are 8 runs apart)
+  // a multiple of 4 bytes away, so one copy serves them all
   const int p_first = warp * PW + grp;
   const int off = p_first * k + tig * 4;
-  const uint32_t* ohp = GATHER ? oh + p_first * g.cw + tig : oh + (off & 3) * g.cw + (off >> 2);
+  const uint32_t* ohp = oh + (off & 3) * g.cw + (off >> 2);
   // 16 or 8 positions further
-  const int frag_words = GATHER ? 8 * g.cw : (POS_M ? 4 * k : 2 * k);
+  const int frag_words = POS_M ? 4 * k : 2 * k;
   const int half_words = 2 * k;  // 8 positions further (POS_M)
 
   constexpr int XR = Frag<POS_M>::XR;
@@ -625,8 +569,8 @@ mma_kernel(const uint8_t* __restrict__ seq, long long lp,
         }
       }
       if constexpr (BITS) {
-        // positions (GATHER: candidates) 8f + 2tig + (r & 1) of the warp;
-        // lanes grp (r < 2) and grp + 8 (r >= 2) of each chunk
+        // positions 8f + 2tig + (r & 1) of the warp; lanes grp (r < 2) and
+        // grp + 8 (r >= 2) of each chunk
 #pragma unroll
         for (int cc = 0; cc < CPP; ++cc) {
           if (cc < live) {
@@ -638,14 +582,14 @@ mma_kernel(const uint8_t* __restrict__ seq, long long lp,
 #pragma unroll
               for (int r = 0; r < 2; ++r) {
                 const int i = warp * PW + 8 * f + 2 * tig + r;
-                const long long p = GATHER ? cpos[i] : base + i;
+                const long long p = base + i;
                 const int* a = acc[f][cc][0];
                 unsigned word = (a[r] >= 0 && p < nv_lo ? 1u << grp : 0u) |
                                 (a[r + 2] >= 0 && p < nv_hi ? 1u << (grp + 8) : 0u);
                 word |= __shfl_xor_sync(0xffffffffu, word, 4);
                 word |= __shfl_xor_sync(0xffffffffu, word, 8);
                 word |= __shfl_xor_sync(0xffffffffu, word, 16);
-                if (grp == 0 && base + i < (GATHER ? n_rows : lp)) {
+                if (grp == 0 && base + i < lp) {
                   out[(base + i) * n_chunks + c] = static_cast<int>(word);
                 }
               }
@@ -716,16 +660,14 @@ constexpr int N_VARIANTS = sizeof(VARIANTS) / sizeof(VARIANTS[0]);
 // 700 W (PERF.md, section 6)
 constexpr int PRODUCTION = 7;
 
-template <bool POS_M, int CPP, int PW, int NW, bool BITS = false, bool GATHER = false>
+template <bool POS_M, int CPP, int PW, int NW, bool BITS = false>
 int launch_variant(const void* seq, long long lp, const void* planes,
                    int n_planes, int n_chunks, int rows, int k,
                    const void* chunk_m, const void* t_eff, void* out,
-                   void* stream, const void* n_valid = nullptr,
-                   const void* cand = nullptr, const void* count = nullptr,
-                   long long cap = 0) {
+                   void* stream, const void* n_valid = nullptr) {
   constexpr int TP = NW * PW;
-  const Geom g = geom(TP, CPP, rows, k, n_planes, blocks_per_sm(NW, PW, CPP), GATHER);
-  auto kernel = mma_kernel<POS_M, CPP, PW, NW, BITS, GATHER>;
+  const Geom g = geom(TP, CPP, rows, k, n_planes, blocks_per_sm(NW, PW, CPP));
+  auto kernel = mma_kernel<POS_M, CPP, PW, NW, BITS>;
   if (g.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -734,38 +676,14 @@ int launch_variant(const void* seq, long long lp, const void* planes,
       return static_cast<int>(err);
     }
   }
-  const long long blocks = ((GATHER ? cap : lp) + TP - 1) / TP;
+  const long long blocks = (lp + TP - 1) / TP;
   kernel<<<static_cast<unsigned int>(blocks), 32 * NW, g.smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(seq), lp, static_cast<const uint8_t*>(planes),
       n_planes, n_chunks, rows, k, static_cast<const int*>(chunk_m),
       static_cast<const int*>(t_eff), static_cast<int*>(out),
-      static_cast<const int*>(n_valid), static_cast<const long long*>(cand),
-      static_cast<const long long*>(count), cap);
+      static_cast<const int*>(n_valid));
   return static_cast<int>(cudaGetLastError());
-}
-
-// Phase C's instantiations: the production one's orientation and epilogue,
-// in the GATHER form, with 256 candidates a block, or 128 where a window's
-// runs would not fit beside the planes (long windows of large alphabets).
-constexpr int PHASE_C_FORMS = 2;
-constexpr int PHASE_C_PW[PHASE_C_FORMS] = {32, 16};
-constexpr int PHASE_C_WARPS = 8;
-
-long long phase_c_smem_of(int form, int rows, int k, int planes) {
-  const int pw = PHASE_C_PW[form];
-  return geom(PHASE_C_WARPS * pw, 1, rows, k, planes, blocks_per_sm(PHASE_C_WARPS, pw, 1),
-              true).smem;
-}
-
-// the first form whose shared memory fits the card's 227 KB, or -1
-int phase_c_form(int rows, int k, int planes) {
-  for (int f = 0; f < PHASE_C_FORMS; ++f) {
-    if (phase_c_smem_of(f, rows, k, planes) <= 232448) {
-      return f;
-    }
-  }
-  return -1;
 }
 
 int launch(int v, const void* seq, long long lp, const void* planes,
@@ -965,42 +883,6 @@ int lm_prefilter_bits(const void* seq, long long lp, const void* planes,
   }
   return launch_variant<false, 1, 128, 8, true>(seq, lp, planes, n_planes, n_chunks, rows, k,
                                                 chunk_m, t_eff, out, stream, n_valid);
-}
-
-// Phase C over the candidates (the database scan's exact test): cand int64
-// [cap], its first min(*count, cap) entries ascending window starts in seq
-// (count int64 on the device); planes, chunk_m and t_eff phase C's (the u16
-// or u8 cells of a motif group and its thresholds); n_valid int32 [n_chunks
-// * 16]; out int32 [cap][n_chunks], row i bit l of word c set where lane 16c
-// + l passes at candidate i.  Rows at or past the count are not written.
-long long lm_phase_c_smem(int rows, int k, int planes) {
-  if (rows < 1 || k < 1 || planes < 1) {
-    return -1;
-  }
-  const int f = phase_c_form(rows, k, planes);
-  return f < 0 ? phase_c_smem_of(PHASE_C_FORMS - 1, rows, k, planes)
-               : phase_c_smem_of(f, rows, k, planes);
-}
-
-int lm_phase_c_bits(const void* seq, long long lp, const void* cand, const void* count,
-                    long long cap, const void* planes, int n_planes, int n_chunks, int rows,
-                    int k, const void* chunk_m, const void* t_eff, const void* n_valid,
-                    void* out, void* stream) {
-  if (n_planes < 1 || n_planes > MAX_PLANES || (rows * k) % 16 != 0 || cap < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (phase_c_form(rows, k, n_planes)) {
-    case 0:
-      return launch_variant<false, 1, PHASE_C_PW[0], PHASE_C_WARPS, true, true>(
-          seq, lp, planes, n_planes, n_chunks, rows, k, chunk_m, t_eff, out, stream, n_valid,
-          cand, count, cap);
-    case 1:
-      return launch_variant<false, 1, PHASE_C_PW[1], PHASE_C_WARPS, true, true>(
-          seq, lp, planes, n_planes, n_chunks, rows, k, chunk_m, t_eff, out, stream, n_valid,
-          cand, count, cap);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 // Probe P7's baseline, the lookup kernel: table int32 [n_chunks][m][k][16].

@@ -25,7 +25,7 @@ read of the device:
    (candidate, motif lane) inside the lane's valid windows, against the
    group's ``phase_c`` cells and thresholds: the byte planes of ``d16``
    (the u16 test ``sum16 - t >= 0``) or the u8 cells (``sum8 - t >=
-   0``), exact either way, as pass bits;
+   0``), exact either way, as pass bits, and each row's set bits;
 4. pairs, rescore, keep (:func:`.multi_stages.pairs_rescore`): the
    pairs of those bits in ascending (position, motif lane) order -- the
    order the JAX bit-pack and lowest-set-bit extraction produce -- within
@@ -652,10 +652,10 @@ def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict, k: 
     mark(mode, maxv.shape[0])
     cand, count = compact_candidates(maxv, cap)
     mark("candidates", count)
-    bits = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
-                                     n_valid.to(torch.int32))
+    bits, pcnt = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
+                                           n_valid.to(torch.int32))
     mark("phase_c", count)
-    counts, packed = multi_stages.pairs_rescore(bits, cand, count, chunk, group["pssm"],
+    counts, packed = multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk, group["pssm"],
                                                 group["th"], cap_hits)
     mark("pairs_rescore", counts)
     return counts, packed

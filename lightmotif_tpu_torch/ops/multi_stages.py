@@ -5,13 +5,15 @@ Counterpart of the XLA code inside :func:`lightmotif_tpu.ops.multi.
 scan_multi_core` that follows the prefilter (no Pallas kernel on the
 TPU).  Two hand-written CUDA kernels carry it on the card:
 
-* :func:`phase_c_bits` (``csrc/prefilter.cu::lm_phase_c_bits``): the
-  tensor-core prefilter's pass-bit epilogue over the candidates
-  ``cand[0 : min(count, cap)]``, with phase C's own planes and thresholds
-  (the group's u16 cells as two byte planes, or its u8 cells as one), so
-  bit ``l`` of word ``c`` of row ``i`` is set where lane ``16c + l`` has
-  ``sum - t_eff >= 0`` at candidate ``i`` and ``cand[i] < n_valid[lane]``:
-  the JAX phase C's test, exactly;
+* :func:`phase_c_bits` (``csrc/phase_c.cu::lm_phase_c_bits``): the exact
+  test of every (candidate, lane) on the int8 tensor cores over the
+  candidates ``cand[0 : min(count, cap)]``, with phase C's own planes and
+  thresholds (the group's u16 cells as two byte planes, or its u8 cells as
+  one), so bit ``l`` of word ``c`` of row ``i`` is set where lane ``16c +
+  l`` has ``sum - t_eff >= 0`` at candidate ``i`` and ``cand[i] <
+  n_valid[lane]``: the JAX phase C's test, exactly; and each row's set
+  bits (:func:`row_popcounts`, the JAX core's ``pcnt``), which the pairs
+  kernel takes;
 * :func:`pairs_rescore` (``csrc/pairs.cu::lm_pairs_rescore``): the
   (candidate, lane) pairs of those bits in ascending (position, lane)
   order, each row's first ``slots`` of them and the first ``cap_hits`` in
@@ -22,11 +24,12 @@ TPU).  Two hand-written CUDA kernels carry it on the card:
 
 Nothing is read back from the device: the candidate count stays there,
 each grid is sized by ``cap``, and rows past the count are skipped on the
-card.  A tensor on the CPU runs the plain version (:func:`phase_c_bits_plain`,
-:func:`pairs_rescore_plain`); a tensor on a CUDA device launches the
-kernel, and anything the kernel does not take raises.  Nothing falls
-back.  :data:`LAUNCHES` counts each wrapper's kernel launches (one call
-of :func:`pairs_rescore` launches :data:`PAIRS_KERNELS`).
+card.  A tensor on the CPU runs the plain versions (:func:`phase_c_bits_plain`
+and :func:`row_popcounts`, :func:`pairs_rescore_plain`); a tensor on a
+CUDA device launches the kernel, and anything the kernel does not take
+raises.  Nothing falls back.  :data:`LAUNCHES` counts each wrapper's
+kernel launches (one call of :func:`pairs_rescore` launches
+:data:`PAIRS_KERNELS`).
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ __all__ = [
     "phase_c",
     "phase_c_bits",
     "phase_c_bits_plain",
+    "phase_c_geometry",
+    "row_popcounts",
     "pairs_rescore",
     "pairs_rescore_plain",
 ]
@@ -52,9 +57,8 @@ __all__ = [
 LAUNCHES = {"phase_c_bits": 0, "pairs_rescore": 0}
 
 #: Kernels one :func:`pairs_rescore` call launches (``csrc/pairs.cu``):
-#: row counts, a scan of the pairs, the rescore, a scan of the kept hits,
-#: the write.
-PAIRS_KERNELS = 5
+#: the rows' pair offsets, then the pairs' rescore, keep and write.
+PAIRS_KERNELS = 2
 
 #: Bound on the ``[rows, lanes]`` blocks of the plain versions (elements).
 _BLOCK_ELEMS = 1 << 24
@@ -162,6 +166,20 @@ def phase_c_bits_plain(chunk: torch.Tensor, cand: torch.Tensor, count: torch.Ten
     return out
 
 
+def row_popcounts(bits: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The set bits of each row of phase C's bits, int32 ``[cap]``: the
+    JAX core's ``pcnt``.  Rows at or past the count are 0."""
+    cap, n_chunks = bits.shape
+    out = torch.zeros(cap, dtype=torch.int32, device=bits.device)
+    n = _rows(count, cap)
+    shifts = torch.arange(multi_kernel.K3_LANES, device=bits.device, dtype=torch.int32)
+    blk = max(1, _BLOCK_ELEMS // (n_chunks * multi_kernel.K3_LANES))
+    for r0 in range(0, n, blk):
+        b = bits[r0 : min(r0 + blk, n)]
+        out[r0 : r0 + b.shape[0]] = ((b[:, :, None] >> shifts) & 1).sum((1, 2))
+    return out
+
+
 def _check_candidates(name, chunk, cand, count):
     if chunk.dtype != torch.uint8 or chunk.dim() != 1:
         raise TypeError(f"{name}: chunk must be a 1-D uint8 tensor, got {chunk.dtype} "
@@ -179,16 +197,20 @@ def _check_candidates(name, chunk, cand, count):
 
 def phase_c_bits(chunk: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
                  planes: torch.Tensor, chunk_m: torch.Tensor, t_eff: torch.Tensor,
-                 n_valid: torch.Tensor) -> torch.Tensor:
-    """Phase C's pass bits of the candidates: int32 ``[cap, chunks]``.
+                 n_valid: torch.Tensor, slice_hint: int = 0):
+    """Phase C's pass bits of the candidates, int32 ``[cap, chunks]``, and
+    each row's set bits, int32 ``[cap]`` (:func:`row_popcounts`).
 
     ``chunk``: uint8 ``[Lp]``; ``cand``: int64 ``[cap]``, whose first
     ``min(count, cap)`` entries are ascending window starts in ``chunk``;
     ``count``: the candidate count, one int64 (it may exceed ``cap``);
     ``planes``, ``chunk_m``, ``t_eff``: phase C's cells in the prefilter's
     packed form (:func:`.multi._plane_table`); ``n_valid``: int32
-    ``[chunks * 16]``, the window starts each lane owns.  Rows at or past
-    the count are not written on the card (zero in the plain version)."""
+    ``[chunks * 16]``, the window starts each lane owns.  Bit rows at or
+    past the count are not written on the card (zero in the plain
+    version); their popcounts are 0.  ``slice_hint`` (the card only; 0:
+    the kernel's own choice) asks the kernel for slices of that many lane
+    chunks, a power of two up to 32, to time its geometries."""
     multi_kernel._check("phase_c_bits", chunk, planes, chunk_m, t_eff)
     _check_candidates("phase_c_bits", chunk, cand, count)
     if n_valid.dtype != torch.int32 or tuple(n_valid.shape) != tuple(t_eff.shape):
@@ -198,7 +220,8 @@ def phase_c_bits(chunk: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
         raise ValueError(f"phase_c_bits: chunk on {chunk.device} but n_valid on "
                          f"{n_valid.device}")
     if chunk.device.type == "cpu":
-        return phase_c_bits_plain(chunk, cand, count, planes, chunk_m, t_eff, n_valid)
+        bits = phase_c_bits_plain(chunk, cand, count, planes, chunk_m, t_eff, n_valid)
+        return bits, row_popcounts(bits, count)
     from . import build
 
     tensors = (chunk, cand, count, planes, chunk_m, t_eff, n_valid)
@@ -206,23 +229,41 @@ def phase_c_bits(chunk: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
         raise ValueError("phase_c_bits takes contiguous tensors")
     lib = build.library()
     n_planes, n_chunks, _, rows, k = planes.shape
-    smem = lib.lm_phase_c_smem(rows, k, n_planes)
+    smem = lib.lm_phase_c_smem(rows, k, n_planes, n_chunks, slice_hint)
     if not 0 < smem <= multi_kernel._MAX_SMEM:
         raise ValueError(f"phase_c_bits: windows of {rows} rows of K={k} in {n_planes} "
-                         f"planes need {smem} bytes of shared memory "
-                         f"(max {multi_kernel._MAX_SMEM})")
+                         f"planes need more shared memory than the card has "
+                         f"(max {multi_kernel._MAX_SMEM}), or slice {slice_hint} is refused")
     cap = cand.shape[0]
     out = torch.empty((cap, n_chunks), dtype=torch.int32, device=chunk.device)
+    pcnt = torch.empty(cap, dtype=torch.int32, device=chunk.device)
     with torch.cuda.device(chunk.device):
         stream = torch.cuda.current_stream(chunk.device).cuda_stream
         err = lib.lm_phase_c_bits(chunk.data_ptr(), chunk.shape[0], cand.data_ptr(),
                                   count.data_ptr(), cap, planes.data_ptr(), n_planes,
                                   n_chunks, rows, k, chunk_m.data_ptr(), t_eff.data_ptr(),
-                                  n_valid.data_ptr(), out.data_ptr(), stream)
+                                  n_valid.data_ptr(), out.data_ptr(), pcnt.data_ptr(),
+                                  slice_hint, stream)
     if err != 0:
         raise RuntimeError(f"phase_c_bits kernel launch failed: CUDA error {err}")
     kernels.count_launch(LAUNCHES, "phase_c_bits")
-    return out
+    return out, pcnt
+
+
+def phase_c_geometry(planes: torch.Tensor, slice_hint: int = 0) -> dict:
+    """The geometry :func:`phase_c_bits` launches on the card for these
+    planes: lane chunks a slice, warps a block, blocks an SM (as their
+    shared memory allows) and the shared memory of a block."""
+    from . import build
+
+    lib = build.library()
+    n_planes, n_chunks, _, rows, k = planes.shape
+    info = lib.lm_phase_c_geom(rows, k, n_planes, n_chunks, slice_hint)
+    if info < 0:
+        raise ValueError(f"phase_c_bits: no geometry fits windows of {rows} rows of K={k} "
+                         f"in {n_planes} planes (slice {slice_hint})")
+    return {"slice": info & 0xFFFF, "warps": (info >> 16) & 0xFF, "per_sm": info >> 24,
+            "smem": lib.lm_phase_c_smem(rows, k, n_planes, n_chunks, slice_hint)}
 
 
 # -- pairs, rescore, keep -----------------------------------------------------
@@ -274,14 +315,16 @@ def pairs_rescore_plain(bits: torch.Tensor, cand: torch.Tensor, count: torch.Ten
     return counts, packed
 
 
-def pairs_rescore(bits: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
-                  chunk: torch.Tensor, pssm: torch.Tensor, th: torch.Tensor,
-                  cap_hits: int):
+def pairs_rescore(bits: torch.Tensor, pcnt: torch.Tensor, cand: torch.Tensor,
+                  count: torch.Tensor, chunk: torch.Tensor, pssm: torch.Tensor,
+                  th: torch.Tensor, cap_hits: int):
     """The kept hits of phase C's bits: ``(counts int32 [4], packed int32
     [3, cap_hits])``.
 
-    ``bits``: int32 ``[cap, chunks]`` (:func:`phase_c_bits`); ``cand``,
-    ``count``: its candidates; ``chunk``: uint8 ``[Lp]``; ``pssm``: f32
+    ``bits``, ``pcnt``: int32 ``[cap, chunks]`` and ``[cap]``, the two
+    outputs of :func:`phase_c_bits` (the kernel lists each row's pairs by
+    ``pcnt``; the plain version counts them itself); ``cand``, ``count``:
+    its candidates; ``chunk``: uint8 ``[Lp]``; ``pssm``: f32
     ``[M, m, K]`` and ``th`` f32 ``[M]``, the group's stack and thresholds.
     ``packed[:, :n_kept]`` holds the kept hits in ascending (position,
     lane) order: positions in the chunk, lanes, f32 bits; the rest of it
@@ -293,6 +336,9 @@ def pairs_rescore(bits: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
     if bits.dtype != torch.int32 or bits.dim() != 2 or bits.shape[0] != cap:
         raise TypeError(f"pairs_rescore: bits must be int32 [{cap}, chunks], got "
                         f"{bits.dtype} {tuple(bits.shape)}")
+    if pcnt.dtype != torch.int32 or tuple(pcnt.shape) != (cap,):
+        raise TypeError(f"pairs_rescore: pcnt must be int32 [{cap}], got {pcnt.dtype} "
+                        f"{tuple(pcnt.shape)}")
     if pssm.dtype != torch.float32 or pssm.dim() != 3 or pssm.shape[0] < 1:
         raise TypeError(f"pairs_rescore: pssm must be f32 [M, m, K], got {pssm.dtype} "
                         f"{tuple(pssm.shape)}")
@@ -302,7 +348,7 @@ def pairs_rescore(bits: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
     cap_hits = int(cap_hits)
     if cap_hits < 1:
         raise ValueError("pairs_rescore: cap_hits must be positive")
-    for what, t in (("bits", bits), ("pssm", pssm), ("th", th)):
+    for what, t in (("bits", bits), ("pcnt", pcnt), ("pssm", pssm), ("th", th)):
         if t.device != chunk.device:
             raise ValueError(f"pairs_rescore: chunk on {chunk.device} but {what} on "
                              f"{t.device}")
@@ -312,7 +358,7 @@ def pairs_rescore(bits: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
         raise ValueError(f"pairs_rescore: unsupported device {chunk.device}")
     from . import build
 
-    tensors = (bits, cand, count, chunk, pssm, th)
+    tensors = (bits, pcnt, cand, count, chunk, pssm, th)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("pairs_rescore takes contiguous tensors")
     lib = build.library()
@@ -323,11 +369,11 @@ def pairs_rescore(bits: torch.Tensor, cand: torch.Tensor, count: torch.Tensor,
     counts = torch.empty(4, dtype=torch.int32, device=chunk.device)
     with torch.cuda.device(chunk.device):
         stream = torch.cuda.current_stream(chunk.device).cuda_stream
-        err = lib.lm_pairs_rescore(bits.data_ptr(), bits.shape[1], cand.data_ptr(),
-                                   count.data_ptr(), cap, cap_hits, chunk.data_ptr(),
-                                   chunk.shape[0], pssm.data_ptr(), th.data_ptr(), n_motifs,
-                                   m, k, scratch.data_ptr(), packed.data_ptr(),
-                                   counts.data_ptr(), stream)
+        err = lib.lm_pairs_rescore(bits.data_ptr(), bits.shape[1], pcnt.data_ptr(),
+                                   cand.data_ptr(), count.data_ptr(), cap, cap_hits,
+                                   chunk.data_ptr(), chunk.shape[0], pssm.data_ptr(),
+                                   th.data_ptr(), n_motifs, m, k, scratch.data_ptr(),
+                                   packed.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pairs_rescore kernel launch failed: CUDA error {err}")
     kernels.count_launch(LAUNCHES, "pairs_rescore", PAIRS_KERNELS)

@@ -404,17 +404,124 @@ def test_phase_c_and_pairs_kernels_match_plain(cuda, alphabet, widths):
         n = int((maxv >= 0).sum())
         for cap, cap_hits in ((n + 1000, 1 << 18), (max(n // 2, 1), 64)):
             cand, count = multi.compact_candidates(maxv, cap)
-            bits = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
+            bits, pcnt = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
+                                                   lanes)
             plain = multi_stages.phase_c_bits_plain(chunk, cand, count, *group["phase_c"], lanes)
-            counts, packed = multi_stages.pairs_rescore(bits, cand, count, chunk, group["pssm"],
-                                                        group["th"], cap_hits)
+            counts, packed = multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk,
+                                                        group["pssm"], group["th"], cap_hits)
             want_counts, want_packed = multi_stages.pairs_rescore_plain(
                 plain, cand, count, chunk, group["pssm"], group["th"], cap_hits)
             torch.cuda.synchronize()
             rows, n_kept = min(n, cap), int(want_counts[2])
             assert torch.equal(bits[:rows], plain[:rows])
+            assert torch.equal(pcnt, multi_stages.row_popcounts(plain, count))
             assert torch.equal(counts, want_counts) and n_kept > 0
             assert torch.equal(packed[:, :n_kept], want_packed[:, :n_kept])
+
+
+#: Stage cases on inputs made here: (name, K, motif rows, lanes, byte planes,
+#: candidates, share of the pairs that pass, slice hints).  The two
+#: database-like groups (16 and 48 rows of 2,048 DNA lanes); long protein
+#: windows of K = 20 and 25, whose runs and planes leave room for few warps
+#: (13 and 7 lane chunks: slices they do not fill); rows with more pairs than
+#: a row lists (one byte plane).
+STAGE_CASES = [
+    ("dna_16_rows", 5, 16, 2048, 2, 20_000, 0.002, (0, 4)),
+    ("dna_48_rows", 5, 48, 2048, 2, 3_000, 0.002, (0, 16)),
+    ("protein_k20_long", 20, 48, 208, 2, 2_000, 0.01, (0, 2)),
+    ("protein_k25_long", 25, 32, 112, 2, 2_000, 0.01, (0, 1)),
+    ("dense_rows", 5, 8, 256, 1, 3_000, 0.6, (0,)),
+]
+
+
+def _stage_inputs_of(cuda, k, m, lanes, n_planes, n_cand, share, seed):
+    """Random phase C inputs: ranks with some >= K, ascending candidates
+    (some whose windows run past the end), cells of ``n_planes`` bytes,
+    thresholds at each lane's (1 - share) quantile of its candidates' sums,
+    lanes' valid windows (some 0, some short); and a group stack for the
+    rescore with fewer motifs than lanes."""
+    rng = np.random.default_rng(seed)
+    n_pos = max(4 * n_cand, 10_000)
+    seq = rng.integers(0, k + 2, n_pos).astype(np.uint8)
+    cand = np.concatenate([np.sort(rng.choice(n_pos - 3, n_cand - 3, replace=False)),
+                           [n_pos - 3, n_pos - 2, n_pos - 1]]).astype(np.int64)
+    cells = rng.integers(0, 256 ** n_planes, (lanes, m, k))
+    ranks = np.minimum(seq.astype(np.int64), k - 1)
+    ext = np.concatenate([ranks, np.full(m, k - 1)])
+    sums = sum(cells[:, j, ext[cand + j]].T for j in range(m))  # [n_cand, lanes]
+    t = np.quantile(sums, 1 - share, axis=0).astype(np.int64)
+    planes, chunk_m, t_eff = multi._plane_table(cells, t)
+    n_valid = np.full(lanes, n_pos, np.int32)
+    n_valid[rng.choice(lanes, lanes // 8, replace=False)] = 0
+    n_valid[rng.choice(lanes, lanes // 8, replace=False)] = rng.integers(1, n_pos, lanes // 8)
+    n_motifs = max(1, lanes - 5)
+    pssm = rng.normal(size=(n_motifs, m, k)).astype(np.float32)
+    th = rng.normal(scale=0.5 * np.sqrt(m), size=n_motifs)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    return (dev(seq), cand, tuple(dev(a) for a in (planes, chunk_m, t_eff)), dev(n_valid),
+            dev(pssm), dev(th.astype(np.float32)))
+
+
+@pytest.mark.parametrize("name,k,m,lanes,n_planes,n_cand,share,hints", STAGE_CASES,
+                         ids=[c[0] for c in STAGE_CASES])
+def test_stage_kernels_match_plain_at_the_edges(cuda, name, k, m, lanes, n_planes, n_cand,
+                                                share, hints):
+    # phase C (bits and row popcounts) and the pairs kernel equal their plain
+    # versions: room to spare, a cap that is no multiple of the tile, a count
+    # past the cap, no candidate at all; hit capacities with room, one that
+    # cuts the pairs inside a row, and rows that list only their first slots
+    seq, cand_np, pc, n_valid, pssm, th = _stage_inputs_of(
+        cuda, k, m, lanes, n_planes, n_cand, share, sum(map(ord, name)))
+    multi_stages.reset_launches()
+    most = 0
+    for cap, n in ((n_cand + 100, n_cand), (n_cand // 2 + 7, n_cand), (1000, 0)):
+        cand = torch.zeros(cap, dtype=torch.int64)
+        cand[: min(n, cap)] = torch.from_numpy(cand_np[: min(n, cap)])
+        cand = cand.to(cuda)
+        count = torch.tensor(n, dtype=torch.int64, device=cuda)
+        want = multi_stages.phase_c_bits_plain(seq, cand, count, *pc, n_valid)
+        rows = min(n, cap)
+        for hint in hints:
+            geometry = multi_stages.phase_c_geometry(pc[0], hint)
+            assert hint == 0 or geometry["slice"] == hint
+            bits, pcnt = multi_stages.phase_c_bits(seq, cand, count, *pc, n_valid, hint)
+            torch.cuda.synchronize()
+            assert torch.equal(bits[:rows], want[:rows]), (cap, n, hint, geometry)
+            assert torch.equal(pcnt, multi_stages.row_popcounts(want, count))
+        pairs = int(pcnt.sum())
+        assert rows == 0 or pairs > 0  # not vacuous
+        most = max(most, int(pcnt.max()))
+        for cap_hits in (1 << 20, max(pairs // 3, 1) + 1, 64):
+            got = multi_stages.pairs_rescore(bits, pcnt, cand, count, seq, pssm, th, cap_hits)
+            ref = multi_stages.pairs_rescore_plain(want, cand, count, seq, pssm, th, cap_hits)
+            torch.cuda.synchronize()
+            n_kept = int(ref[0][2])
+            assert torch.equal(got[0], ref[0]), (cap, n, cap_hits, got[0].tolist(),
+                                                 ref[0].tolist())
+            assert torch.equal(got[1][:, :n_kept], ref[1][:, :n_kept])
+    assert name != "dense_rows" or most > multi_stages.slots_for(64)
+    assert multi_stages.LAUNCHES["phase_c_bits"] == 3 * len(hints)
+    assert multi_stages.LAUNCHES["pairs_rescore"] == 9 * multi_stages.PAIRS_KERNELS
+
+
+def test_stage_kernels_list_a_rows_first_slots(cuda):
+    # rows with more pairs than a row lists: every lane passes, so each row
+    # holds 256 pairs and lists its first 64 at cap_hits 2**16; hit_need is
+    # 4,096 x 256, and a cap_hits of 100 cuts the second row
+    seq, cand_np, pc, n_valid, pssm, th = _stage_inputs_of(cuda, 5, 8, 256, 1, 500, 1.0, 5)
+    n_valid.fill_(seq.shape[0])
+    cand = torch.from_numpy(cand_np).to(cuda)
+    count = torch.tensor(500, dtype=torch.int64, device=cuda)
+    bits, pcnt = multi_stages.phase_c_bits(seq, cand, count, *pc, n_valid)
+    assert int(pcnt.max()) == 256
+    for cap_hits in (1 << 16, 100):
+        got = multi_stages.pairs_rescore(bits, pcnt, cand, count, seq, pssm, th, cap_hits)
+        ref = multi_stages.pairs_rescore_plain(bits, cand, count, seq, pssm, th, cap_hits)
+        torch.cuda.synchronize()
+        assert int(ref[0][1]) == 256 * 4096
+        n_kept = int(ref[0][2])
+        assert torch.equal(got[0], ref[0]) and n_kept > 0
+        assert torch.equal(got[1][:, :n_kept], ref[1][:, :n_kept])
 
 
 def test_database_dispatch_reads_nothing_back_from_the_card(cuda):
@@ -455,7 +562,7 @@ def test_stage_wrappers_launch_or_raise(cuda, monkeypatch):
     maxv = multi_kernel.prefilter_any8(chunk, *group["k3"])
     cand, count = multi.compact_candidates(maxv, 4096)
     lanes = torch.full((g["t_eff"].shape[0],), 9_000, dtype=torch.int32, device=cuda)
-    bits = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
+    bits, pcnt = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
     torch.cuda.synchronize()
 
     def fail():
@@ -466,5 +573,6 @@ def test_stage_wrappers_launch_or_raise(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="a stand-in"):
         multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"], lanes)
     with pytest.raises(RuntimeError, match="a stand-in"):
-        multi_stages.pairs_rescore(bits, cand, count, chunk, group["pssm"], group["th"], 4096)
+        multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk, group["pssm"], group["th"],
+                                   4096)
     assert multi_stages.LAUNCHES == before

@@ -11,6 +11,7 @@ two kernels (``ops.multi_stages``) to the JAX phase-C words and to the
 port's earlier stages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,14 +187,38 @@ def test_phase_c_bits_plain_is_the_jax_phase_c(name, protein, widths, pvalue):
     multi_stages.reset_launches()
     for cap in (n + 37, max(n // 2, 1)):  # room to spare, and fewer rows than candidates
         cand, count = multi.compact_candidates(maxv, cap)
-        got = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
-                                        torch.from_numpy(n_valid.astype(np.int32)))
+        got, _ = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
+                                           torch.from_numpy(n_valid.astype(np.int32)))
         rows = min(n, cap)
         assert got.dtype == torch.int32 and tuple(got.shape) == (cap, g["t_eff"].shape[0] // 16)
         assert int(count) == n and not got[rows:].any()
         want = _jax_phase_c_words(g, k, m_max, seq, n_valid, cand[:rows].numpy())
         assert np.array_equal(got[:rows].numpy(), want) and want.any()
     assert set(multi_stages.LAUNCHES.values()) == {0}  # the plain version on the CPU
+
+
+@pytest.mark.parametrize("name,protein,widths,pvalue", CORE_CASES,
+                         ids=[c[0] for c in CORE_CASES])
+def test_row_popcounts_are_the_jax_pcnt(name, protein, widths, pvalue):
+    # phase_c_bits' second output, the rows' set bits that the pairs kernel
+    # lists pairs by, is the JAX core's pcnt = sum(population_count(words))
+    # of its phase-C words, exactly; rows past the count are 0 in both
+    g, k, m_max, seq, n_valid = _setup(name, protein, widths, pvalue)
+    group = multi.group_to_device(g, torch.device("cpu"))
+    chunk = torch.from_numpy(seq)
+    maxv = multi_kernel.prefilter_any8(chunk, *group["k3"])
+    n = int((maxv >= 0).sum())
+    for cap in (n + 37, max(n // 2, 1)):
+        cand, count = multi.compact_candidates(maxv, cap)
+        bits_, pcnt = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
+                                                torch.from_numpy(n_valid.astype(np.int32)))
+        rows = min(n, cap)
+        words = np.zeros((cap, bits_.shape[1]), np.int32)
+        words[:rows] = _jax_phase_c_words(g, k, m_max, seq, n_valid, cand[:rows].numpy())
+        want = np.asarray(jnp.sum(jax.lax.population_count(jnp.asarray(words)), axis=1))
+        assert pcnt.dtype == torch.int32 and tuple(pcnt.shape) == (cap,)
+        assert np.array_equal(pcnt.numpy(), want) and want.any()
+        assert torch.equal(multi_stages.row_popcounts(bits_, count), pcnt)
 
 
 @pytest.mark.parametrize("name,protein,widths,pvalue", CORE_CASES,
@@ -216,10 +241,10 @@ def test_pairs_rescore_plain_is_the_plain_stages(name, protein, widths, pvalue):
     pos = cand[rows]
     scores = multi.rescore_multi(chunk, group["pssm"], pos, lanes)
     keep = scores >= group["th"][lanes]
-    bits_ = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
-                                      torch.from_numpy(n_valid.astype(np.int32)))
-    counts, packed = multi_stages.pairs_rescore(bits_, cand, count, chunk, group["pssm"],
-                                                group["th"], 1 << 16)
+    bits_, pcnt = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
+                                            torch.from_numpy(n_valid.astype(np.int32)))
+    counts, packed = multi_stages.pairs_rescore(bits_, pcnt, cand, count, chunk,
+                                                group["pssm"], group["th"], 1 << 16)
     n_kept = int(keep.sum())
     assert counts.tolist() == [n, pos.shape[0], n_kept, 1] and n_kept
     assert packed[0, :n_kept].tolist() == pos[keep].tolist()
@@ -259,8 +284,8 @@ def test_each_stage_computes_its_formula(name, protein, widths, pvalue):
     # the pass bits: the phase-C mask inside each lane's valid windows, 16
     # lanes to a word; its pairs in ascending (position, lane) order
     mask = (want >= 0) & (c[:, None] < n_valid[None, :])
-    words = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
-                                      torch.from_numpy(n_valid.astype(np.int32)))
+    words, _ = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
+                                         torch.from_numpy(n_valid.astype(np.int32)))
     weights = 1 << (np.arange(m_pad) % 16)
     assert np.array_equal(words.numpy(), (mask * weights).reshape(n, -1, 16).sum(
         axis=2).astype(np.int32))

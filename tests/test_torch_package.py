@@ -49,7 +49,7 @@ def test_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_kernel_sources_ship_with_the_package():
-    for name in ("score.cu", "prefilter.cu", "pairs.cu"):
+    for name in ("score.cu", "prefilter.cu", "phase_c.cu", "pairs.cu"):
         assert (PACKAGE / "ops" / "csrc" / name).is_file()
 
 
