@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only   # phases 1-2, 5, 8, 16-17 alone
+    python3 chip_smoke.py --mesh-only --parent DIR  # and phase 22
     python3 chip_smoke.py --parent DIR  # all, then phase 22 against DIR
     python3 chip_smoke.py --stages-only --parent DIR  # phases 1-3, 22
 
@@ -50,11 +51,14 @@ Phases, one line of output each (any failure exits non-zero):
    at p = 1e-6) scanned over the genome by ``MultiScanner.scan_arrays``
    in one segment and in five, each equal to a per-PSSM brute force on
    the card (K1 + threshold: positions and f32 bits, -0.0 read as
-   +0.0); K3, phase C (``lm_phase_c_bits``) and the pairs kernel
+   +0.0); the device memory that a steady scan's CUDA graphs keep,
+   beside one eager scan's peak, on 2 and 8 segments of one size
+   (``graph_memory``); K3, phase C (``lm_phase_c_bits``) and the pairs kernel
    (``lm_pairs_rescore``, two kernels a call, each counted) once per
    group and once per re-run at larger capacities; a scanner seeded at a capacity of 64 ratchets to the same
    hits; a steady ``collect_arrays`` reads the card once, and its
-   dispatch reads it never (sync debug mode "error"); then phase C and
+   dispatch reads it never (sync debug mode "error") and replays the
+   CUDA graph of its steps (captures and replays counted); then phase C and
    the pairs kernel ``torch.equal`` to their plain versions on every
    group (bits, counters, positions, lanes, f32 bits) with each group's
    candidate, pair and kept counts, times, launches and bounds;
@@ -116,16 +120,21 @@ Phases, one line of output each (any failure exits non-zero):
     across shards 4 and 5; ``ShardedMultiScanner`` with the database, on
     the 8 shards and on the default mesh, equal to ``MultiScanner`` and
     the brute force (K3, phase C and the pairs kernel once per group and
-    shard); one device's share of it (every shard issued) under the sync
-    debug mode "error"; the dense motifs of phase 10 through the mesh (K1
+    shard); its issue (every shard's steps, graph replays) under the
+    sync debug mode "error"; the dense motifs of phase 10 through the mesh (K1
     once per motif and shard); the host reads of one call on 1 and 8
     shards (never more on 8; one for the steady database scan, and one
     for ``MultiScanner.collect_arrays``); the loops over shards under the
     sync debug mode "error" (no read of the card between shards); walls
     at 1, 2, 4 and 8 shards beside the
     single-device walls of the same call; with two or more cards, the
-    default mesh over every card equal to one card, with walls on 1..N
-    cards (else ``multi_card: not run``);
+    default mesh over every card equal to one card, the sync debug checks
+    on every card (the sharded scan's loops, the database scan's issue
+    and each card's ``MultiScanner.dispatch``), walls on 1..N cards,
+    where each card's time goes in one profiled run of the database scan
+    (busy, first and last kernel, idle, and what each host thread was
+    doing meanwhile), and the CLI's ``--mesh`` database x genome run on
+    every card beside the first card alone (else ``multi_card: not run``);
 17. processes joined with ``torch.distributed``: two gloo processes on
     the card, four shards each; one NCCL process of 8 shards, which
     builds the kernels from an empty directory under two threads at
@@ -145,7 +154,8 @@ Phases, one line of output each (any failure exits non-zero):
     the pairs kernel) in the same call, in the K3 and u16 modes and, from
     one more run through the scanner's timing hook and ``torch.profiler``
     after a warm-up run, its split by stage, device-busy time (the trace's
-    device events) and host time; the batch classes' walls;
+    device events) and host time, then the same of the steady path (graph
+    replays, no hook); the batch classes' walls;
 19. the host's part of one ``kernels.score_f32`` call (median enqueue
     time of 400 calls) beside the earlier wrapper's per-call work and the
     kernel's device time;
@@ -167,16 +177,13 @@ Phases, one line of output each (any failure exits non-zero):
     host parity (the pairwise association changes windows, the prefix
     forms none); P9, the per-lane pass bits beside K3 at database group 0;
 22. with ``--parent DIR`` (another checkout, e.g. a ``git archive`` of the
-    parent commit): the parent's phase C and pairs kernel built from DIR's
-    sources beside this tree's, both held to the plain versions on every
-    database group, the prefilter's IMMA counts of both equal, the
-    ``ptxas -v`` lines of both, each kernel and the two together timed
-    in turns (parent, change, change, parent), K3 and P9 of both equal and
-    timed in turns, phase C by candidate count
-    at group 0, this tree's phase C at every slice that fits, each pairs
-    call split by kernel name (the profiler's device events), and the
-    ``scan_arrays`` walls of both checkouts, each in a process of its own,
-    in turns.
+    parent commit): the parent's prefilter, phase C and pairs libraries
+    built from DIR's sources, their tensor-core (``IMMA``) counts equal
+    to this tree's, the pairs library's ``FADD`` and ``FFMA`` counts
+    equal, the ``ptxas -v`` lines of both; then the steady walls of both
+    checkouts, each in processes of its own, in turns (parent, change,
+    change, parent): the database's ``scan_arrays`` on one card, its
+    ``ShardedMultiScanner`` on 8 shards of one card and on 1..N cards.
 
 The line before the last is a JSON object with one entry per kernel
 (launches counted on the path that runs it, with the counts reset just
@@ -1043,6 +1050,8 @@ def phase_database(seq):
     check_scan("database, 5 segments", five.scan_arrays(seq), want)
     log("database", check="scan_arrays == brute force", segments=5,
         segment=five.SEGMENT)
+    del five
+    graph_memory(pssms, ths, seq)
 
     # a seed capacity of 64: every group overflows and re-runs until it
     # fits, with the same hits; then one read per scan
@@ -1075,10 +1084,71 @@ def phase_database(seq):
     check_scan("database, dispatched under the sync debug mode", ms.fetch(token), want)
     if steady_reads != 1:
         raise SystemExit(f"database: {steady_reads} reads in one steady collect_arrays")
+    if not token["replayed"]:
+        raise SystemExit("database: the steady dispatch did not replay its graphs")
     log("database", check="MultiScanner.collect_arrays reads the card once in steady state; "
         "its dispatch reads nothing (sync debug mode error)", host_reads=steady_reads,
-        entries=len(token["entries"]))
+        entries=len(token["entries"]), replayed=token["replayed"],
+        graphs_captured=ms.replays.captured, graphs_replayed=ms.replays.replayed)
     return ms, launches, want, counts
+
+
+def graph_memory(pssms, ths, seq) -> None:
+    """The device memory that the CUDA graphs of a steady database scan
+    keep (``memory_reserved`` after four steady scans, beside before
+    them, the caching allocator's free blocks released), beside the peak
+    of one eager scan (the issue before graphs; the timing hook keeps a
+    scan eager), on prefixes of the genome of 2 and 8 segments of one
+    size.  A capture reuses the memory its work frees, so the graphs keep
+    about one eager scan's peak: this fails if they keep more than 1.5x
+    it (+64 MiB of the allocator's rounding), or if what they keep grows
+    with the number of segments faster than the eager peak does."""
+    import gc
+
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    def settle():
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    mib, slack = 1 << 20, 64 << 20
+    segment = -(-len(seq) // 8)
+    rows = {}
+    for n_seg in (2, 8):
+        part = DeviceSequence(seq[: n_seg * segment + max(len(p) for p in pssms) - 1], DEVICE)
+        ms = MultiScanner(pssms, thresholds=ths, device=DEVICE)
+        ms.SEGMENT = segment
+        mo, pos, sc = ms.scan_arrays(part)  # packs the groups and settles the capacities
+        want = (mo, pos, (sc + np.float32(0.0)).view(np.uint32))
+        ms.mark = lambda stage, count: None
+        settle()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        check_scan(f"graph memory, {n_seg} segments, eager", ms.scan_arrays(part), want)
+        peak = torch.cuda.max_memory_allocated() - base
+        ms.mark = None
+        settle()
+        reserved = torch.cuda.memory_reserved()
+        for _ in range(4):
+            check_scan(f"graph memory, {n_seg} segments", ms.scan_arrays(part), want)
+        settle()
+        kept = torch.cuda.memory_reserved() - reserved
+        rows[n_seg] = {"eager_peak_mib": round(peak / mib, 2), "graphs_keep_mib":
+                       round(kept / mib, 2), "captured": ms.replays.captured,
+                       "replayed": ms.replays.replayed, "positions": part.length}
+        if kept > 1.5 * peak + slack:
+            raise SystemExit(f"graph memory, {n_seg} segments: the graphs keep {kept / mib:.1f}"
+                             f" MiB, one eager scan peaks at {peak / mib:.1f} MiB")
+        del ms, part
+        settle()
+    grew = rows[8]["graphs_keep_mib"] - rows[2]["graphs_keep_mib"]
+    peak_grew = rows[8]["eager_peak_mib"] - rows[2]["eager_peak_mib"]
+    if grew * mib > 1.5 * max(peak_grew, 0.0) * mib + slack:
+        raise SystemExit(f"graph memory: what the graphs keep grows with the segments {rows}")
+    log("database", check="the graphs of a steady scan keep about one eager scan's peak, "
+        "however many segments", segment=segment, **{f"segments_{n}": r for n, r in rows.items()})
 
 
 class ModeDatabase:
@@ -1893,11 +1963,11 @@ def mesh_k3_launches(sm) -> int:
     genome: one per motif group, shard and segment with a window of the
     group."""
     launches = 0
-    for _, dseq in sm._bound["shards"]:
+    for _, dseq in sm._bound.shards:
         scanner = sm._scanners[dseq.device]
         for g in scanner._groups:
             n_valid = int(np.maximum(dseq.length - sm.lengths[g["ids"]] + 1, 0).max())
-            launches += -(-min(n_valid, sm._bound["chunk"]) // scanner.SEGMENT)
+            launches += -(-min(n_valid, sm._bound.chunk) // scanner.SEGMENT)
     return launches
 
 
@@ -1915,7 +1985,6 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     at 1, 2, 4 and 8 shards beside the single-device walls of the same
     call.  Returns the launches of each kernel."""
     from lightmotif_tpu_torch import DNA, Scanner
-    from lightmotif_tpu_torch.ops import multi
     from lightmotif_tpu_torch.ops.pipeline import PAD_MULTIPLE, Pipeline
     from lightmotif_tpu_torch.parallel import (ShardedMultiScanner, ShardedScanner,
                                                make_genome_mesh, sharded_argmax)
@@ -1990,28 +2059,10 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
             hits=len(got[0]),
             launches=launch_counts(), first_scan_s=f"{first_s:.3f}")
 
-    # one device's share of the database scan (its worker's issue of every
-    # shard) under the sync debug mode: no read of the card inside it
+    # the issue of the database scan (every shard's steps, graph replays
+    # in steady state) under the sync debug mode: no read of the card
     sm8 = scanners[f"{MESH_SHARDS} x {DEVICE}"]
-    st = sm8._bound
-    (card, scanner), = sm8._scanners.items()
-    torch.cuda.synchronize()
-    try:
-        torch.cuda.set_sync_debug_mode("error")
-        issued = sm8._scan_device(card, st["shards"], st["chunk"])
-    except RuntimeError as e:
-        raise SystemExit(f"mesh: a device's share of the database scan read the card: {e}"
-                         ) from None
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    entries = [e._replace(offset=e.offset + d * st["chunk"]) for d, shard in issued
-               for e in shard]
-    check_scan("mesh: a device's share issued under the sync debug mode",
-               multi.collect_entries(entries, state=scanner._group_state,
-                                     hints=scanner._head_hint), brute)
-    log("mesh", check="one device's share of ShardedMultiScanner (every shard's groups and "
-        "stages) issued under the sync debug mode error", shards=len(st["shards"]),
-        entries=len(entries))
+    mesh_issue_no_reads(sm8, brute, "mesh")
 
     # the host reads of one call, on 1 and on MESH_SHARDS shards of the card
     reads = {}
@@ -2105,15 +2156,7 @@ def trace_kernels(prof) -> tuple:
     name (arguments dropped, equal names summed), the largest first, and
     the number of events, inside the range and before it (the warm-up
     run's)."""
-    import os
-    import tempfile
-
-    # the trace goes through a file of its own inside the checkout
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
+    events = trace_events(prof)
     card = torch.cuda.current_device()
     lo = min(float(e["ts"]) for e in events
              if e.get("cat") == "user_annotation" and e.get("name") == TIMED_RANGE)
@@ -2143,24 +2186,135 @@ def trace_kernels(prof) -> tuple:
             before)
 
 
-def profiled(fn, timed=None) -> tuple:
+def profiled(fn, timed=None, stack: bool = False) -> tuple:
     """Two runs under one ``torch.profiler`` session: ``fn`` as a warm-up
     (the tracer may miss the first kernels of a session), then ``timed``
     (default ``fn``), the recorded one, inside the :data:`TIMED_RANGE`
-    range after the card has finished the warm-up.  Returns ``(wall ms of
-    the recorded run, profiler on, the profiler)``."""
+    range after every card has finished the warm-up.  ``stack`` also
+    records the Python calls.  Returns ``(wall ms of the recorded run,
+    profiler on, the profiler)``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def sync_all():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    sync_all()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=stack) as prof:
         fn()
-        torch.cuda.synchronize()
+        sync_all()
         with record_function(TIMED_RANGE):
             t0 = time.perf_counter()
             (timed or fn)()
-            torch.cuda.synchronize()
+            sync_all()
             wall = (time.perf_counter() - t0) * 1e3
     return wall, prof
+
+
+def trace_events(prof) -> list:
+    """The chrome-trace events of a profiler (through a file of its own
+    inside the checkout)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f).get("traceEvents", [])
+
+
+#: Host events of a trace, in the order :func:`card_split` paints them.
+HOST_CATS = ("python_function", "cpu_op", "cuda_runtime", "cuda_driver")
+
+
+def host_label(e) -> str:
+    """A host event's name for :func:`card_split`: a Python call as
+    ``file:function``, an op or a CUDA call by its name."""
+    name = e.get("name", "")
+    if e.get("cat") == "python_function" and "): " in name:
+        path, fn = name.split("): ", 1)
+        return f"{path.split('(')[0].rsplit('/', 1)[-1]}:{fn}"
+    return name[:60]
+
+
+def card_split(prof, cards) -> tuple:
+    """Where each card's time went in the recorded run of a
+    :func:`profiled` call over several cards, from its own trace.
+
+    Per card: its busy ms (the union of its kernels, copies and sets),
+    the start of its first and the end of its last (ms from the start of
+    the run), and its idle ms in the run, with the host's state during
+    that idle time by thread: what each thread was inside, its deepest
+    traced event (a Python call where they are recorded, an op, a CUDA
+    runtime call; "untraced" where a thread shows none), in ms, the
+    largest first.  Per thread: its traced ms by the same labels.  The
+    profiler records ops and Python calls on the thread that started it;
+    CUDA runtime calls on every thread."""
+    events = trace_events(prof)
+    rng_ev = next(e for e in events
+                  if e.get("cat") == "user_annotation" and e.get("name") == TIMED_RANGE)
+    lo, hi = float(rng_ev["ts"]), float(rng_ev["ts"]) + float(rng_ev["dur"])
+    main_tid = rng_ev.get("tid")
+    n_bins = int(hi - lo) + 1  # microseconds
+
+    def span(e):
+        a = int(max(float(e["ts"]), lo) - lo)
+        b = int(min(float(e["ts"]) + float(e.get("dur", 0.0)), hi) - lo) + 1
+        return a, b
+
+    busy = {c.index: np.zeros(n_bins, bool) for c in cards}
+    threads, labels = {}, ["untraced"]
+    for e in sorted((e for e in events if e.get("ph") == "X"),
+                    key=lambda e: (float(e["ts"]), -float(e.get("dur", 0.0)))):
+        if float(e["ts"]) + float(e.get("dur", 0.0)) < lo or float(e["ts"]) > hi:
+            continue
+        cat = e.get("cat")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev = e.get("args", {}).get("device")
+            if dev in busy:
+                a, b = span(e)
+                busy[dev][a:b] = True
+        elif cat in HOST_CATS:
+            tid = e.get("tid")
+            if tid not in threads:
+                threads[tid] = np.zeros(n_bins, np.int32)
+            name = host_label(e)
+            if name not in labels:
+                labels.append(name)
+            a, b = span(e)
+            threads[tid][a:b] = labels.index(name)
+    role = {tid: ("main" if tid == main_tid else f"thread{i}")
+            for i, tid in enumerate(sorted(threads, key=lambda t: t != main_tid))}
+
+    def top(mask, n=6):
+        out = {}
+        for tid, paint in threads.items():
+            hist = np.bincount(paint[mask], minlength=len(labels))
+            for i in np.argsort(-hist)[:n]:
+                if hist[i]:
+                    out[f"{role[tid]}:{labels[i]}"] = round(hist[i] / 1e3, 4)
+        return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
+
+    per_card = []
+    for c in cards:
+        mask = busy[c.index]
+        where = np.flatnonzero(mask)
+        per_card.append({
+            "card": c.index, "busy_ms": round(mask.sum() / 1e3, 4),
+            "first_ms": round(where[0] / 1e3, 4) if where.size else None,
+            "last_ms": round((where[-1] + 1) / 1e3, 4) if where.size else None,
+            "idle_ms": round((~mask).sum() / 1e3, 4), "idle_host": top(~mask)})
+    per_thread = {role[tid]: {"traced_ms": round((paint > 0).sum() / 1e3, 4),
+                              "top": top_labels(paint, labels)}
+                  for tid, paint in threads.items()}
+    return round((hi - lo) / 1e3, 4), per_card, per_thread
+
+
+def top_labels(paint, labels, n=6) -> dict:
+    hist = np.bincount(paint[paint > 0], minlength=len(labels))
+    return {labels[i]: round(hist[i] / 1e3, 4) for i in np.argsort(-hist)[:n] if hist[i]}
 
 
 def device_split(fn) -> tuple:
@@ -2228,16 +2382,16 @@ def walls_in_turns(sharded, single) -> tuple:
 def mesh_no_reads(sc, t) -> None:
     """The loops over shards of the sharded scan (its launch step on
     every shard, then its finish step) and of ``sharded_argmax`` (K1
-    and the last-max reduction per shard, then the merge on the card)
-    under the sync debug mode "error": any read of the card inside them
-    raises.  The steps' hits equal ``ShardedScanner``'s."""
+    and the last-max reduction per shard, then the merge on each card and
+    across the cards) under the sync debug mode "error", on every card of
+    the scanner's mesh: any read of a card inside them raises.  The
+    steps' hits equal ``ShardedScanner``'s."""
     from lightmotif_tpu_torch.ops import kernels, torch_ops
     from lightmotif_tpu_torch.parallel import mesh as mesh_mod
 
     prepared, tables = sc._prep()
     shards, chunk, n_scores = prepared
-    (pssm_t, _), = tables.values()
-    torch.cuda.synchronize()
+    sync_all()
     try:
         torch.cuda.set_sync_debug_mode("error")
         launched = mesh_mod._launch_shards(tables, prepared, sc.dm.scale(t), len(sc.pssm))
@@ -2245,13 +2399,17 @@ def mesh_no_reads(sc, t) -> None:
         counts = mesh_mod._read_counts([c for rows in launched.values() for *_, c in rows])
         torch.cuda.set_sync_debug_mode("error")
         finished = mesh_mod._finish_shards(launched, counts, tables, chunk, t)
-        best = []
+        best = {}
         for d, shard in shards:
             n_local = mesh_mod._owned(n_scores, d, chunk)
-            scores = kernels.score_f32(shard, pssm_t, n_local)[:n_local]
-            best.append((torch_ops.max_last(scores), torch_ops.argmax_last(scores) + d * chunk))
-        merged = mesh_mod._best_of(torch.stack([s for s, _ in best]),
-                                   torch.stack([p for _, p in best]))
+            scores = kernels.score_f32(shard, tables[shard.device][0], n_local)[:n_local]
+            best.setdefault(shard.device, []).append(
+                (torch_ops.max_last(scores), torch_ops.argmax_last(scores) + d * chunk))
+        first = shards[0][1].device
+        merged = [mesh_mod._best_of(*(torch.stack(c) for c in zip(*pairs)))
+                  for pairs in best.values()]
+        merged = mesh_mod._best_of(*(torch.stack([v.to(first) for v in c])
+                                     for c in zip(*merged)))
     except RuntimeError as e:
         raise SystemExit(f"mesh: the card was read inside a loop over shards: {e}") from None
     finally:
@@ -2261,12 +2419,77 @@ def mesh_no_reads(sc, t) -> None:
         raise SystemExit("mesh: the steps under the sync debug mode != ShardedScanner")
     if [f32_bits(merged[0].item()), int(merged[1])] != [KNOWN_BEST_BITS, KNOWN_BEST_POS]:
         raise SystemExit(f"mesh: the merge on the card gives {merged}")
-    log("mesh", check="no read of the card inside the loops over shards (sync debug mode "
+    log("mesh", check="no read of a card inside the loops over shards (sync debug mode "
         "error): the launch and the finish steps, K1 + argmax_last, the merge",
-        shards=len(shards), candidates=sum(counts), hits=len(got))
+        shards=len(shards), cards=len(best), candidates=sum(counts), hits=len(got))
 
 
-def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute) -> None:
+def mesh_issue_no_reads(sm, brute, phase: str) -> None:
+    """``ShardedMultiScanner._issue`` (every shard's steps on every device
+    of its mesh) under the sync debug mode "error", after two scans (the
+    second captures the graphs, so this one replays them): any read of a
+    card inside it raises.  The issued entries' hits equal ``brute``."""
+    from lightmotif_tpu_torch.ops import multi
+    from lightmotif_tpu_torch.parallel import mesh as mesh_mod
+
+    sm.collect_arrays()
+    mesh_mod.reset_host_reads()
+    sm.collect_arrays()
+    if mesh_mod.HOST_READS != 1:
+        raise SystemExit(f"{phase}: a steady collect_arrays read {mesh_mod.HOST_READS} times")
+    sync_all()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        issued = sm._issue()
+    except RuntimeError as e:
+        raise SystemExit(f"{phase}: the database scan's issue read the card: {e}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    parts = [multi.collect_device(entries, state=sm._scanners[device]._group_state,
+                                  hints=sm._scanners[device]._head_hint)
+             for device, (entries, _) in issued.items()]
+    check_scan(f"{phase}: the issue under the sync debug mode", multi.merge_hits(parts), brute)
+    log(phase, check="a steady ShardedMultiScanner.collect_arrays reads once; its _issue (every "
+        "shard's groups and stages on every card) reads nothing under the sync debug mode "
+        "error", host_reads=1, shards=len(sm._bound.shards),
+        devices=len(issued), replayed=all(g is not None for _, g in issued.values()),
+        graphs={str(d): [s.replays.captured, s.replays.replayed]
+                for d, s in sm._scanners.items()})
+
+
+def dispatch_no_reads(scanner, seq, want, phase: str) -> None:
+    """``MultiScanner.dispatch`` of the whole genome on the scanner's card
+    under the sync debug mode "error", after two scans (eager, then the
+    capture): no read of the card inside it; its hits equal ``want``."""
+    scanner.bind(seq)
+    scanner.collect_arrays()
+    scanner.collect_arrays()
+    sync_all()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        token = scanner.dispatch()
+    except RuntimeError as e:
+        raise SystemExit(f"{phase}: the dispatch on {scanner.device} read the card: {e}"
+                         ) from None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    scanner.host_reads = 0
+    check_scan(f"{phase}: dispatched on {scanner.device} under the sync debug mode",
+               scanner.fetch(token), want)
+    if scanner.host_reads != 1 or not token["replayed"]:
+        raise SystemExit(f"{phase}: on {scanner.device}: {scanner.host_reads} reads, "
+                         f"replayed {token['replayed']}")
+    log(phase, check="MultiScanner.dispatch reads nothing (sync debug mode error), its "
+        "fetch reads once, every step a graph replay", device=str(scanner.device),
+        graphs_captured=scanner.replays.captured, graphs_replayed=scanner.replays.replayed)
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute, counts=None) -> None:
     """With two or more cards: the default mesh over every card equal to
     the single-process hits (ShardedScanner, sharded_argmax,
     ShardedMultiScanner), and walls on 1..N cards, one shard per card,
@@ -2311,6 +2534,12 @@ def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute) -> None:
         log("mesh_cards", check="ShardedScanner, max, sharded_argmax, ShardedMultiScanner "
             "== one card", cards=k, hits=len(hits), database_hits=len(got[0]),
             shard_hits=sm.shard_hits.tolist())
+        # the sync debug checks on every card of this mesh
+        mesh_no_reads(sc, t)
+        mesh_issue_no_reads(sm, brute, "mesh_cards")
+        if k == len(cards):
+            for scanner in sm._scanners.values():
+                dispatch_no_reads(scanner, seq, brute, "mesh_cards")
         for op, sharded, single in (
                 ("ShardedMultiScanner.collect_arrays / MultiScanner.scan_arrays",
                  sm.collect_arrays, lambda: ms.scan_arrays(seq)),
@@ -2321,9 +2550,54 @@ def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute) -> None:
             log("times", op=f"mesh walls on {k} cards, one shard each: {op}",
                 sharded_ms=sharded_ms, single_ms=single_ms, runs=runs,
                 positions_per_s=f"{len(seq) / float(sharded_ms) * 1e3:.4g}")
+        # where each card's time goes in one steady collect_arrays: once
+        # with the ops and CUDA calls alone, once with the Python calls too
+        for stack in (False, True):
+            wall, prof = profiled(sm.collect_arrays, stack=stack)
+            run_ms, per_card, per_thread = card_split(prof, mesh)
+            log("mesh_cards", split="ShardedMultiScanner.collect_arrays, one profiled run",
+                cards=k, python_calls=stack, wall_ms=f"{wall:.4f}", run_ms=run_ms,
+                per_card=json.dumps(per_card), per_thread=json.dumps(per_thread))
     for op, by_k in walls.items():
         log("mesh_cards", scaling=op, **{f"cards_{k}": f"{by_k[1] / (k * w):.3f}"
                                          for k, w in by_k.items()})
+    if counts is not None:
+        cli_mesh_cards(seq, counts, brute, len(cards))
+
+
+def cli_mesh_cards(seq, counts, brute, n_cards: int) -> None:
+    """The CLI's ``--mesh`` database x genome run (in this process) on
+    every card beside the same run on the first card alone
+    (``use_device``), in turns (one, every, every, one): equal TSVs, the
+    walls."""
+    import os
+    import tempfile
+
+    from lightmotif_tpu_torch.ops.pipeline import use_device
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+        db_file, genome_fa = os.path.join(work, "db.jaspar"), os.path.join(work, "genome.fa")
+        write_jaspar16(db_file, counts, "DB")
+        write_fasta(genome_fa, [("genome", seq)])
+        args = ["-m", db_file, "--format", "jaspar16", "-s", genome_fa, "-P", str(DB_PVALUE),
+                "--reverse", "--mesh"]
+        walls, tsvs = {1: [], n_cards: []}, set()
+        for k in (1, n_cards, n_cards, 1):
+            out = os.path.join(work, f"mesh{k}.tsv")
+            use_device("cuda:0" if k == 1 else None)
+            try:
+                _, wall, _ = run_cli([*args, "-o", out], f"database x genome --mesh, {k} cards")
+            finally:
+                use_device(None)
+            walls[k].append(wall)
+            tsvs.add(open(out).read())
+    if len(tsvs) != 1:
+        raise SystemExit("mesh_cards: the CLI's --mesh TSV on one card != on every card")
+    log("mesh_cards", op="cli database x genome --mesh, in process, in turns",
+        rows=next(iter(tsvs)).count("\n") - 1, one_card_s=f"{min(walls[1]):.3f}",
+        cards=n_cards, every_card_s=f"{min(walls[n_cards]):.3f}",
+        runs=f"one={','.join(f'{w:.3f}' for w in walls[1])} "
+        f"every={','.join(f'{w:.3f}' for w in walls[n_cards])}")
 
 
 MESH_WORKER = """
@@ -2825,10 +3099,22 @@ def phase_database_times(ms, seq) -> tuple:
         plain_stages="K3, then phase_c_bits_plain and pairs_rescore_plain at room for "
         "every pair")
 
-    # split by stage, on the real path (the scanner's timing hook records a
-    # CUDA event as each stage's work is queued) in one profiled run
+    # split by stage (the scanner's timing hook records a CUDA event as
+    # each stage's work is queued, so the stages run eagerly) in one
+    # profiled run
     log("times", op="database scan by stage (one profiled run, CUDA events)",
         **stage_split([ms], lambda: ms.scan_arrays(seq)))
+    # the steady path itself (graph replays, no hook): busy, host, idle
+    before = (ms.replays.captured, ms.replays.replayed)
+    wall, prof = profiled(lambda: ms.scan_arrays(seq))
+    busy, kernels, n_events, _ = trace_kernels(prof)
+    log("database", op="MultiScanner.scan_arrays, steady (graph replays), one profiled run",
+        wall_ms=f"{wall:.4f}", device_busy_ms=f"{busy:.4f}", host_ms=f"{wall - busy:.4f}",
+        idle_share=f"{1 - busy / wall:.4f}", device_events=n_events,
+        eager_design_host_ms=3.0467, eager_design_idle_share=0.181,  # PERF.md section 5
+        graphs_captured=ms.replays.captured - before[0],
+        graphs_replayed=ms.replays.replayed - before[1],
+        top_kernels_ms={name: round(v, 4) for name, v in kernels[:6]})
     return entry
 
 
@@ -2869,32 +3155,16 @@ def torch_popcount(words: torch.Tensor) -> torch.Tensor:
 
 # -- the exact stages of another checkout, for timings in turns ---------------
 
-#: Candidate counts at which phase C is timed at database group 0: one
-#: block of 256 of the parent's kernel, one and two waves of 132 blocks, all.
-CHAIN_COUNTS = (256, 33_792, 67_584)
+class ParentBuild:
+    """The production kernels of another checkout of this repository
+    (``--parent DIR``, e.g. a ``git archive`` of the parent commit):
+    ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu`` built from DIR's
+    sources with the port's nvcc flags, all at once, into a temporary
+    directory, for their SASS and ``ptxas -v`` lines."""
 
-
-class ParentStages:
-    """Phase C and the pairs kernel of another checkout of this repository
-    (``--parent DIR``, e.g. a ``git archive`` of the parent commit),
-    built from DIR's ``prefilter.cu`` and ``pairs.cu`` with the port's
-    nvcc flags into a temporary directory and called through ctypes with
-    the signatures of ``lm_phase_c_bits``, ``lm_pairs_scratch`` and
-    ``lm_pairs_rescore`` there: those of the earlier design, in which phase
-    C was a form of the prefilter's kernel and the pairs took five
-    kernels; and K3 (``lm_prefilter_any8``) and P9 (``lm_prefilter_bits``),
-    which shared ``prefilter.cu`` with that phase C."""
-
-    SIGNATURES = {
-        "lm_phase_c_bits": ("plpplpiiiippppp", "i"),
-        "lm_pairs_scratch": ("ll", "l"),
-        "lm_pairs_rescore": ("pippllplppiiipppp", "i"),
-        "lm_prefilter_any8": ("plpiiiipppp", "i"),
-        "lm_prefilter_bits": ("plpiiiippppp", "i"),
-    }
+    SOURCES = ("prefilter", "phase_c", "pairs")
 
     def __init__(self, root: str):
-        import ctypes
         import os
         import tempfile
 
@@ -2904,72 +3174,19 @@ class ParentStages:
         self.dir = tempfile.mkdtemp(prefix="chip-smoke-parent-")
         csrc = os.path.join(self.root, "lightmotif_tpu_torch", "ops", "csrc")
         jobs = []
-        for name in ("prefilter", "pairs"):
+        for name in self.SOURCES:
             out = os.path.join(self.dir, f"lib{name}.so")
-            jobs.append((out, subprocess.Popen(
+            jobs.append((name, out, subprocess.Popen(
                 [build._nvcc(), *build.NVCC_FLAGS, "-o", out,
                  os.path.join(csrc, f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        self.log = ""
-        self.paths = [out for out, _ in jobs]
-        types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
-        fns = {}
-        for out, proc in jobs:
+        self.log, self.paths = "", {}
+        for name, out, proc in jobs:
             text = proc.communicate()[0]
             if proc.returncode != 0:
                 raise SystemExit(f"parent: nvcc failed on {out}\n{text[-4000:]}")
             self.log += text
-            lib = ctypes.CDLL(out)
-            for name, (args, res) in self.SIGNATURES.items():
-                fn = getattr(lib, name, None)
-                if fn is not None:
-                    fn.argtypes = [types[c] for c in args]
-                    fn.restype = types[res]
-                    fns[name] = fn
-        self.fns = fns
-
-    def phase_c_bits(self, chunk, cand, count, planes, chunk_m, t_eff, n_valid):
-        n_planes, n_chunks, _, rows, k = planes.shape
-        cap = cand.shape[0]
-        out = torch.empty((cap, n_chunks), dtype=torch.int32, device=chunk.device)
-        err = self.fns["lm_phase_c_bits"](
-            chunk.data_ptr(), chunk.shape[0], cand.data_ptr(), count.data_ptr(), cap,
-            planes.data_ptr(), n_planes, n_chunks, rows, k, chunk_m.data_ptr(),
-            t_eff.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SystemExit(f"parent: lm_phase_c_bits failed: CUDA error {err}")
-        return out
-
-    def prefilter(self, name, seq, planes, chunk_m, t_eff, n_valid=None):
-        """K3 (``n_valid`` None) or P9's pass bits, as the parent builds them."""
-        n_planes, n_chunks, _, rows, k = planes.shape
-        lp = seq.shape[0]
-        shape = (lp,) if n_valid is None else (lp, n_chunks)
-        out = torch.empty(shape, dtype=torch.int32, device=seq.device)
-        extra = () if n_valid is None else (n_valid.data_ptr(),)
-        err = self.fns[name](seq.data_ptr(), lp, planes.data_ptr(), n_planes, n_chunks, rows,
-                             k, chunk_m.data_ptr(), t_eff.data_ptr(), *extra, out.data_ptr(),
-                             torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SystemExit(f"parent: {name} failed: CUDA error {err}")
-        return out
-
-    def pairs_rescore(self, bits, cand, count, chunk, pssm, th, cap_hits):
-        cap = cand.shape[0]
-        scratch = torch.empty(self.fns["lm_pairs_scratch"](cap, cap_hits), dtype=torch.uint8,
-                              device=chunk.device)
-        packed = torch.empty((3, cap_hits), dtype=torch.int32, device=chunk.device)
-        counts = torch.empty(4, dtype=torch.int32, device=chunk.device)
-        n_motifs, m, k = pssm.shape
-        err = self.fns["lm_pairs_rescore"](
-            bits.data_ptr(), bits.shape[1], cand.data_ptr(), count.data_ptr(), cap, cap_hits,
-            chunk.data_ptr(), chunk.shape[0], pssm.data_ptr(), th.data_ptr(), n_motifs, m, k,
-            scratch.data_ptr(), packed.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SystemExit(f"parent: lm_pairs_rescore failed: CUDA error {err}")
-        return counts, packed
+            self.paths[name] = out
 
 
 def ptxas_lines(log: str, names) -> list:
@@ -2985,215 +3202,112 @@ def ptxas_lines(log: str, names) -> list:
     return out
 
 
-def kernel_split(fn, calls: int = 5) -> dict:
-    """The card's ms per call of each kernel ``fn`` launches, by name, from
-    one profiled run of ``calls`` calls (:func:`profiled`), and the
-    busy ms per call.  A profiled run whose trace holds no device event (the
-    tracer drops one now and then) is profiled once more."""
-    for _ in range(2):
-        _, prof = profiled(lambda: [fn() for _ in range(calls)])
-        busy, by_name, _, _ = trace_kernels(prof)
-        if by_name:
-            break
-    out = {name: round(ms / calls, 4) for name, ms in by_name}
-    out["busy"] = round(busy / calls, 4)
-    return out
-
-
-SCAN_WALL_CHILD = r"""
+WALLS_CHILD = r"""
 import json, sys
 import torch
 import chip_smoke as cs
+from lightmotif_tpu_torch.parallel import ShardedMultiScanner, make_genome_mesh
 from lightmotif_tpu_torch.scanner import MultiScanner
 torch.cuda.set_device(0)
 pssm, seq = cs.build_inputs()
 pssms, ths, _ = cs.synthetic_database(cs.DB_MOTIFS, cs.DB_SEED)
 ms = MultiScanner(pssms, thresholds=ths, device=cs.DEVICE)
-hits = ms.scan_arrays(seq)
-walls = cs.wall_ms(lambda: ms.scan_arrays(seq))
-print(json.dumps({"hits": len(hits[0]), "walls": walls}))
+hits = len(ms.scan_arrays(seq)[0])
+out = {"hits": hits, "scan_arrays": cs.wall_ms(lambda: ms.scan_arrays(seq))}
+runs = [("8_shards", [cs.DEVICE] * 8)]
+cards = make_genome_mesh()
+runs += [(f"{k}_cards", cards[:k]) for k in range(1, len(cards) + 1)]
+for name, mesh in runs:
+    sm = ShardedMultiScanner(pssms, thresholds=ths, mesh=mesh).bind(seq)
+    if len(sm.collect_arrays()[0]) != hits:
+        sys.exit(f"{name}: hits differ")
+    out[name] = cs.wall_ms(sm.collect_arrays)
+print(json.dumps(out))
 """
 
 
-def scan_walls(root: str, cache: str) -> dict:
-    """The database's steady ``scan_arrays`` walls of the checkout at
-    ``root``, in a process of its own that imports that checkout's
-    package and ``chip_smoke`` (the same seeded genome and database),
-    building into ``cache``."""
+def parent_walls(root: str, cache: str) -> dict:
+    """The steady walls (ms) of the checkout at ``root``, in a process of
+    its own that imports that checkout's package and ``chip_smoke`` (the
+    same seeded genome and database), building into ``cache``: the
+    database's ``scan_arrays`` on the first card, its
+    ``ShardedMultiScanner.collect_arrays`` on 8 shards of the first card
+    and on 1..N cards, one shard each."""
     import os
 
     proc = subprocess.run(
-        [sys.executable, "-c", SCAN_WALL_CHILD], cwd=root, capture_output=True, text=True,
-        timeout=600, env=dict(os.environ, PYTHONPATH=root, LIGHTMOTIF_TPU_COMPILE_CACHE=cache))
+        [sys.executable, "-c", WALLS_CHILD], cwd=root, capture_output=True, text=True,
+        timeout=900, env=dict(os.environ, PYTHONPATH=root, LIGHTMOTIF_TPU_COMPILE_CACHE=cache))
     if proc.returncode != 0:
-        raise SystemExit(f"scan walls of {root} failed\n{proc.stderr[-4000:]}")
+        raise SystemExit(f"walls of {root} failed\n{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.splitlines()[-1])
 
 
-def phase_parent(ms, root: str) -> None:
-    """This tree's phase C and pairs kernel beside the parent checkout's
-    at ``root`` on the database groups' inputs, both held to the plain
-    versions, timed in turns (parent, change, change, parent): each
-    kernel per group and the two together (phase C now counts the rows'
-    pairs for the pairs kernel), K3 and P9 at group 0
-    (:func:`parent_prefilters`), phase C at group 0 by candidate count
-    (:data:`CHAIN_COUNTS`) and this tree's phase C at every slice that
-    fits, each pairs call split by kernel name (the profiler's device
-    events), the ``ptxas -v`` lines of both builds, and the
-    ``scan_arrays`` walls of both checkouts in processes of their own, in
-    turns."""
+def phase_parent(root: str) -> None:
+    """This tree beside the parent checkout at ``root``: the tensor-core
+    instructions (``IMMA``) of every instantiation of the prefilter and
+    of phase C equal, the pairs library's ``FADD`` and ``FFMA`` counts
+    equal, the ``ptxas -v`` lines of both; then the steady walls of both
+    checkouts (:func:`parent_walls`), each in processes of its own, in
+    turns (parent, change, change, parent): the database's
+    ``scan_arrays``, 8 shards on one card, and 1..N cards."""
     import os
+    import re
     import shutil
     import tempfile
 
-    from lightmotif_tpu_torch.ops import build, multi, multi_stages
+    from lightmotif_tpu_torch.ops import build
 
-    import re
+    def unhashed(counts: dict) -> dict:
+        # an anonymous namespace's mangled name carries a hash of its source
+        return {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", name): n for name, n in counts.items()}
 
-    parent = ParentStages(root)
-    # K3-K5's and P9's instantiations keep their tensor-core instructions:
-    # the parent's mma_kernel<..., BITS, GATHER = false> against this tree's
-    # mma_kernel<..., BITS>
-    forms = {}
-    for who, path, pattern in (
-            ("parent", parent.paths[0], r"mma_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb0EE"),
-            ("change", next(p for p in build.build_info()["paths"] if "prefilter" in p.name),
-             r"mma_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EE")):
-        form = re.compile(pattern)
-        forms[who] = {hit.groups(): c for n, c in sass_mma_counts(path).items()
-                      if (hit := form.search(n))}
-    if forms["parent"] != forms["change"] or not forms["change"]:
-        raise SystemExit(f"parent: the prefilter's IMMA counts changed: {forms}")
-    log("parent", prefilter_imma_unchanged=True, instantiations=len(forms["change"]),
-        imma={"/".join(k): v for k, v in forms["change"].items()})
-    for line in ptxas_lines(parent.log, ("ELb1ELb1EE", "row_counts", "scan_blocks",
-                                         "score_rows", "write_rows")):
+    parent = ParentBuild(root)
+    here = {p.name.split("-")[1]: p for p in build.build_info()["paths"]}
+    for name in ("prefilter", "phase_c"):
+        old, new = (unhashed(sass_mma_counts(path)) for path in (parent.paths[name],
+                                                                  here[name]))
+        if old != new or not new:
+            raise SystemExit(f"parent: the IMMA counts of {name}.cu changed: {old} -> {new}")
+        log("parent", source=f"{name}.cu", imma_unchanged=True, kernels=len(new),
+            imma=sum(new.values()))
+    old, new = sass_opcodes(parent.paths["pairs"]), sass_opcodes(here["pairs"])
+    counts = {op: tuple(sum(ops.count(op) for ops in lib.values()) for lib in (old, new))
+              for op in ("FADD", "FFMA")}
+    if any(a != b for a, b in counts.values()):
+        raise SystemExit(f"parent: the pairs library's FADD / FFMA changed: {counts}")
+    log("parent", source="pairs.cu", fadd_ffma_unchanged=counts)
+    for line in ptxas_lines(parent.log, ("phase_c_kernel", "row_offsets", "keep_pairs")):
         log("parent", ptxas=line)
     for line in ptxas_lines(build.build_info()["log"], ("phase_c_kernel", "row_offsets",
                                                         "keep_pairs")):
         log("change", ptxas=line)
-    for gi, group in enumerate(ms._groups):
-        chunk, lanes, maxv = stage_inputs(group, ms._dseq, ms.lengths)
-        row = check_stages(group, chunk, lanes, maxv)
-        _, cand, count, bits, pcnt, _ = row["args"]
-        pc = group["phase_c"]
-        rows = min(row["candidates"], row["cap"])
-        want_bits = multi_stages.phase_c_bits_plain(chunk, cand, count, *pc, lanes)
-        old_bits = parent.phase_c_bits(chunk, cand, count, *pc, lanes)
-        want = multi_stages.pairs_rescore_plain(want_bits, cand, count, chunk, group["pssm"],
-                                                group["th"], row["cap_hits"])
-        old = parent.pairs_rescore(old_bits, cand, count, chunk, group["pssm"], group["th"],
-                                   row["cap_hits"])
-        n_kept = int(want[0][2])
-        if not (torch.equal(old_bits[:rows], want_bits[:rows]) and torch.equal(old[0], want[0])
-                and torch.equal(old[1][:, :n_kept], want[1][:, :n_kept])):
-            raise SystemExit(f"parent: group {gi}: the parent's kernels != plain")
+    shutil.rmtree(parent.dir, ignore_errors=True)
 
-        def new_c(n=count):
-            return multi_stages.phase_c_bits(chunk, cand, n, *pc, lanes)
-
-        def old_c(n=count):
-            return parent.phase_c_bits(chunk, cand, n, *pc, lanes)
-
-        def new_p():
-            return multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk, group["pssm"],
-                                              group["th"], row["cap_hits"])
-
-        def old_p():
-            return parent.pairs_rescore(old_bits, cand, count, chunk, group["pssm"],
-                                        group["th"], row["cap_hits"])
-
-        times, sums = {}, [0.0, 0.0]
-        for name, (fa, fb) in (("phase_c_bits", (old_c, new_c)),
-                               ("pairs_rescore", (old_p, new_p))):
-            a1, b1 = time_cuda(fa, repeat=5), time_cuda(fb, repeat=5)
-            b2, a2 = time_cuda(fb, repeat=5), time_cuda(fa, repeat=5)
-            sums[0] += min(a1, a2)
-            sums[1] += min(b1, b2)
-            times[name] = (f"parent_ms={min(a1, a2):.4f} ms={min(b1, b2):.4f} "
-                           f"runs=p:{a1:.4f},{a2:.4f}/c:{b1:.4f},{b2:.4f}")
-        bounds = stage_bounds(group, row)
-        log("parent", group=gi, candidates=row["candidates"], pairs=row["pairs"],
-            kept=row["kept"], equal_plain=True, **times,
-            both=f"parent_ms={sums[0]:.4f} ms={sums[1]:.4f}",
-            bound_ms=f"c={bounds['phase_c_bits'][0]:.4f},p={bounds['pairs_rescore'][0]:.4f},"
-            f"both={bounds['phase_c_bits'][0] + bounds['pairs_rescore'][0]:.4f}",
-            geometry=multi_stages.phase_c_geometry(pc[0]))
-        slices = {}
-        for hint in (1, 2, 4, 8, 16, 32):
-            try:
-                geometry = multi_stages.phase_c_geometry(pc[0], hint)
-            except ValueError:
-                continue  # no room for this slice
-            got = multi_stages.phase_c_bits(chunk, cand, count, *pc, lanes, hint)
-            if not (torch.equal(got[0][:rows], want_bits[:rows]) and torch.equal(got[1], pcnt)):
-                raise SystemExit(f"parent: group {gi}: phase C at slice {hint} != plain")
-            ms_hint = time_cuda(lambda: multi_stages.phase_c_bits(
-                chunk, cand, count, *pc, lanes, hint), repeat=5)
-            slices[hint] = (f"{ms_hint:.4f} ms ({geometry['warps']} warps x "
-                            f"{geometry['per_sm']}/SM, {geometry['smem']} B)")
-        log("change", group=gi, phase_c_by_slice=slices)
-        if gi == 0:
-            parent_prefilters(parent, group, chunk, lanes)
-            for cut in CHAIN_COUNTS + (row["candidates"],):
-                n = torch.full_like(count, min(cut, rows))
-                a1, b1 = time_cuda(lambda: old_c(n), repeat=5), time_cuda(lambda: new_c(n), repeat=5)
-                b2, a2 = time_cuda(lambda: new_c(n), repeat=5), time_cuda(lambda: old_c(n), repeat=5)
-                log("parent", group=gi, phase_c_count=min(cut, rows),
-                    parent_ms=f"{min(a1, a2):.4f}", ms=f"{min(b1, b2):.4f}")
-            log("parent", group=gi, pairs_split_parent=kernel_split(old_p))
-            log("parent", group=gi, pairs_split=kernel_split(new_p))
     caches = {who: tempfile.mkdtemp(prefix=f"chip-smoke-{who}-") for who in ("parent", "change")}
-    here = os.path.dirname(os.path.abspath(__file__))
+    here_root = os.path.dirname(os.path.abspath(__file__))
     try:
-        runs = [scan_walls(root, caches["parent"]), scan_walls(here, caches["change"]),
-                scan_walls(here, caches["change"]), scan_walls(root, caches["parent"])]
+        runs = [parent_walls(root, caches["parent"]), parent_walls(here_root, caches["change"]),
+                parent_walls(here_root, caches["change"]), parent_walls(root, caches["parent"])]
     finally:
         for path in caches.values():
             shutil.rmtree(path, ignore_errors=True)
-    med = [statistics.median(r["walls"]) for r in runs]
     if len({r["hits"] for r in runs}) != 1:
         raise SystemExit(f"parent: scan hits differ: {[r['hits'] for r in runs]}")
-    log("parent", op="scan_arrays wall, steady, own process each, in turns",
-        hits=runs[0]["hits"], parent_ms=f"{min(med[0], med[3]):.4f}",
-        ms=f"{min(med[1], med[2]):.4f}",
-        runs=f"p:{med[0]:.4f},{med[3]:.4f}/c:{med[1]:.4f},{med[2]:.4f}")
+    med = statistics.median
+    for op in (k for k in runs[0] if k != "hits"):
+        a = [med(runs[0][op]), med(runs[3][op])]
+        b = [med(runs[1][op]), med(runs[2][op])]
+        log("parent", op=f"{op} wall, steady, own process each, in turns", hits=runs[0]["hits"],
+            parent_ms=f"{min(a):.4f}", ms=f"{min(b):.4f}",
+            runs=f"p:{a[0]:.4f},{a[1]:.4f}/c:{b[0]:.4f},{b[1]:.4f}")
+    def best(who, op):
+        return min(med(runs[i][op]) for i in who)
 
-
-def parent_prefilters(parent, group, chunk, lanes) -> None:
-    """K3 and P9 of this tree beside the parent's on a group's inputs: the
-    same output, and their times in turns (parent, change, change,
-    parent), so that the removal of the earlier phase C form from
-    ``prefilter.cu`` shows as no change."""
-    from lightmotif_tpu_torch.ops import multi_kernel
-    from lightmotif_tpu_torch.probes import prefilter as pprobes
-
-    args = group["k3"]
-    n = chunk.shape[0] - group["m_max"] + 1
-    pairs = {
-        "prefilter_any8": (lambda: parent.prefilter("lm_prefilter_any8", chunk, *args),
-                           lambda: multi_kernel.prefilter_any8(chunk, *args)),
-        "prefilter_bits": (lambda: parent.prefilter("lm_prefilter_bits", chunk, *args, lanes),
-                           lambda: pprobes.prefilter_bits(chunk, *args, lanes)),
-    }
-    for name, (old, new) in pairs.items():
-        if not torch.equal(old()[:n], new()[:n]):
-            raise SystemExit(f"parent: {name} of the parent and this tree differ")
-        a1, b1 = time_cuda(old, repeat=3, runs=5), time_cuda(new, repeat=3, runs=5)
-        b2, a2 = time_cuda(new, repeat=3, runs=5), time_cuda(old, repeat=3, runs=5)
-        log("parent", kernel=name, equal=True, parent_ms=f"{min(a1, a2):.4f}",
-            ms=f"{min(b1, b2):.4f}", runs=f"p:{a1:.4f},{a2:.4f}/c:{b1:.4f},{b2:.4f}")
-
-
-def stage_scanner(seq):
-    """The database's ``MultiScanner`` after one scan of the genome (its
-    groups and capacities settled)."""
-    from lightmotif_tpu_torch.scanner import MultiScanner
-
-    pssms, ths, _ = synthetic_database(DB_MOTIFS, DB_SEED)
-    ms = MultiScanner(pssms, thresholds=ths, device=DEVICE)
-    ms.scan_arrays(seq)
-    return ms
+    for op in (k for k in runs[1] if k.endswith("_cards") or k.endswith("_shards")):
+        log("parent", op=f"{op} / scan_arrays of the same checkout",
+            ratio=f"{best((1, 2), op) / best((1, 2), 'scan_arrays'):.3f}",
+            parent_ratio=f"{best((0, 3), op) / best((0, 3), 'scan_arrays'):.3f}")
 
 
 def time_prefilter(name, seq, args, m, what: str) -> dict:
@@ -3525,14 +3639,15 @@ def main(argv: list) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.cuda.set_device(0)
-    if argv == ["--mesh-only"]:
-        return mesh_only()
-    if len(argv) == 3 and argv[:2] == ["--stages-only", "--parent"]:
-        return stages_only(argv[2])
-    parent = argv[1] if len(argv) == 2 and argv[0] == "--parent" else None
-    if argv and parent is None:
-        print(f"chip_smoke: unknown arguments {argv} (--mesh-only, --parent DIR, "
-              "--stages-only --parent DIR, or none)", file=sys.stderr)
+    parent = argv[-1] if len(argv) >= 2 and argv[-2] == "--parent" else None
+    mode = argv[:-2] if parent is not None else argv
+    if mode == ["--mesh-only"]:
+        return mesh_only(parent)
+    if mode == ["--stages-only"] and parent is not None:
+        return stages_only(parent)
+    if mode:
+        print(f"chip_smoke: unknown arguments {argv} (--mesh-only [--parent DIR], "
+              "--parent DIR, --stages-only --parent DIR, or none)", file=sys.stderr)
         return 2
     phase_card()
     phase_imports()
@@ -3560,7 +3675,7 @@ def main(argv: list) -> int:
     phase_batch_sampler()
     for name, n in phase_mesh(pssm, seq, ms, scanner_hits, brute).items():
         launches[name] += n
-    phase_mesh_cards(pssm, seq, ms, scanner_hits, brute)
+    phase_mesh_cards(pssm, seq, ms, scanner_hits, brute, counts)
     phase_mesh_procs(scanner_hits, brute)
     times = phase_times(pssm, seq)
     times["prefilter_any8"] = phase_database_times(ms, seq)
@@ -3571,7 +3686,7 @@ def main(argv: list) -> int:
     probe_entries = phase_probes(ms, seq, times)
     probe_entries.update(phase_score_probes(pssm, seq, ms, times))
     if parent is not None:
-        phase_parent(ms, parent)
+        phase_parent(parent)
     sources = {"score_f32": (SOURCE, REPLACES), "score_u8": (SOURCE, REPLACES),
                "prefilter_any8": (K3_SOURCE, K3_REPLACES),
                "prefilter_any": (K3_SOURCE, K4_REPLACES),
@@ -3596,31 +3711,33 @@ def main(argv: list) -> int:
 
 
 def stages_only(parent: str) -> int:
-    """The exact stages alone: the build, the database scanned once, then
-    :func:`phase_parent` against the checkout at ``parent``."""
+    """The build and its SASS, then :func:`phase_parent` against the
+    checkout at ``parent``."""
     phase_card()
     phase_build()
     phase_sass()
-    _, seq = build_inputs()
-    phase_parent(stage_scanner(seq), parent)
+    phase_parent(parent)
     print(json.dumps({"ok": True, "stages_only": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def mesh_only() -> int:
+def mesh_only(parent: str | None = None) -> int:
     """The sharded scans alone, with what they are held to: the build,
     the Scanner's and the database's single-device hits, then the mesh
-    phases (for a run on several cards)."""
+    phases (for a run on several cards), and with ``parent`` the walls
+    against that checkout (:func:`phase_parent`)."""
     phase_card()
     phase_build()
     pssm, seq = build_inputs()
     _, scanner_hits = phase_main_path(pssm, seq)
-    ms, _, brute, _ = phase_database(seq)
+    ms, _, brute, counts = phase_database(seq)
     phase_mesh(pssm, seq, ms, scanner_hits, brute)
-    phase_mesh_cards(pssm, seq, ms, scanner_hits, brute)
+    phase_mesh_cards(pssm, seq, ms, scanner_hits, brute, counts)
     phase_mesh_procs(scanner_hits, brute)
+    if parent is not None:
+        phase_parent(parent)
     print(json.dumps({"ok": True, "mesh_only": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

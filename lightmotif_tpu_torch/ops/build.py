@@ -6,8 +6,8 @@ interface, which is loaded with :mod:`ctypes`.  The sources compile in
 parallel, one ``nvcc`` each, so a build takes as long as its slowest
 source as sources are added (one ``nvcc`` over several sources
 compiles them one after another).  A library's file name carries a hash of
-its source and the flags, so a changed source is rebuilt and an
-unchanged one is loaded as it is.
+its source, the ``csrc/*.cuh`` headers the sources share and the flags,
+so a changed source is rebuilt and an unchanged one is loaded as it is.
 
 Production and probes are built apart.  :func:`library` builds and loads
 ``score.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu`` and asks
@@ -228,6 +228,8 @@ def _lib_path(src: Path, directory: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(src.name.encode())
     h.update(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):  # what a source may include
+        h.update(header.read_bytes())
     return directory / f"liblm-{src.stem}-{h.hexdigest()[:16]}.so"
 
 

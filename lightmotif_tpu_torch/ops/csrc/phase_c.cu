@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_attrs.cuh"
+
 namespace {
 
 constexpr int CH = 16;         // motif lanes per chunk: one pass-bit word
@@ -705,20 +707,15 @@ int lm_phase_c_bits(const void* seq, long long lp, const void* cand, const void*
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  if (g.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(phase_c_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(g.smem));
-    if (err != cudaSuccess) {
-      return static_cast<int>(err);
-    }
-  }
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
+  static std::atomic<int> allowed[MAX_DEVICES];
+  err = allow_smem(reinterpret_cast<const void*>(phase_c_kernel), allowed, g.smem);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
+  }
+  int sms = 0;
+  const int sm_err = n_sms(&sms);
+  if (sm_err != 0) {
+    return sm_err;
   }
   // one wave of blocks over the slices, never more than cap's tiles need
   const long long slices = (n_chunks + g.slice - 1) / g.slice;

@@ -106,6 +106,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_attrs.cuh"
+
 
 namespace {
 
@@ -668,13 +670,10 @@ int launch_variant(const void* seq, long long lp, const void* planes,
   constexpr int TP = NW * PW;
   const Geom g = geom(TP, CPP, rows, k, n_planes, blocks_per_sm(NW, PW, CPP));
   auto kernel = mma_kernel<POS_M, CPP, PW, NW, BITS>;
-  if (g.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(g.smem));
-    if (err != cudaSuccess) {
-      return static_cast<int>(err);
-    }
+  static std::atomic<int> allowed[MAX_DEVICES];
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), allowed, g.smem);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
   }
   const long long blocks = (lp + TP - 1) / TP;
   kernel<<<static_cast<unsigned int>(blocks), 32 * NW, g.smem,
@@ -892,13 +891,11 @@ int lm_prefilter_lookup(const void* seq, long long lp, const void* table,
                         const void* chunk_m, const void* t_eff, int n_chunks,
                         int m, int k, void* out, void* stream) {
   const long long smem = lookup_smem(m, k);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lookup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      return static_cast<int>(err);
-    }
+  static std::atomic<int> allowed[MAX_DEVICES];
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(lookup_kernel), allowed,
+                                     smem);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
   }
   const long long blocks = (lp + TILE - 1) / TILE;
   lookup_kernel<<<static_cast<unsigned int>(blocks), THREADS, smem,

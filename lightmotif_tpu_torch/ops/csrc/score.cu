@@ -83,6 +83,8 @@
 
 #include <type_traits>
 
+#include "launch_attrs.cuh"
+
 namespace {
 
 // lookup kinds
@@ -672,16 +674,6 @@ score_kernel(const uint8_t* __restrict__ seq, long long lp,
 // ---------------------------------------------------------------------------
 // Launch.
 
-int n_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 template <bool DISCRETE, int LK, int P, int NT, int TP, int HALO, int LAZY, int PERSIST,
           int MINB, int KC, int G>
 int launch_variant(const void* seq, long long lp, const void* heads, int head_w,
@@ -705,19 +697,22 @@ int launch_variant(const void* seq, long long lp, const void* heads, int head_w,
     }
     const void* fn = LK == LK_LEGACY ? reinterpret_cast<const void*>(legacy)
                                      : reinterpret_cast<const void*>(kernel);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) {
-        return static_cast<int>(err);
-      }
+    static std::atomic<int> allowed[MAX_DEVICES];
+    const cudaError_t err = allow_smem(fn, allowed, smem);
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
     }
     const long long tiles = (lp + TP - 1) / TP;
     long long grid = tiles;
     if (PERSIST) {
       int per_sm = 0;
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, NT, static_cast<size_t>(smem));
-      const long long slots = static_cast<long long>(per_sm > 0 ? per_sm : 1) * n_sms();
+      int sms = 0;
+      const int sm_err = n_sms(&sms);
+      if (sm_err != 0) {
+        return sm_err;
+      }
+      const long long slots = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
       grid = tiles < slots ? tiles : slots;
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);

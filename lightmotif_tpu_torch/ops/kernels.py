@@ -25,8 +25,8 @@ import torch
 
 from . import torch_ops
 
-__all__ = ["score_f32", "score_u8", "LAUNCHES", "count_launch", "reset_launches",
-           "smem_bytes"]
+__all__ = ["score_f32", "score_u8", "LAUNCHES", "count_launch", "recording", "count_replay",
+           "reset_launches", "smem_bytes"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES = {"score_f32": 0, "score_u8": 0}
@@ -38,6 +38,8 @@ _SAME_DEVICE = contextlib.nullcontext()
 
 _COUNT_LOCK = threading.Lock()
 
+_RECORDING = threading.local()
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -46,10 +48,35 @@ def reset_launches() -> None:
 
 def count_launch(counts: dict, name: str, n: int = 1) -> None:
     """Add ``n`` kernel launches to ``counts[name]`` under a lock: ``+=``
-    on a dict entry is not atomic, and a sharded database scan launches
-    from one thread per device."""
+    on a dict entry is not atomic, and the re-runs of a sharded database
+    scan launch from one thread per device.  While this thread records a
+    CUDA graph (:func:`recording`) the kernel is recorded, not launched:
+    the launches go to the recording's tally, which each replay of the
+    graph adds here (:func:`count_replay`)."""
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally.append((counts, name, n))
+        return
     with _COUNT_LOCK:
         counts[name] += n
+
+
+@contextlib.contextmanager
+def recording(tally: list):
+    """Inside, this thread's :func:`count_launch` calls append ``(counts,
+    name, n)`` to ``tally`` instead of counting: a graph capture."""
+    _RECORDING.tally = tally
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = None
+
+
+def count_replay(tally: list) -> None:
+    """Count the launches of one replay of a graph recorded into
+    ``tally``."""
+    for counts, name, n in tally:
+        count_launch(counts, name, n)
 
 
 def _check(seq: torch.Tensor, table: torch.Tensor, table_dtype, n_scores: int):

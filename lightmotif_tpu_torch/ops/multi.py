@@ -89,9 +89,16 @@ __all__ = [
     "head_width",
     "seed_capacities",
     "Entry",
+    "group_steps",
     "scan_groups",
     "dense_entry",
     "read_host",
+    "HostReader",
+    "head_widths",
+    "heads_info",
+    "sorted_heads",
+    "merge_sorted_heads",
+    "unpack_heads",
     "read_sorted",
     "settle_entries",
     "fits",
@@ -821,6 +828,45 @@ def _group_tables(group: dict, lengths) -> torch.Tensor:
     return group["len_dev"]
 
 
+def group_steps(data: torch.Tensor, length: int, lengths, groups, k: int, segment: int,
+                owned: int | None = None, mark=None) -> list:
+    """The (group, segment) steps of a scan of a device sequence, in that
+    order: ``(group index, segment offset, run)`` for each with a window
+    to scan, ``run(cap, cap_hits)`` dispatching it (:func:`scan_multi_core`
+    and the lanes' valid windows before it, all on the device, no read)
+    and returning its :class:`Entry`.
+
+    The arguments are :func:`scan_groups`'.  A step's work depends only on
+    its arguments and capacities, so a caller may record it once into a
+    CUDA graph and replay it (:mod:`.graphs`)."""
+    n_valid = np.maximum(length - np.asarray(lengths) + 1, 0).astype(np.int64)
+    if owned is not None:
+        n_valid = np.minimum(n_valid, int(owned))
+    n_total = int(n_valid.max(initial=0))
+    steps = []
+    for gi, group in enumerate(groups):
+        ids = group["ids"]
+        lens = _group_tables(group, lengths)
+        for off in range(0, n_total, segment):
+            n_max = int(np.clip(n_valid[ids] - off, 0, segment).max(initial=0))
+            if n_max == 0:
+                continue
+            # the segment's window starts plus the group's halo
+            chunk = data[off : off + n_max + group["m_max"] - 1]
+            top = segment if owned is None else min(segment, int(owned) - off)
+            steps.append((gi, off, functools.partial(
+                _segment_entry, chunk, length - off + 1, top, lens, group, k, off, gi,
+                mark=mark)))
+    return steps
+
+
+def _segment_entry(chunk, window_end, top, lens, group, k, offset, key, cap, cap_hits,
+                   mark=None) -> Entry:
+    # each lane's window starts in the segment, from its motif length
+    lanes = (window_end - lens).clamp_(0, top)
+    return _core_entry(chunk, lanes, group, k, offset, key, cap, cap_hits, mark)
+
+
 def scan_groups(data: torch.Tensor, length: int, lengths, groups, k: int,
                 segment: int, mark=None, state=None,
                 capacity: int = DEFAULT_CAPACITY, owned: int | None = None) -> list:
@@ -837,29 +883,13 @@ def scan_groups(data: torch.Tensor, length: int, lengths, groups, k: int,
     index to its ``(cap, cap_hits)`` (the scanner's ratchets); a group
     without one starts at :func:`seed_capacities` of ``capacity``.
     Returns one :class:`Entry` per (group, segment) with a window to scan,
-    in that order; :func:`collect_entries` (or :func:`sorted_hits`) reads
-    their hits.
+    in that order (:func:`group_steps`, each run once);
+    :func:`collect_entries` (or :func:`sorted_hits`) reads their hits.
     """
-    n_valid = np.maximum(length - np.asarray(lengths) + 1, 0).astype(np.int64)
-    if owned is not None:
-        n_valid = np.minimum(n_valid, int(owned))
-    n_total = int(n_valid.max(initial=0))
     state = {} if state is None else state
-    entries = []
-    for gi, group in enumerate(groups):
-        ids = group["ids"]
-        cap, cap_hits = state.get(gi) or seed_capacities(group, capacity)
-        lens = _group_tables(group, lengths)
-        for off in range(0, n_total, segment):
-            n_max = int(np.clip(n_valid[ids] - off, 0, segment).max(initial=0))
-            if n_max == 0:
-                continue
-            # the segment's window starts plus the group's halo
-            chunk = data[off : off + n_max + group["m_max"] - 1]
-            top = segment if owned is None else min(segment, int(owned) - off)
-            lanes = (length - off + 1 - lens).clamp_(0, top)
-            entries.append(_core_entry(chunk, lanes, group, k, off, gi, cap, cap_hits, mark))
-    return entries
+    return [run(*(state.get(gi) or seed_capacities(groups[gi], capacity)))
+            for gi, _, run in group_steps(data, length, lengths, groups, k, segment, owned,
+                                          mark)]
 
 
 def dense_entry(data: torch.Tensor, pssm: torch.Tensor, threshold: torch.Tensor,
@@ -876,7 +906,8 @@ def dense_entry(data: torch.Tensor, pssm: torch.Tensor, threshold: torch.Tensor,
 def read_host(tensor: torch.Tensor) -> np.ndarray:
     """A tensor on the host, as numpy: from a CUDA device through a pinned
     buffer (a direct copy at the link's rate, not staged through pageable
-    memory), then the device's stream synchronised."""
+    memory), then the device's stream synchronised.  For one-off reads; a
+    scanner reads through its :class:`HostReader`."""
     if tensor.device.type != "cuda":
         return tensor.cpu().numpy()
     out = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
@@ -885,34 +916,85 @@ def read_host(tensor: torch.Tensor) -> np.ndarray:
     return out.numpy()
 
 
+class HostReader:
+    """The reads of one device through a pinned host buffer that it keeps
+    and reuses, grown to the largest read, in place of an allocation per
+    read.  :meth:`queue` queues a read, the copy into the buffer on the
+    device's current stream, and returns its ``wait``: an event waited on
+    and the buffer's view as numpy, valid until the next :meth:`queue`
+    (a caller keeps copies of what it keeps).  So several devices' reads
+    can be queued before any is waited on.  A tensor on the CPU is
+    returned as it is."""
+
+    def __init__(self):
+        self._buffer = None
+
+    def queue(self, tensor: torch.Tensor) -> Callable[[], np.ndarray]:
+        if tensor.device.type != "cuda":
+            host = tensor.cpu().numpy()
+            return lambda: host
+        nbytes = tensor.numel() * tensor.element_size()
+        if self._buffer is None or self._buffer.numel() < nbytes:
+            size = max(nbytes, 2 * (0 if self._buffer is None else self._buffer.numel()))
+            self._buffer = torch.empty(-(-size // 8) * 8, dtype=torch.uint8, pin_memory=True)
+        out = self._buffer[:nbytes].view(tensor.dtype).view(tensor.shape)
+        with torch.cuda.device(tensor.device):
+            out.copy_(tensor, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+
+        def wait() -> np.ndarray:
+            done.synchronize()
+            return out.numpy()
+
+        return wait
+
+    def read(self, tensor: torch.Tensor) -> np.ndarray:
+        """:meth:`queue`, then its wait."""
+        return self.queue(tensor)()
+
 
 def _overflowed(entry: Entry, counts) -> bool:
     n_cand, need, _, valid = (int(v) for v in counts)
     return n_cand > entry.cap or need > entry.cap_hits or not valid
 
 
-def read_sorted(entries: list, read=read_host, hints=None):
-    """Every entry's counters and the heads of their hits, merged and
-    sorted on the device by (motif, position), in one read: ``(counts
-    int32 [entries, 4], hits int32 [3, total], widths)`` on the host,
-    ``hits`` rows positions in the scanned sequence, database motif ids
-    and f32 bits, the valid slots first.  An entry's head is its first
-    ``widths[i]`` slots (:func:`head_width` of its hint in ``hints``, a
-    capacity key's last ``n_kept``); it holds every kept hit of the entry
-    when ``n_kept <= widths[i]``.  The entries lie on one device, whose
-    groups hold their ``ids_dev``; the work on the device is the same few
-    ops whatever the number of entries."""
+def head_widths(entries: list, hints=None) -> list:
+    """The head of each entry that :func:`read_sorted` reads with its
+    counters: :func:`head_width` of its capacity key's hint."""
     hints = {} if hints is None else hints
-    widths = [head_width(hints.get(e.key, 0), e.cap_hits) for e in entries]
-    device = entries[0].counts.device
-    # every group's database indices in one table, and per entry: its
-    # chunk's offset, its group's first row there, its last lane
+    return [head_width(hints.get(e.key, 0), e.cap_hits) for e in entries]
+
+
+def heads_info(entries: list, widths: list) -> torch.Tensor:
+    """:func:`sorted_heads`' table of the entries, uploaded to their
+    device: per entry, its chunk's offset, its group's first row in the
+    entries' table of database indices, its last lane and its head's
+    width, int64 ``[entries, 4]``."""
+    base, first = {}, 0
+    for e in entries:
+        if id(e.group) not in base:
+            base[id(e.group)] = first
+            first += len(e.group["ids"])
+    return torch.tensor([[e.offset, base[id(e.group)], len(e.group["ids"]) - 1, w]
+                         for e, w in zip(entries, widths)], dtype=torch.int64,
+                        device=entries[0].counts.device)
+
+
+def sorted_heads(entries: list, widths: list, info: torch.Tensor) -> torch.Tensor:
+    """Every entry's counters and the heads of its hits, merged and sorted
+    by (motif, position) on their device, as one int32 tensor for one
+    read (:func:`unpack_heads` takes it apart): the counters ``[entries,
+    4]``, then ``[3, sum(widths)]`` positions in the scanned sequence,
+    database motif ids (-1 past the valid slots) and f32 bits, the valid
+    slots first.  ``info`` is
+    :func:`heads_info` of the same entries and widths.  The work on the
+    device is the same few ops whatever the number of entries, and reads
+    nothing, so a caller may record it into a CUDA graph."""
+    device = info.device
     tables = {}
     for e in entries:
         tables.setdefault(id(e.group), e.group)
-    base = dict(zip(tables, np.cumsum([0] + [len(g["ids"]) for g in tables.values()])))
-    info = torch.tensor([[e.offset, base[id(e.group)], len(e.group["ids"]) - 1, w]
-                         for e, w in zip(entries, widths)], dtype=torch.int64, device=device)
     total = sum(widths)
     entry = torch.repeat_interleave(torch.arange(len(entries), device=device), info[:, 3],
                                     output_size=total)
@@ -923,13 +1005,47 @@ def read_sorted(entries: list, read=read_host, hints=None):
     lanes = torch.minimum(head[1].clamp_(min=0), info[entry, 2])
     ids = torch.cat([g["ids_dev"] for g in tables.values()])[info[entry, 1] + lanes]
     pos = head[0] + info[entry, 0]
-    key = torch.where(slot < counts[entry, 2], (ids << 40) | pos, torch.iinfo(torch.int64).max)
-    order = torch.argsort(key)
-    flat = read(torch.cat([counts.reshape(-1), torch.stack([pos[order], ids[order],
-                                                            head[2][order]]).to(torch.int32)
-                           .reshape(-1)]))
-    n = len(entries)
-    return flat[: 4 * n].reshape(n, 4), flat[4 * n :].reshape(3, -1), widths
+    valid = slot < counts[entry, 2]
+    ids = torch.where(valid, ids, -1)
+    order = torch.argsort(torch.where(valid, (ids << 40) | pos, torch.iinfo(torch.int64).max))
+    return torch.cat([counts.reshape(-1), torch.stack([pos[order], ids[order],
+                                                       head[2][order]]).to(torch.int32)
+                      .reshape(-1)])
+
+
+def merge_sorted_heads(parts: list, sizes: list) -> torch.Tensor:
+    """:func:`sorted_heads` of several devices' entries, each copied to
+    one device, as one tensor of the same form: every part's counters in
+    turn (``sizes`` entries each), then all their hits merged and sorted
+    by (motif, position), the valid slots first.  A few ops on one
+    device, whatever the number of parts."""
+    counts = torch.cat([part[: 4 * n] for part, n in zip(parts, sizes)])
+    hits = torch.cat([part[4 * n :].view(3, -1) for part, n in zip(parts, sizes)],
+                     dim=1).to(torch.int64)
+    key = torch.where(hits[1] >= 0, (hits[1] << 40) | hits[0], torch.iinfo(torch.int64).max)
+    return torch.cat([counts, hits[:, torch.argsort(key)].to(torch.int32).reshape(-1)])
+
+
+def unpack_heads(flat: np.ndarray, n: int) -> tuple:
+    """``(counts int32 [n, 4], hits int32 [3, total])`` of a read of
+    :func:`sorted_heads` of ``n`` entries; the counters are copied out of
+    the read's buffer, the hits are a view of it."""
+    return flat[: 4 * n].reshape(n, 4).copy(), flat[4 * n :].reshape(3, -1)
+
+
+def read_sorted(entries: list, read=read_host, hints=None):
+    """Every entry's counters and the heads of their hits, merged and
+    sorted on the device by (motif, position), in one read: ``(counts
+    int32 [entries, 4], hits int32 [3, total], widths)`` on the host,
+    ``hits`` rows positions in the scanned sequence, database motif ids
+    and f32 bits, the valid slots first.  An entry's head is its first
+    ``widths[i]`` slots (:func:`head_widths` of ``hints``, a capacity
+    key's last ``n_kept``); it holds every kept hit of the entry when
+    ``n_kept <= widths[i]``.  The entries lie on one device, whose groups
+    hold their ``ids_dev`` (:func:`sorted_heads`)."""
+    widths = head_widths(entries, hints)
+    flat = read(sorted_heads(entries, widths, heads_info(entries, widths)))
+    return (*unpack_heads(flat, len(entries)), widths)
 
 
 def settle_entries(entries: list, counts, widths, read=read_host, state=None, hints=None) -> list:
@@ -985,7 +1101,8 @@ def collect_device(entries: list, read=read_host, state=None, hints=None, first=
 
 
 def _hit_arrays(hits):
-    return hits[1].copy(), hits[0].astype(np.int64), hits[2].view(np.float32)
+    # copies: ``hits`` may be a view of a reader's buffer
+    return hits[1].copy(), hits[0].astype(np.int64), hits[2].view(np.float32).copy()
 
 
 def merge_hits(parts: list):
@@ -997,9 +1114,9 @@ def merge_hits(parts: list):
     if len(parts) == 1:
         return parts[0]
     motif_ids, positions, scores = (np.concatenate(column) for column in zip(*parts))
-    # (motif, position) is unique per hit: one sort of the packed key
-    order = torch.argsort(torch.from_numpy((motif_ids.astype(np.int64) << 40) | positions))
-    order = order.numpy()
+    # (motif, position) is unique per hit; each part is sorted, so a stable
+    # sort of the packed key merges a few sorted runs
+    order = np.argsort((motif_ids.astype(np.int64) << 40) | positions, kind="stable")
     return motif_ids[order], positions[order], scores[order]
 
 

@@ -72,7 +72,8 @@ class DeviceSequence:
     """An encoded sequence uploaded once to a device as ``uint8``,
     padded with the wildcard to :data:`PAD_MULTIPLE`."""
 
-    __slots__ = ("alphabet", "length", "data")
+    # a weak reference bounds the CUDA graphs of a scan of it (.graphs)
+    __slots__ = ("alphabet", "length", "data", "__weakref__")
 
     def __init__(self, encoded: EncodedSequence, device: torch.device):
         self.alphabet = encoded.alphabet

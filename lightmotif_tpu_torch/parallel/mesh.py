@@ -29,11 +29,16 @@ device a fixed number of times per call, whatever the number of shards:
   ``pli/mod.rs:146``) -- and read the result once;
 * :class:`ShardedMultiScanner` runs a :class:`~.scanner.MultiScanner`
   per distinct device (the prefilter K3 and the exact stages at fixed
-  capacities, and K1 for dense motifs).  Each distinct device issues its
-  shards in a worker thread of its own, with no read; the caller then
-  reads every entry's counters and hit head, one read per device, and
-  only a device with an entry that overflowed its capacities (or
-  outgrew its head) goes back to its worker to re-run and read it.
+  capacities, and K1 for dense motifs).  One thread issues every shard's
+  steps with no read: in steady state one replay per device of a CUDA
+  graph of all its shards' steps (:mod:`~.ops.graphs`), otherwise step
+  by step, group by group across the devices, as the JAX package
+  launches one program per group over the mesh; then
+  each device merges and sorts its entries' counters and hit heads, the
+  first device merges every device's, and the host reads once.  Only
+  when an entry overflowed its capacities (or outgrew its head) is each
+  device read in turn, and a device with such an entry re-runs it in a
+  worker thread of its own.
 
 :data:`HOST_READS` counts this module's reads of the device
 (:func:`reset_host_reads` sets it to 0).
@@ -93,12 +98,16 @@ def reset_host_reads() -> None:
         HOST_READS = 0
 
 
-def _to_host(tensor: torch.Tensor) -> np.ndarray:
-    """The module's one way to read a tensor to the host; counted in
-    :data:`HOST_READS`."""
+def _count_read() -> None:
     global HOST_READS
     with _READS_LOCK:
         HOST_READS += 1
+
+
+def _to_host(tensor: torch.Tensor) -> np.ndarray:
+    """A tensor read to the host, counted in :data:`HOST_READS` (the
+    database scan reads through its scanners' readers, counted too)."""
+    _count_read()
     return multi.read_host(tensor)
 
 
@@ -538,12 +547,24 @@ def _on_each_device(jobs: dict) -> dict:
     return {device: future.result() for device, future in futures.items()}
 
 
+class _Binding:
+    """A genome bound to a :class:`ShardedMultiScanner`: its chunk, the
+    global shard count and this process's shards.  The CUDA graphs of
+    its scans live as long as it does."""
+
+    __slots__ = ("chunk", "n_shards", "shards", "__weakref__")
+
+    def __init__(self, chunk: int, n_shards: int, shards: list):
+        self.chunk, self.n_shards, self.shards = chunk, n_shards, shards
+
+
 class ShardedMultiScanner:
     """Multi-device counterpart of :class:`~.scanner.MultiScanner`.
 
     One :class:`~.scanner.MultiScanner` per distinct device of the mesh
-    routes and packs the motif database once (8 shards on one card pack
-    once); :meth:`bind` / :meth:`collect` (or :meth:`scan`) then scan any
+    holds the motif database, routed and packed on the host once and
+    copied to each device (8 shards on one card pack once);
+    :meth:`bind` / :meth:`collect` (or :meth:`scan`) then scan any
     number of genomes.  The genome is sharded once for every motif:
     ownership (``chunk``) from the shortest motif, each shard cut at
     ``chunk + m_max - 1`` symbols or at the genome's end, so every window
@@ -578,9 +599,13 @@ class ShardedMultiScanner:
             dev: MultiScanner(self.pssms, thresholds=thresholds, capacity=self.cap,
                               single_bucket=single_bucket, device=dev)
             for dev in dict.fromkeys(self.mesh)}
-        for scanner in self._scanners.values():
-            scanner._pack()  # one packed database per distinct device, now
+        # the database packed on the host once, now, and copied to each device
+        first, *others = self._scanners.values()
+        first._pack()
+        for scanner in others:
+            scanner._pack_from(first)
         self.lengths = next(iter(self._scanners.values())).lengths
+        self._streams = {}  # device -> the streams its shards fork onto in a capture
         self._bound = None
         if seq is not None:
             self.bind(seq)
@@ -605,61 +630,159 @@ class ShardedMultiScanner:
             if n - start >= m_min:  # a window to own
                 part = EncodedSequence(encoded[start : start + chunk + m_max - 1], alphabet)
                 shards.append((first + i, DeviceSequence(part, dev)))
-        self._bound = {"chunk": chunk, "n_shards": n_shards, "shards": shards}
+        self._bound = _Binding(chunk, n_shards, shards)
         return self
 
-    def _scan_device(self, device, shards: list, chunk: int) -> list:
-        """One worker's work: this device's shards, one after another,
-        issued through its ``MultiScanner`` with their windows cut at
-        ``chunk``, with no read.  Returns ``(shard, entries)`` for each
-        shard (:class:`~.ops.multi.Entry`)."""
+    def _issue(self) -> dict:
+        """Issue the scan of every shard, with no read of any device:
+        ``{device: (entries, graphs)}`` in mesh order for every device
+        with a step, each entry's offset
+        a genome position, ``graphs`` what the device's entries are the
+        outputs of (``None`` when they ran eagerly).  In steady state each
+        device replays one CUDA graph of all its shards' steps
+        (:meth:`_device_run`); otherwise the steps go out eagerly, group
+        by group across the devices, as the JAX package launches one
+        program per group over the mesh: every shard's (group, segment)
+        step before any shard's next one, the dense motifs last.  One
+        thread; each device's own current stream."""
+        st = self._bound
+        if st is None:
+            raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
+        plans = {}  # device -> [(order, shard, step)]
+        for d, dseq in st.shards:
+            scanner = self._scanners[dseq.device]
+            plans.setdefault(dseq.device, []).extend(
+                (step[0], d, step) for step in scanner._steps(dseq, st.chunk))
+        issued, eager = {}, []
+        for device, plan in plans.items():
+            plan.sort(key=lambda row: row[:2])
+            scanner = self._scanners[device]
+            graphs = (st, "shards", (tuple((d, order, scanner._caps(step[1]))
+                                           for order, d, step in plan), int(scanner.SEGMENT)))
+            if scanner.graphed() and scanner.replays.seen(*graphs, "steps"):
+                entries, _ = scanner.replays.issue(
+                    *graphs, "steps", functools.partial(self._device_run, device, plan))
+                issued[device] = (entries, graphs)
+            else:
+                eager += [(order, d, device, step) for order, d, step in plan]
+        eager.sort(key=lambda row: row[:2])
+        for _, d, device, step in eager:
+            issued.setdefault(device, ([], None))[0].append(
+                self._queue(d, self._scanners[device], step))
+        return {device: issued[device] for device in plans if device in issued}
+
+    def _queue(self, d: int, scanner, step) -> multi.Entry:
+        """Shard ``d``'s step on its device's scanner, on the current
+        stream; the entry's offset a genome position."""
+        entry = scanner._issue(step)
+        return entry._replace(offset=entry.offset + d * self._bound.chunk)
+
+    def _device_run(self, device, plan: list) -> list:
+        """One device's steps (``plan``: ``(order, shard, step)`` rows),
+        the work of its graph's capture: with several shards on the
+        device, each shard's steps on a stream of its own, forked from the
+        capture's stream and joined back, so that in the graph one shard's
+        small kernels and the last waves of its prefilter overlap
+        another's."""
+        shards = list(dict.fromkeys(d for _, d, _ in plan))
+        forks = {}
+        if len(shards) > 1:
+            current = torch.cuda.current_stream(device)
+            pool = self._streams.setdefault(device, [])
+            while len(pool) < len(shards):
+                pool.append(torch.cuda.Stream(device))
+            for d, stream in zip(shards, pool):
+                stream.wait_stream(current)
+                forks[d] = stream
         scanner = self._scanners[device]
-        return [(d, scanner.bind(dseq, owned=chunk).dispatch()["entries"])
-                for d, dseq in shards]
+        entries = []
+        for _, d, step in plan:
+            with torch.cuda.stream(forks.get(d)):
+                entries.append(self._queue(d, scanner, step))
+        for stream in forks.values():
+            current.wait_stream(stream)
+        return entries
 
     def _collect(self, device, entries: list, first) -> tuple:
         """The hits of one device's entries, given their first read: the
         re-runs of the entries that overflowed and the reads they need,
-        counted in :data:`HOST_READS` (none when every entry fits)."""
+        through the device scanner's reader, counted in
+        :data:`HOST_READS` (none when every entry fits)."""
         scanner = self._scanners[device]
-        return multi.collect_device(entries, _to_host, scanner._group_state,
+
+        def read(tensor):
+            _count_read()
+            return scanner._reader.read(tensor)
+
+        return multi.collect_device(entries, read, scanner._group_state,
                                     scanner._head_hint, first)
 
     def dispatch(self) -> dict:
         """Scan the bound genome on every shard and return a token for
-        :meth:`fetch`.  Each distinct device issues its shards in a worker
-        of its own (:func:`_on_each_device`) with no read; then one read
-        per device brings every entry's counters and hit head, and only
-        the devices with an entry that overflowed (or outgrew its head)
-        settle it in their worker."""
+        :meth:`fetch`.  :meth:`_issue` queues every device's steps from
+        this thread; each device's entries' counters and hit heads are
+        merged and sorted on it (:func:`~.ops.multi.sorted_heads`), and
+        with several devices, those of all devices on the first one, so
+        that a steady scan reads once (:meth:`_merged_hits`).  When an
+        entry overflowed its capacities or outgrew its head, each device
+        is read in turn and settles its entries in a worker of its own
+        (:meth:`_device_hits`)."""
         st = self._bound
-        if st is None:
-            raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
-        chunk = st["chunk"]
-        by_device = {}
-        for d, dseq in st["shards"]:
-            by_device.setdefault(dseq.device, []).append((d, dseq))
-        issued = _on_each_device({
-            device: functools.partial(self._scan_device, device, shards, chunk)
-            for device, shards in by_device.items()})
+        issued = self._issue()
+        heads = {device: self._scanners[device]._sorted_heads(entries, graphs)
+                 for device, (entries, graphs) in issued.items()}
+        hits = self._merged_hits(issued, heads) if len(heads) > 1 else None
+        if hits is None:
+            hits = self._device_hits(issued, heads)
+        kept = np.bincount(hits[1] // st.chunk, minlength=st.n_shards)
+        local = {d: int(kept[d]) for d, _ in st.shards}
+        return {"hits": hits, "local": local, "n_shards": st.n_shards}
+
+    def _merged_hits(self, issued: dict, heads: dict):
+        """Every device's sorted heads copied to the first device (copies
+        ordered with both devices' current streams), merged and sorted
+        there (:func:`~.ops.multi.merge_sorted_heads`), and read once: the
+        hit arrays, or ``None`` when an entry overflowed or outgrew its
+        head.  Each device's capacities and head hints are kept as a
+        settled read keeps them."""
+        first = next(iter(heads))
+        sizes = [len(issued[device][0]) for device in heads]
+        merged = multi.merge_sorted_heads(
+            [flat.to(first, non_blocking=True) for flat, _ in heads.values()], sizes)
+        _count_read()
+        counts, hits = multi.unpack_heads(self._scanners[first]._reader.read(merged), sum(sizes))
+        per_device, at = [], 0
+        for device, (_, widths) in heads.items():
+            entries = issued[device][0]
+            here, at = counts[at : at + len(entries)], at + len(entries)
+            if not multi.fits(entries, here, widths):
+                return None
+            per_device.append((device, entries, here, widths))
+        for device, entries, here, widths in per_device:
+            scanner = self._scanners[device]
+            multi.settle_entries(entries, here, widths, state=scanner._group_state,
+                                 hints=scanner._head_hint)  # reads nothing: all fit
+        return multi._hit_arrays(hits[:, : int(counts[:, 2].sum())])
+
+    def _device_hits(self, issued: dict, heads: dict):
+        """Each device's sorted heads read on its own, every read queued
+        before any is waited on; a device whose entries do not all fit
+        settles them (re-runs, more reads) in a worker of its own
+        (:func:`_on_each_device`)."""
+        pending = {device: self._scanners[device]._reader.queue(flat)
+                   for device, (flat, _) in heads.items()}
         work, parts = {}, []
-        for device, rows in issued.items():
-            entries = [e._replace(offset=e.offset + d * chunk)
-                       for d, shard in rows for e in shard]
-            if not entries:
-                continue
-            first = multi.read_sorted(entries, _to_host, self._scanners[device]._head_hint)
+        for device, wait in pending.items():
+            entries = issued[device][0]
+            _count_read()
+            first = (*multi.unpack_heads(wait(), len(entries)), heads[device][1])
             job = functools.partial(self._collect, device, entries, first)
             if multi.fits(entries, first[0], first[2]):
                 parts.append(job())  # no read
             else:
                 work[device] = job
         parts += _on_each_device(work).values()
-        hits = multi.merge_hits(parts)
-        shard, kept = np.unique(hits[1] // chunk, return_counts=True)
-        local = dict.fromkeys((d for d, _ in st["shards"]), 0)
-        local.update(zip(shard.tolist(), kept.tolist()))
-        return {"hits": hits, "local": local, "n_shards": st["n_shards"]}
+        return multi.merge_hits(parts)
 
     def fetch_arrays(self, token):
         """Hit arrays ``(motif_ids int32, positions int64, scores

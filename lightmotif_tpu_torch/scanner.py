@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .matrix import ScoringMatrix
-from .ops import multi, multi_kernel, torch_ops
+from .ops import graphs, multi, multi_kernel, torch_ops
 from .ops.pipeline import DeviceSequence, as_device_seq, resolve_device
 
 __all__ = ["Hit", "Scanner", "MultiHit", "MultiScanner"]
@@ -294,6 +294,14 @@ class MultiScanner:
     capacities each needed are kept across scans and binds, so a steady
     scan reads the device once (:attr:`host_reads` counts the reads).
     The hits do not depend on the capacities.
+
+    On a CUDA device a steady scan replays CUDA graphs
+    (:mod:`~.ops.graphs`): the dispatch's steps (every (group, segment)
+    step and every dense motif) and the merge and sort of the fetch's
+    read are each captured at their second issue for the bound sequence
+    and its capacities, then replayed; a re-run, a scan with the timing
+    hook :attr:`mark` on, and the CPU run eagerly.  :attr:`replays`
+    counts the captures and replays.
     """
 
     #: Motifs per prefilter group (the JAX package's value; hits do not
@@ -335,6 +343,9 @@ class MultiScanner:
         self._owned = None  # window starts past which no hit is kept
         self._group_state = {}  # capacity key -> (cap, cap_hits): the ratchets
         self._head_hint = {}  # capacity key -> its last n_kept: the head widths
+        #: the CUDA graphs of the steady scans, per bound sequence
+        self.replays = graphs.Replays(self.device)
+        self._reader = multi.HostReader()  # every read of the device
         #: reads of the device by :meth:`fetch` since the scanner was made
         self.host_reads = 0
         #: timing hook, ``mark(stage, count)``: called as each stage's
@@ -407,51 +418,136 @@ class MultiScanner:
                                       torch.tensor(self.thresholds[i], device=self.device))
         return self._groups
 
-    def dispatch(self) -> dict:
-        """Issue the scan of the bound sequence, every motif group and
-        segment and every dense motif, with no read of the device; returns
-        a token for :meth:`fetch`.  The token holds the results on the
-        device, so binding another sequence before fetching is allowed."""
-        dseq = self._dseq
-        if dseq is None:
-            raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
+    def _pack_from(self, other: "MultiScanner") -> None:
+        """Take the packed groups and dense motifs of ``other``, a scanner
+        of the same motifs and thresholds on another device, copied to
+        this scanner's device: a database is packed on the host once,
+        however many devices scan it."""
+        copies = {}
+
+        def here(value):
+            if torch.is_tensor(value):
+                if id(value) not in copies:  # tensors shared in a group stay shared
+                    copies[id(value)] = value.to(self.device)
+                return copies[id(value)]
+            return tuple(here(v) for v in value) if isinstance(value, tuple) else value
+
+        self._routing = other._route()
+        self._groups = [{name: here(v) for name, v in g.items()} for g in other._pack()]
+        self._dense_dev = {i: here(t) for i, t in other._dense_dev.items()}
+
+    def _steps(self, dseq, owned: int | None = None) -> list:
+        """The steps of a scan of the device sequence ``dseq``, window
+        starts cut at ``owned``: ``(order, capacity key, run)`` for every
+        motif group's segment (:func:`~.ops.multi.group_steps`), then every
+        dense motif, ``run(cap, cap_hits)`` dispatching the step eagerly
+        and returning its :class:`~.ops.multi.Entry`.  ``order`` sorts the
+        steps of several sequences group by group."""
         n_valid = np.maximum(dseq.length - self.lengths + 1, 0).astype(np.int64)
-        if self._owned is not None:
-            n_valid = np.minimum(n_valid, self._owned)
+        if owned is not None:
+            n_valid = np.minimum(n_valid, owned)
         if int(n_valid.max(initial=0)) == 0:
-            return {"entries": []}
+            return []
         seg = int(self.SEGMENT)
         if seg < 1:
             raise ValueError("SEGMENT must be positive")
         k = self.pssms[0].alphabet.size
         groups = self._pack()
-        dense_idx = self._route()["dense_idx"]
-        entries = multi.scan_groups(dseq.data, dseq.length, self.lengths, groups, k, seg,
-                                    self.mark, self._group_state, self.capacity,
-                                    self._owned)
-        n_fused = len(entries)
-        for i in dense_idx.tolist():
+        steps = [((gi, off), gi, run) for gi, off, run in multi.group_steps(
+            dseq.data, dseq.length, self.lengths, groups, k, seg, owned, self.mark)]
+        for i in self._route()["dense_idx"].tolist():
             if n_valid[i]:
-                cap, _ = self._group_state.get(("dense", i), (self.capacity, self.capacity))
-                entries.append(multi.dense_entry(dseq.data, *self._dense_dev[i],
-                                                 int(n_valid[i]), cap, i))
-        if self.mark is not None and dense_idx.size:
-            dense = [e.counts[2] for e in entries[n_fused:]]
+                steps.append(((len(groups), i), ("dense", i), functools.partial(
+                    self._dense_run, dseq.data, i, int(n_valid[i]))))
+        return steps
+
+    def _dense_run(self, data, i, n_valid, cap, cap_hits):
+        return multi.dense_entry(data, *self._dense_dev[i], n_valid, cap, i)
+
+    def _caps(self, key) -> tuple:
+        """The ``(cap, cap_hits)`` a step of the capacity key ``key`` runs
+        at: its ratchet, else its seed."""
+        if isinstance(key, tuple):
+            return self._group_state.get(key, (self.capacity, self.capacity))
+        return self._group_state.get(key) or multi.seed_capacities(
+            self._groups[key], self.capacity)
+
+    def _issue(self, step) -> multi.Entry:
+        """Dispatch one of :meth:`_steps` eagerly at its capacity key's
+        capacities, on the current stream."""
+        _, key, run = step
+        return run(*self._caps(key))
+
+    def _graph_key(self, steps) -> tuple:
+        """What the graphs of ``steps`` are kept under: each step's order
+        and capacities, and the segment."""
+        return tuple((order, self._caps(key)) for order, key, _ in steps), int(self.SEGMENT)
+
+    def graphed(self) -> bool:
+        """Whether the steady work replays CUDA graphs: on a CUDA device
+        with the timing hook off."""
+        return self.mark is None and self.device.type == "cuda"
+
+    def dispatch(self) -> dict:
+        """Issue the scan of the bound sequence, every motif group and
+        segment and every dense motif, with no read of the device; returns
+        a token for :meth:`fetch`.  Binding another sequence before
+        fetching is allowed: each sequence has graphs of its own, and a
+        replay writes its outputs again with the same values."""
+        dseq = self._dseq
+        if dseq is None:
+            raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
+        steps = self._steps(dseq, self._owned)
+        if not steps:
+            return {"entries": []}
+
+        def run():
+            return [self._issue(step) for step in steps]
+
+        graphs = None
+        if self.graphed():
+            graphs = (dseq, self._owned, self._graph_key(steps))
+            entries, replayed = self.replays.issue(*graphs, "steps", run)
+        else:
+            entries, replayed = run(), False
+        if self.mark is not None and self._route()["dense_idx"].size:
+            dense = [e.counts[2] for e in entries if isinstance(e.key, tuple)]
             self.mark("dense", torch.stack(dense).sum() if dense else 0)
-        return {"entries": entries}
+        return {"entries": entries, "replayed": replayed, "graphs": graphs if replayed else None}
 
     def _read(self, tensor: torch.Tensor) -> np.ndarray:
         self.host_reads += 1
-        return multi.read_host(tensor)
+        return self._reader.read(tensor)
+
+    def _sorted_heads(self, entries: list, graphs=None) -> tuple:
+        """``(flat, widths)``: :func:`~.ops.multi.sorted_heads` of
+        ``entries`` (on this scanner's device) queued with no read, and the
+        head widths.  When the entries are the outputs of the steps' graph
+        held under ``graphs`` (``(owner, tag, key)``), the merge and sort
+        replay a graph kept with it."""
+        widths = multi.head_widths(entries, self._head_hint)
+        if graphs is None or not self.replays.holds(*graphs, "steps", entries):
+            return multi.sorted_heads(entries, widths, multi.heads_info(entries, widths)), widths
+        name = tuple(widths)
+        info = self.replays.memo(*graphs, ("info", name),
+                                 lambda: multi.heads_info(entries, widths))
+        flat, _ = self.replays.issue(*graphs, ("heads", name),
+                                     lambda: multi.sorted_heads(entries, widths, info))
+        return flat, widths
 
     def fetch(self, token):
         """Hit arrays ``(motif_ids int32, positions int64, scores
         float32)`` of a :meth:`dispatch` token, ordered by (motif,
         position): one read of every entry's counters and hit head, and
         more only for entries that overflowed or outgrew their heads."""
-        out = multi.collect_entries(token["entries"], self._read, self._group_state,
-                                    self._head_hint)
-        if self.mark is not None and token["entries"]:
+        entries = token["entries"]
+        if not entries:
+            return multi.merge_hits([])
+        flat, widths = self._sorted_heads(entries, token["graphs"])
+        first = (*multi.unpack_heads(self._read(flat), len(entries)), widths)
+        out = multi.collect_device(entries, self._read, self._group_state, self._head_hint,
+                                   first)
+        if self.mark is not None:
             self.mark("fetch", len(out[0]))
         return out
 

@@ -576,3 +576,149 @@ def test_stage_wrappers_launch_or_raise(cuda, monkeypatch):
         multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk, group["pssm"], group["th"],
                                    4096)
     assert multi_stages.LAUNCHES == before
+
+
+def _graph_scan_inputs(seed):
+    rng = np.random.default_rng(seed)
+    motifs = _motifs(rng, [6, 9, 12, 15, 20, 150], DNA)
+    ths = [p.score_distribution().score(1e-4) for p in motifs]
+    seqs = [EncodedSequence(rng.integers(0, 4, size=n).astype(np.uint8))
+            for n in (200_000, 90_000)]
+    return motifs, ths, seqs
+
+
+def _same(got, want) -> bool:
+    return all(a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+               for a, b in zip(got, want))
+
+
+def test_graph_replays_equal_the_eager_path_on_two_genomes(cuda):
+    # two genomes, uploaded once each, bound in turn: the first scan of
+    # each runs eagerly, the second captures, the rest replay; every scan
+    # equals the eager path (the timing hook keeps a scanner eager) bit
+    # for bit
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+
+    motifs, ths, seqs = _graph_scan_inputs(37)
+    seqs = [DeviceSequence(s, cuda) for s in seqs]
+    eager = MultiScanner(motifs, thresholds=ths, device=cuda)
+    eager.mark = lambda stage, n: None
+    want = [eager.scan_arrays(s) for s in seqs]
+    assert eager.replays.captured == eager.replays.replayed == 0
+    ms = MultiScanner(motifs, thresholds=ths, device=cuda)
+    for _ in range(4):
+        for s, w in zip(seqs, want):
+            assert _same(ms.scan_arrays(s), w) and len(w[0])
+    assert ms.replays.captured > 0 and ms.replays.replayed > 0
+    # both tokens dispatched before either is fetched, and the same genome
+    # twice: each token keeps its hits
+    tokens = [ms.bind(s).dispatch() for s in (seqs[0], seqs[1], seqs[1])]
+    for token, w in zip(reversed(tokens), (want[1], want[1], want[0])):
+        assert _same(ms.fetch(token), w)
+
+
+def test_graph_replays_after_an_overflow_capture_the_doubled_capacities(cuda):
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+
+    motifs, ths, seqs = _graph_scan_inputs(38)
+    seqs = [DeviceSequence(s, cuda) for s in seqs]
+    want = [MultiScanner(motifs, thresholds=ths, device=cuda).scan_arrays(s) for s in seqs]
+    ms = MultiScanner(motifs, thresholds=ths, capacity=1, device=cuda)
+    multi.reset_reruns()
+    assert _same(ms.scan_arrays(seqs[1]), want[1])
+    small = dict(ms._group_state)
+    for _ in range(3):  # at the settled capacities: eager, capture, replay
+        assert _same(ms.scan_arrays(seqs[1]), want[1])
+    captured = ms.replays.captured
+    assert captured > 0 and multi.RERUNS["group"] > 0
+    # the longer genome overflows the capacities the graphs hold: re-runs,
+    # then new graphs at the doubled capacities
+    for _ in range(3):
+        assert _same(ms.scan_arrays(seqs[0]), want[0])
+    assert any(ms._group_state[key] > small[key] for key in small)
+    assert ms.replays.captured > captured
+    for s, w in zip(seqs, want):
+        assert _same(ms.scan_arrays(s), w)
+    # each sequence keeps the graphs of its last capacities only
+    for s in seqs:
+        (held,) = ms.replays._sets[s].values()
+        assert held[0] == ms._graph_key(ms._steps(s))
+
+
+def test_graph_memory_stays_near_one_eager_scan(cuda):
+    # the graphs of a steady scan keep about what one eager scan needs at
+    # its peak (a capture reuses the memory its work frees), and what they
+    # keep grows with the segments no faster than that peak does
+    import gc
+
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+
+    def settle():
+        torch.cuda.synchronize(cuda)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(40)
+    motifs = _motifs(rng, [8, 12, 16, 20] * 50, DNA)
+    ths = [p.score_distribution().score(1e-3) for p in motifs]
+    genome = rng.integers(0, 4, size=8_000_019).astype(np.uint8)
+    segment, rows, slack = 1_000_000, {}, 48 << 20
+    for n_seg in (2, 8):
+        seq = DeviceSequence(EncodedSequence(genome[: n_seg * segment + 19]), cuda)
+        ms = MultiScanner(motifs, thresholds=ths, device=cuda)
+        ms.SEGMENT = segment
+        want = ms.scan_arrays(seq)
+        ms.mark = lambda stage, n: None  # eager
+        settle()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        assert _same(ms.scan_arrays(seq), want) and len(want[0])
+        peak = torch.cuda.max_memory_allocated(cuda) - base
+        ms.mark = None
+        settle()
+        reserved = torch.cuda.memory_reserved(cuda)
+        for _ in range(4):
+            assert _same(ms.scan_arrays(seq), want)
+        settle()
+        kept = torch.cuda.memory_reserved(cuda) - reserved
+        assert ms.replays.captured > 0 and ms.replays.replayed > 0
+        assert kept <= 1.5 * peak + slack, (n_seg, kept, peak)
+        rows[n_seg] = (peak, kept)
+        del ms, seq
+        settle()
+    assert rows[8][1] - rows[2][1] <= 1.5 * max(rows[8][0] - rows[2][0], 0) + slack, rows
+
+
+def test_graph_capture_on_the_second_card_while_the_first_is_current(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one card")
+    motifs, ths, seqs = _graph_scan_inputs(39)
+    want = MultiScanner(motifs, seqs[0], ths, device="cpu").scan_arrays(seqs[0])
+    torch.cuda.set_device(0)
+    ms = MultiScanner(motifs, thresholds=ths, device="cuda:1")
+    for _ in range(3):
+        assert _same(ms.scan_arrays(seqs[0]), want)
+        assert torch.cuda.current_device() == 0
+    assert ms.replays.captured > 0 and ms.replays.replayed > 0
+
+
+def test_a_failing_capture_raises(cuda):
+    from lightmotif_tpu_torch.ops import graphs
+
+    class Owner:
+        pass
+
+    owner, replays = Owner(), graphs.Replays(cuda)
+    x = torch.arange(10, device=cuda)
+
+    def reads():
+        return int(x.sum())  # a read of the card: refused inside a capture
+
+    # the first issue runs eagerly
+    assert replays.issue(owner, "tag", "key", "step", reads) == (45, False)
+    with pytest.raises(RuntimeError):
+        replays.issue(owner, "tag", "key", "step", reads)
+    assert replays.captured == 0
+    # the card is usable after the failed capture
+    assert int((x * 2).sum()) == 90
+    torch.cuda.synchronize()

@@ -49,8 +49,10 @@ def test_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_kernel_sources_ship_with_the_package():
-    for name in ("score.cu", "prefilter.cu", "phase_c.cu", "pairs.cu"):
+    for name in ("score.cu", "prefilter.cu", "phase_c.cu", "pairs.cu", "launch_attrs.cuh"):
         assert (PACKAGE / "ops" / "csrc" / name).is_file()
+    assert '"lightmotif_tpu_torch.ops" = ["csrc/*.cu", "csrc/*.cuh"]' in (
+        ROOT / "pyproject.toml").read_text()
 
 
 def test_native_source_ships_with_the_package():

@@ -541,61 +541,63 @@ def two_device_mesh(monkeypatch):
 
 def test_hits_do_not_depend_on_which_worker_ends_first(database, two_device_mesh,
                                                       monkeypatch):
-    """The first device's worker is held back until the second's has
-    ended: the hits are still MultiScanner's, in the same order."""
+    """At a capacity of one every entry overflows, so each device re-runs
+    its entries in a worker of its own; the first device's worker is held
+    back until the second's has ended: the hits are still MultiScanner's,
+    in the same order."""
     jps, tps, genome, ths = database
     seq = tlm.EncodedSequence(genome)
     want = MultiScanner(tps, seq, ths, device="cpu").scan_arrays(seq)
-    sm = tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=two_device_mesh).bind(genome)
+    sm = tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=two_device_mesh,
+                                  cap=1).bind(genome)
     assert list(sm._scanners) == [torch.device("cpu", 0), torch.device("cpu", 1)]
-    owners = [dseq.device.index for _, dseq in sm._bound["shards"]]
+    owners = [dseq.device.index for _, dseq in sm._bound.shards]
     assert owners == [0, 1] * (len(owners) // 2) + [0] * (len(owners) % 2)
     second_done, ended = threading.Event(), []
-    real = MultiScanner.dispatch
+    real = tpar.ShardedMultiScanner._collect
 
-    def dispatch(self):
-        if self.device.index == 0:
+    def collect(self, device, entries, first):
+        if device.index == 0:
             assert second_done.wait(timeout=30)
-        out = real(self)
-        ended.append(self.device.index)
-        if ended.count(1) == owners.count(1):
+        out = real(self, device, entries, first)
+        ended.append(device.index)
+        if device.index == 1:
             second_done.set()
         return out
 
-    monkeypatch.setattr(MultiScanner, "dispatch", dispatch)
+    monkeypatch.setattr(tpar.ShardedMultiScanner, "_collect", collect)
     got = sm.collect_arrays()
-    # the second device's shards ended first
-    assert ended == [1] * owners.count(1) + [0] * owners.count(0)
+    assert ended == [1, 0]  # the second device's worker ended first
     assert all(np.array_equal(a, b) for a, b in zip(got, want)) and len(got[0])
     assert sm.shard_hits.sum() == len(got[0])
 
 
 def test_a_worker_exception_reaches_the_caller(database, two_device_mesh, monkeypatch):
-    """An exception in one device's worker is raised by the call, once
-    every worker has ended."""
+    """An exception in one device's worker (its re-runs, at a capacity
+    of one) is raised by the call, once every worker has ended."""
     jps, tps, genome, ths = database
-    sm = tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=two_device_mesh).bind(genome)
-    real, ended = MultiScanner.dispatch, []
+    sm = tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=two_device_mesh,
+                                  cap=1).bind(genome)
+    real, ended = tpar.ShardedMultiScanner._collect, []
 
-    def dispatch(self):
-        if self.device.index == 1:
+    def collect(self, device, entries, first):
+        if device.index == 1:
             raise RuntimeError("the second device failed")
         time.sleep(0.05)
-        ended.append(self.device.index)
-        return real(self)
+        ended.append(device.index)
+        return real(self, device, entries, first)
 
-    monkeypatch.setattr(MultiScanner, "dispatch", dispatch)
+    monkeypatch.setattr(tpar.ShardedMultiScanner, "_collect", collect)
     with pytest.raises(RuntimeError, match="the second device failed"):
         sm.collect()
-    owners = [dseq.device.index for _, dseq in sm._bound["shards"]]
-    assert ended == [0] * owners.count(0)  # the other worker ran to its end
+    assert ended == [0]  # the other worker ran to its end
 
-    def fail(self):
+    def fail(self, device, entries, first):
         raise RuntimeError("the only device failed")
 
-    monkeypatch.setattr(MultiScanner, "dispatch", fail)
+    monkeypatch.setattr(tpar.ShardedMultiScanner, "_collect", fail)
     with pytest.raises(RuntimeError, match="the only device failed"):
-        tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=cpu_mesh(2)).scan(genome)
+        tpar.ShardedMultiScanner(tps, thresholds=ths, mesh=cpu_mesh(2), cap=1).scan(genome)
 
 
 def test_launch_counts_are_exact_under_threads():
