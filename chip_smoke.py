@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --mesh-only   # phases 1-2, 5, 8, 16-17 alone
+    python3 chip_smoke.py --mesh-only   # phases 1-2, 5, 8, 16-17, 23's mesh
+    python3 chip_smoke.py --scale-only  # phases 1-2, 23 with its sweeps
     python3 chip_smoke.py --mesh-only --parent DIR  # and phase 22
     python3 chip_smoke.py --parent DIR  # all, then phase 22 against DIR
     python3 chip_smoke.py --stages-only --parent DIR  # phases 1-3, 22
@@ -183,7 +184,31 @@ Phases, one line of output each (any failure exits non-zero):
     equal, the ``ptxas -v`` lines of both; then the steady walls of both
     checkouts, each in processes of its own, in turns (parent, change,
     change, parent): the database's ``scan_arrays`` on one card, its
-    ``ShardedMultiScanner`` on 8 shards of one card and on 1..N cards.
+    ``ShardedMultiScanner`` on 8 shards of one card and on 1..N cards;
+23. the database scan at chromosome scale (``[scale]``): the 50 Mbp
+    genome of ``bench_biggenome`` (seed 0xB16) and a seeded stand-in of
+    the 248,956,422 bp GRCh38 chromosome 1 (N runs of 10,000 at each end
+    and 18,000,000 near the middle, over whole segments), each through
+    ``MultiScanner.scan_arrays`` against the per-PSSM K1 brute force: the
+    first scan's wall, re-runs and memory, K3, phase C and the pairs
+    kernel once per (group, segment) and per re-run, one read per steady
+    ``collect_arrays`` and none in its dispatch (sync debug mode "error"),
+    the steady walls (median, p90) and one profiled steady run (busy, idle
+    share, host, top kernels); ``ShardedMultiScanner`` on 8 shards of the
+    card and, with two or more cards, on 1..N cards, equal to one card,
+    one read a call, walls in turns and each card's split; on the
+    chromosome, ``Pipeline.score_max`` against K1 plus a host scan of the
+    last maximum and ``Scanner.collect()`` at p = 1e-5 against K1 +
+    threshold + ``nonzero``; the CLI on the 50 Mbp genome as one FASTA
+    record (both strands, p = 1e-6), its rows equal to ``scan_arrays``,
+    with its split (read and encode, motif preparation, first scan, the
+    rest per hit); then what the CUDA graphs keep beside one eager scan's
+    peak on 2 segments and on all of each genome, with the same bounds as
+    phase 8.  ``--scale-only`` adds the sweeps: ``MultiScanner`` on the 50
+    Mbp genome at 2**22-2**25 window starts a segment (first scan,
+    re-runs, walls, idle share, eager peak, what the graphs keep, the
+    bacterial genome at the same segment) and the Scanner on the
+    chromosome at 2**22-2**26 and 2**28.
 
 The line before the last is a JSON object with one entry per kernel
 (launches counted on the path that runs it, with the counts reset just
@@ -285,6 +310,22 @@ BATCH_ZOOPS_SEEDS = 4
 
 # the sharded scans: shards on the one card
 MESH_SHARDS = 8
+
+# the database scan at chromosome scale: bench_biggenome's 50 Mbp genome
+# (benchmarks/run.py:679-720) and a seeded stand-in of the length of GRCh38
+# chromosome 1, uniform ACGT with N runs where a chromosome has gaps: at
+# each end, and one of CHROM_GAP (start, length) near the middle that covers
+# whole segments
+SCALE_GENOME_LENGTH = 50_000_000
+SCALE_GENOME_SEED = 0xB16
+CHROM_LENGTH = 248_956_422
+CHROM_SEED = 0xC4201
+CHROM_END_N = 10_000
+CHROM_GAP = (117_000_000, 18_000_000)
+#: steady walls per scale measurement (a chromosome scan takes ~1 s)
+SCALE_RUNS = 7
+#: window starts per segment that --scale-only's sweep compares
+SCALE_SEGMENTS = (1 << 22, 1 << 23, 1 << 24, 1 << 25)
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W),
 # for the least time a kernel's work could take
@@ -1093,62 +1134,115 @@ def phase_database(seq):
     return ms, launches, want, counts
 
 
-def graph_memory(pssms, ths, seq) -> None:
-    """The device memory that the CUDA graphs of a steady database scan
-    keep (``memory_reserved`` after four steady scans, beside before
-    them, the caching allocator's free blocks released), beside the peak
-    of one eager scan (the issue before graphs; the timing hook keeps a
-    scan eager), on prefixes of the genome of 2 and 8 segments of one
-    size.  A capture reuses the memory its work frees, so the graphs keep
-    about one eager scan's peak: this fails if they keep more than 1.5x
-    it (+64 MiB of the allocator's rounding), or if what they keep grows
-    with the number of segments faster than the eager peak does."""
+def settle() -> None:
+    """Every card's work done, garbage collected and the caching
+    allocator's free blocks released."""
     import gc
 
+    sync_all()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_pools(before=()) -> dict:
+    """The private memory pools on the current card (the CUDA graphs')
+    but those in ``before``, from the caching allocator's snapshot: per
+    pool its reserved MiB, the MiB of its live blocks (the graphs'
+    outputs), its segments and the largest of them."""
+    mib, pools = 1 << 20, {}
+    card = torch.cuda.current_device()
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        if seg.get("device", card) != card or pool == (0, 0) or pool in before:
+            continue
+        row = pools.setdefault(pool, [0, 0, 0, 0])
+        row[0] += seg["total_size"]
+        row[1] += seg.get("allocated_size", 0)
+        row[2] += 1
+        row[3] = max(row[3], seg["total_size"])
+    return {pool: {"reserved_mib": round(r / mib, 2), "live_mib": round(a / mib, 2),
+                   "segments": n, "largest_mib": round(big / mib, 2)}
+            for pool, (r, a, n, big) in pools.items()}
+
+
+def graph_row(ms, seq, want, what: str) -> dict:
+    """What the CUDA graphs of a steady scan of ``seq`` keep, beside one
+    eager scan's peak (the issue before graphs; the timing hook keeps a
+    scan eager), for a ``MultiScanner`` that has scanned ``seq`` once
+    (its capacities settled, nothing captured): ``memory_reserved`` after
+    four steady scans beside before them, with the caching allocator's
+    free blocks released (``kept``); of that, the live tensors (the
+    graphs' outputs, ``live``); the most that was allocated at once during
+    the steady scans, their captures included, beyond what was before them
+    (``steady_peak``), so that ``kept`` less it is the rounding of the
+    graphs' pool; and each pool.  Every scan's hits must equal ``want``."""
+    mib = 1 << 20
+    ms.mark = lambda stage, count: None
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    check_scan(f"{what}, eager", ms.scan_arrays(seq), want)
+    peak = torch.cuda.max_memory_allocated() - base
+    ms.mark = None
+    settle()
+    reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    before = set(graph_pools())
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):
+        check_scan(what, ms.scan_arrays(seq), want)
+    steady_peak = torch.cuda.max_memory_allocated() - allocated
+    settle()
+    kept = torch.cuda.memory_reserved() - reserved
+    return {"eager_peak_mib": round(peak / mib, 2), "graphs_keep_mib": round(kept / mib, 2),
+            "live_mib": round((torch.cuda.memory_allocated() - allocated) / mib, 2),
+            "steady_peak_mib": round(steady_peak / mib, 2),
+            "rounding_mib": round((kept - steady_peak) / mib, 2),
+            "pools": list(graph_pools(before).values()), "captured": ms.replays.captured,
+            "replayed": ms.replays.replayed,
+            "positions": seq.length if hasattr(seq, "length") else len(seq)}
+
+
+def graph_memory(pssms, ths, seq, segment: int | None = None, counts=(2, 8),
+                 phase: str = "database") -> None:
+    """The device memory that the CUDA graphs of a steady database scan
+    keep, beside the peak of one eager scan (:func:`graph_row`), on
+    prefixes of ``seq`` of ``counts`` segments of ``segment`` window
+    starts (default: an eighth of ``seq``; a count past the sequence's
+    end takes all of it).  A capture reuses the memory its work frees, so
+    the graphs keep about one eager scan's peak: this fails if they keep
+    more than 1.5x it (+64 MiB of the allocator's rounding), or if what
+    they keep grows with the number of segments faster than the eager
+    peak does."""
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
     from lightmotif_tpu_torch.scanner import MultiScanner
 
-    def settle():
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-
     mib, slack = 1 << 20, 64 << 20
-    segment = -(-len(seq) // 8)
+    segment = -(-len(seq) // 8) if segment is None else int(segment)
+    m_max = max(len(p) for p in pssms)
     rows = {}
-    for n_seg in (2, 8):
-        part = DeviceSequence(seq[: n_seg * segment + max(len(p) for p in pssms) - 1], DEVICE)
+    for n_seg in counts:
+        part = DeviceSequence(seq[: n_seg * segment + m_max - 1], DEVICE)
         ms = MultiScanner(pssms, thresholds=ths, device=DEVICE)
         ms.SEGMENT = segment
         mo, pos, sc = ms.scan_arrays(part)  # packs the groups and settles the capacities
         want = (mo, pos, (sc + np.float32(0.0)).view(np.uint32))
-        ms.mark = lambda stage, count: None
-        settle()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        check_scan(f"graph memory, {n_seg} segments, eager", ms.scan_arrays(part), want)
-        peak = torch.cuda.max_memory_allocated() - base
-        ms.mark = None
-        settle()
-        reserved = torch.cuda.memory_reserved()
-        for _ in range(4):
-            check_scan(f"graph memory, {n_seg} segments", ms.scan_arrays(part), want)
-        settle()
-        kept = torch.cuda.memory_reserved() - reserved
-        rows[n_seg] = {"eager_peak_mib": round(peak / mib, 2), "graphs_keep_mib":
-                       round(kept / mib, 2), "captured": ms.replays.captured,
-                       "replayed": ms.replays.replayed, "positions": part.length}
-        if kept > 1.5 * peak + slack:
-            raise SystemExit(f"graph memory, {n_seg} segments: the graphs keep {kept / mib:.1f}"
-                             f" MiB, one eager scan peaks at {peak / mib:.1f} MiB")
+        rows[n_seg] = graph_row(ms, part, want, f"graph memory, {n_seg} segments")
         del ms, part
         settle()
-    grew = rows[8]["graphs_keep_mib"] - rows[2]["graphs_keep_mib"]
-    peak_grew = rows[8]["eager_peak_mib"] - rows[2]["eager_peak_mib"]
+    log(phase, check="the graphs of a steady scan keep about one eager scan's peak, "
+        "however many segments", segment=segment,
+        **{f"segments_{n}": json.dumps(r) for n, r in rows.items()})
+    for n_seg, row in rows.items():
+        if row["graphs_keep_mib"] > 1.5 * row["eager_peak_mib"] + slack / mib:
+            raise SystemExit(f"graph memory, {n_seg} segments: the graphs keep "
+                             f"{row['graphs_keep_mib']} MiB, one eager scan peaks at "
+                             f"{row['eager_peak_mib']} MiB")
+    small, large = (rows[n] for n in counts)
+    grew = large["graphs_keep_mib"] - small["graphs_keep_mib"]
+    peak_grew = large["eager_peak_mib"] - small["eager_peak_mib"]
     if grew * mib > 1.5 * max(peak_grew, 0.0) * mib + slack:
-        raise SystemExit(f"graph memory: what the graphs keep grows with the segments {rows}")
-    log("database", check="the graphs of a steady scan keep about one eager scan's peak, "
-        "however many segments", segment=segment, **{f"segments_{n}": r for n, r in rows.items()})
+        raise SystemExit(f"graph memory: what the graphs keep grows with the segments: "
+                         f"{grew:.2f} MiB, the eager peak {peak_grew:.2f} MiB")
 
 
 class ModeDatabase:
@@ -1591,8 +1685,6 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
     import tempfile
 
     from lightmotif_tpu_torch import CountMatrix, EncodedSequence
-    from lightmotif_tpu_torch.ops import multi
-    from lightmotif_tpu_torch.scanner import MultiScanner
 
     work = tempfile.mkdtemp(prefix="chip-smoke-cli-")
     try:
@@ -1617,16 +1709,7 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
             files=",".join(f"{os.path.basename(f)}={os.path.getsize(f)}" for f in
                            (db_file, genome_fa, records_fa, mx_file)))
 
-        k = ms.pssms[0].alphabet.size
-        short, _ = multi.route_motifs(ms.pssm_stack, ms.lengths, ms.thresholds, k,
-                                      MultiScanner.dense_m_limit(k))
-        size = MultiScanner.GROUP_MOTIFS
-        group_min_m = [int(ms.lengths[short[s:s + size]].min())
-                       for s in range(0, short.size, size)]
-
-        def k3_launches(length):
-            return sum(-(-max(length - m + 1, 0) // MultiScanner.SEGMENT)
-                       for m in group_min_m)
+        k3_launches = functools.partial(cli_group_steps, ms)
 
         def to_ids(motif, reverse):
             return motif + DB_MOTIFS * reverse
@@ -2370,11 +2453,12 @@ def stage_split(scanners, fn) -> dict:
     return out
 
 
-def walls_in_turns(sharded, single) -> tuple:
+def walls_in_turns(sharded, single, runs: int = RUNS) -> tuple:
     """Median walls (ms) of two callables in turns (single, sharded,
-    sharded, single): the lower median of each, and all four."""
+    sharded, single), ``runs`` each: the lower median of each, and all
+    four."""
     med = statistics.median
-    a1, b1, b2, a2 = wall_ms(single), wall_ms(sharded), wall_ms(sharded), wall_ms(single)
+    a1, b1, b2, a2 = (wall_ms(fn, runs) for fn in (single, sharded, sharded, single))
     return (f"{min(med(b1), med(b2)):.4f}", f"{min(med(a1), med(a2)):.4f}",
             f"sharded={med(b1):.4f},{med(b2):.4f} single={med(a1):.4f},{med(a2):.4f}")
 
@@ -3634,6 +3718,432 @@ def phase_score_probes(pssm, seq, ms, times) -> dict:
     return out
 
 
+def scale_genomes() -> list:
+    """``(name, EncodedSequence)`` of the scale phase's two genomes: the
+    50 Mbp genome of ``bench_biggenome`` and the chromosome stand-in."""
+    from lightmotif_tpu_torch import DNA, EncodedSequence
+
+    def uniform(seed, n):
+        return np.random.default_rng(seed).integers(0, 4, size=n, dtype=np.int8).astype(np.uint8)
+
+    chrom = uniform(CHROM_SEED, CHROM_LENGTH)
+    start, length = CHROM_GAP
+    for lo, hi in ((0, CHROM_END_N), (start, start + length),
+                   (CHROM_LENGTH - CHROM_END_N, CHROM_LENGTH)):
+        chrom[lo:hi] = DNA.default_index
+    return [("genome_50mbp", EncodedSequence(uniform(SCALE_GENOME_SEED, SCALE_GENOME_LENGTH))),
+            ("chromosome", EncodedSequence(chrom))]
+
+
+def memory_mib() -> dict:
+    """The current card's allocated peak since the last reset and its
+    reserved memory, in MiB."""
+    return {"max_allocated_mib": round(torch.cuda.max_memory_allocated() / (1 << 20), 2),
+            "reserved_mib": round(torch.cuda.memory_reserved() / (1 << 20), 2)}
+
+
+def wall_stats(walls) -> dict:
+    return {"median_ms": f"{statistics.median(walls):.4f}",
+            "p90_ms": f"{float(np.percentile(walls, 90)):.4f}",
+            "runs": ",".join(f"{w:.2f}" for w in walls)}
+
+
+def steady_profile(fn) -> dict:
+    """One profiled steady run of ``fn`` (:func:`profiled`): its wall, the
+    card's busy ms, its idle share, the host's ms and the top kernels."""
+    wall, prof = profiled(fn)
+    busy, kernels, n_events, _ = trace_kernels(prof)
+    return {"wall_ms": round(wall, 4), "device_busy_ms": round(busy, 4),
+            "idle_share": round(1 - busy / wall, 4), "host_ms": round(wall - busy, 4),
+            "device_events": n_events,
+            "top_kernels_ms": json.dumps({k: round(v, 4) for k, v in kernels[:6]})}
+
+
+def segments_of(ms, length: int) -> int:
+    """The segments of a scan of ``length`` positions by ``ms``: those of
+    its shortest motif."""
+    return -(-max(length - int(ms.lengths.min()) + 1, 0) // int(ms.SEGMENT))
+
+
+def group_steps_of(ms) -> int:
+    """The (group, segment) steps of a scan of the scanner's bound
+    sequence."""
+    return sum(isinstance(key, int) for _, key, _ in ms._steps(ms._dseq, ms._owned))
+
+
+def scale_database(name, seq, pssms, ths) -> tuple:
+    """The database through ``MultiScanner.scan_arrays`` on one scale
+    genome: the first scan (wall, re-runs, memory) with K3, phase C and the
+    pairs kernel once per (group, segment) and per re-run; its hits equal
+    to the per-PSSM brute force; a steady scan (a graph replay) launching
+    each once per (group, segment); one read per steady ``collect_arrays``
+    and none in its dispatch (sync debug mode "error",
+    :func:`dispatch_no_reads`); the steady walls and one profiled steady
+    run.  Returns the scanner, the brute force's hits and the first scan's
+    launches."""
+    from lightmotif_tpu_torch.ops import multi
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    ms = MultiScanner(pssms, thresholds=ths, device=DEVICE)
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = ms.scan_arrays(seq)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, reruns = launch_counts(), dict(multi.RERUNS)
+    steps = group_steps_of(ms)
+    want_launches = group_launches(steps)
+    if {k: launches[k] for k in want_launches} != want_launches or launches["score_f32"]:
+        raise SystemExit(f"scale {name}: first scan launches {launches}, re-runs {reruns}, "
+                         f"{steps} (group, segment) steps")
+    log("scale", genome=name, check="MultiScanner.scan_arrays, first scan", positions=len(seq),
+        segment=ms.SEGMENT, steps=steps, groups=len(ms._groups), hits=len(got[0]),
+        first_scan_s=f"{first_s:.3f}", reruns=reruns, launches=launches,
+        capacities=ms._group_state, first_scan_reads=ms.host_reads, **memory_mib())
+
+    t0 = time.perf_counter()
+    want = brute_force(pssms, ths, ms._dseq)
+    brute_s = time.perf_counter() - t0
+    check_scan(f"scale {name}", got, want)
+    log("scale", genome=name, check="scan_arrays == per-PSSM K1 brute force", hits=len(want[0]),
+        brute_force_s=f"{brute_s:.3f}")
+
+    reset_launches()
+    check_scan(f"scale {name}, the capture", ms.collect_arrays(), want)
+    steady = {k: launch_counts()[k] for k in want_launches}
+    if steady != group_launches(steps) or multi.RERUNS["group"]:
+        raise SystemExit(f"scale {name}: a replay's launches {steady}, re-runs {multi.RERUNS}")
+    log("scale", genome=name, check="a replay launches each kernel once per (group, segment)",
+        launches=steady)
+    dispatch_no_reads(ms, seq, want, "scale")
+    walls = wall_ms(ms.collect_arrays, SCALE_RUNS)
+    log("scale", genome=name, op="MultiScanner.collect_arrays, steady", **wall_stats(walls),
+        positions_per_s=f"{len(seq) / statistics.median(walls) * 1e3:.4g}",
+        pssm_positions_per_s=f"{len(pssms) * len(seq) / statistics.median(walls) * 1e3:.4g}")
+    log("scale", genome=name, profile="one steady collect_arrays", **steady_profile(
+        ms.collect_arrays), **memory_mib())
+    return ms, want, launches
+
+
+def scale_sweep(name, seq, pssms, ths, want, ecoli) -> None:
+    """``MultiScanner`` at each of :data:`SCALE_SEGMENTS` window starts per
+    segment on one scale genome: its first scan's wall and re-runs, the
+    hits equal to ``want``, one eager scan's peak and what the graphs keep
+    (:func:`graph_row`), the steady walls, one profiled steady run's idle
+    share; and beside it the steady walls on the bacterial genome
+    ``ecoli`` at the same segment."""
+    from lightmotif_tpu_torch.ops import multi
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    for segment in SCALE_SEGMENTS:
+        ms = MultiScanner(pssms, thresholds=ths, device=DEVICE)
+        ms.SEGMENT = segment
+        settle()
+        multi.reset_reruns()
+        t0 = time.perf_counter()
+        check_scan(f"sweep {segment}", ms.scan_arrays(seq), want)
+        first_s = time.perf_counter() - t0
+        reruns = dict(multi.RERUNS)
+        row = graph_row(ms, seq, want, f"sweep {segment}")
+        walls = wall_ms(ms.collect_arrays, SCALE_RUNS)
+        prof = steady_profile(ms.collect_arrays)
+        bacterial = MultiScanner(pssms, thresholds=ths, device=DEVICE)
+        bacterial.SEGMENT = segment
+        bacterial.scan_arrays(ecoli)
+        e_walls = wall_ms(bacterial.collect_arrays)
+        log("sweep", genome=name, segment=segment, segments=segments_of(ms, len(seq)),
+            first_scan_s=f"{first_s:.3f}", reruns=reruns, **wall_stats(walls),
+            idle_share=prof["idle_share"], host_ms=prof["host_ms"],
+            device_busy_ms=prof["device_busy_ms"], eager_peak_mib=row["eager_peak_mib"],
+            graphs_keep_mib=row["graphs_keep_mib"], rounding_mib=row["rounding_mib"],
+            ecoli_segments=segments_of(bacterial, len(ecoli)),
+            ecoli_median_ms=f"{statistics.median(e_walls):.4f}",
+            ecoli_p90_ms=f"{float(np.percentile(e_walls, 90)):.4f}")
+        del ms, bacterial
+        settle()
+
+
+def scale_single(pssm, seq, sweep: bool) -> dict:
+    """MX000001 on a scale genome: ``Pipeline.score_max`` (K1 once)
+    against K1 plus a host scan of the last maximum, ``Scanner.collect()``
+    at p = 1e-5 (K2 once per segment of ``DEFAULT_SEGMENT``) against K1 +
+    threshold + ``nonzero`` on the card, their walls; with ``sweep``, the
+    Scanner at each of :data:`SCALE_SEGMENTS` and two larger segments.
+    Returns the launches of the two drives."""
+    from lightmotif_tpu_torch import Scanner
+    from lightmotif_tpu_torch.ops import kernels
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence, Pipeline
+
+    dseq = DeviceSequence(seq, DEVICE)
+    n = dseq.length - len(pssm) + 1
+    t = pssm.score_distribution().score(1e-5)
+    w = torch.from_numpy(np.ascontiguousarray(pssm.data, np.float32)).to(DEVICE)
+    scores = kernels.score_f32(dseq.data, w, n)[:n]
+    host = scores.cpu().numpy()
+    top = host.max()
+    tops = np.flatnonzero(host == top)
+    last = int(tops[-1])
+    hit = torch.nonzero(scores >= torch.tensor(t, device=DEVICE)).flatten()
+    want_pos, want_bits = hit.cpu().numpy(), (scores[hit] + 0.0).cpu().numpy().view(np.uint32)
+    del scores, host
+
+    reset_launches()
+    mx, am = Pipeline(DEVICE).score_max(pssm, seq)
+    total = dict(launch_counts())
+    if am != last or f32_bits(mx) != f32_bits(top) or total["score_f32"] != 1:
+        raise SystemExit(f"scale score_max: ({mx}, {am}) against ({top}, {last}), "
+                         f"launches {total}")
+    walls = wall_ms(lambda: Pipeline(DEVICE).score_max(pssm, dseq), SCALE_RUNS)
+    log("scale", check="Pipeline.score_max == K1 + a host scan of the last maximum",
+        positions=len(seq), argmax=am, bits=hex(f32_bits(mx)),
+        positions_at_the_maximum=len(tops),
+        resident=wall_stats(walls)["median_ms"], launches=total)
+
+    def collect(scanner, what):
+        reset_launches()
+        hits = scanner.collect()
+        launches = launch_counts()
+        pos = np.array([h.position for h in hits], dtype=np.int64)
+        bits = (np.array([h.score for h in hits], dtype=np.float32) + np.float32(0.0)).view(
+            np.uint32)
+        if not (np.array_equal(pos, want_pos) and np.array_equal(bits, want_bits)):
+            raise SystemExit(f"scale {what}: {len(hits)} hits vs {len(want_pos)}")
+        return launches
+
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    scanner = Scanner(pssm, seq, threshold=t)
+    segments = -(-n // scanner.block_size)
+    launches = collect(scanner, "Scanner.collect")
+    if launches["score_u8"] != segments:
+        raise SystemExit(f"scale Scanner.collect: launches {launches}, {segments} segments")
+    for name, v in launches.items():
+        total[name] = total.get(name, 0) + v
+    scanner = Scanner(pssm, dseq, threshold=t)
+    log("scale", check="Scanner.collect == K1 + threshold + nonzero on the card", threshold=t,
+        hits=len(want_pos), segments=segments, segment=scanner.block_size, launches=launches,
+        **wall_stats(wall_ms(scanner.collect, SCALE_RUNS)), **memory_mib())
+    if sweep:
+        for block in (*SCALE_SEGMENTS, 1 << 26, 1 << 28):
+            settle()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            scanner = Scanner(pssm, dseq, threshold=t, block_size=block)
+            collect(scanner, f"Scanner.collect, block_size {block}")
+            peak = torch.cuda.max_memory_allocated() - base
+            log("sweep", op="Scanner.collect", positions=len(seq), block_size=block,
+                segments=-(-n // block), peak_mib=round(peak / (1 << 20), 2),
+                **wall_stats(wall_ms(scanner.collect, SCALE_RUNS)))
+    return total
+
+
+def scale_sharded(name, seq, ms, want) -> dict:
+    """``ShardedMultiScanner`` on a scale genome: on MESH_SHARDS shards of
+    the first card and, with two or more cards, on 1..N cards, one shard
+    each: its hits equal to ``want`` (the single-card hits), K3, phase C and
+    the pairs kernel once per (group, shard, segment), one read per steady
+    ``collect_arrays`` and none in its issue (sync debug mode "error"),
+    its walls in turns with ``ms`` (the single-card ``MultiScanner``, bound
+    to ``seq``), and one profiled run's split per card.  Returns the first
+    scans' launches."""
+    from lightmotif_tpu_torch.parallel import ShardedMultiScanner, make_genome_mesh
+
+    cards = make_genome_mesh()
+    meshes = [(f"{MESH_SHARDS} shards of one card", [cards[0]] * MESH_SHARDS)]
+    if len(cards) > 1:
+        meshes += [(f"{k} cards", cards[:k]) for k in range(1, len(cards) + 1)]
+    else:
+        log("scale", genome=name, multi_card=f"not run, {len(cards)} device")
+    total, walls = {}, {}
+    for label, mesh in meshes:
+        reset_launches()
+        t0 = time.perf_counter()
+        sm = ShardedMultiScanner(ms.pssms, thresholds=ms.thresholds, mesh=mesh)
+        got = sm.scan_arrays(seq)
+        sync_all()
+        first_s = time.perf_counter() - t0
+        launches = launch_counts()
+        want_launches = group_launches(mesh_k3_launches(sm))
+        if {k: launches[k] for k in want_launches} != want_launches:
+            raise SystemExit(f"scale {name}, {label}: launches {launches}, "
+                             f"expected {want_launches}")
+        check_scan(f"scale {name}, ShardedMultiScanner on {label}", got, want)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        mesh_issue_no_reads(sm, want, "scale")
+        sharded_ms, single_ms, runs = walls_in_turns(
+            sm.collect_arrays, lambda: ms.scan_arrays(seq), SCALE_RUNS)
+        walls[label] = (len(set(mesh)), float(sharded_ms))
+        wall, prof = profiled(sm.collect_arrays)
+        run_ms, per_card, _ = card_split(prof, list(dict.fromkeys(mesh)))
+        log("scale", genome=name, check="ShardedMultiScanner == one card; one read a call",
+            mesh=label, shards=len(sm._bound.shards), first_scan_s=f"{first_s:.3f}",
+            launches=launches, sharded_ms=sharded_ms, single_ms=single_ms, runs=runs,
+            profiled_wall_ms=f"{wall:.4f}", per_card=json.dumps(
+                [{k: v for k, v in c.items() if k != "idle_host"} for c in per_card]))
+        del sm
+        settle()
+    if len(cards) > 1:
+        one = walls["1 cards"][1]
+        log("scale", genome=name, scaling="ShardedMultiScanner.collect_arrays, one card's "
+            "wall / (cards x the wall)", **{f"cards_{k}": f"{one / (k * w):.3f}"
+                                            for label, (k, w) in walls.items()
+                                            if label.endswith("cards")})
+    return total
+
+
+def scale_cli(seq, counts, ms, want) -> dict:
+    """The CLI on the scale genome as one FASTA record against the
+    database written as JASPAR16, both strands at p = 1e-6 (``cli.main``
+    in this process): its TSV rows equal to ``want`` (the scanner's hits;
+    the p-values are ``dist.pvalue``'s), K3, phase C and the pairs kernel
+    once per (group, segment) and per re-run; and its split: the record
+    read and encoded as the CLI's reader does it and by the native
+    one-pass reader (each with its rate), the motifs' preparation, the
+    first scan of the CLI's scanner (packing included), and the rest of
+    the CLI's record (a ``MultiHit``, a p-value and a row per hit), from
+    its own ``cli_timing``.  Returns the CLI run's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from lightmotif_tpu_torch import EncodedSequence, cli, fasta
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-scale-cli-")
+    try:
+        db_file = os.path.join(work, "database.jaspar16")
+        write_jaspar16(db_file, counts, "SY")
+        genome_fa = os.path.join(work, "genome.fa")
+        write_fasta(genome_fa, [("genome", seq)])
+        fa_bytes = os.path.getsize(genome_fa)
+        split = {}
+
+        def timed(key, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            split[key] = time.perf_counter() - t0
+            return out
+
+        records = timed("read_encode_s", lambda: [
+            EncodedSequence.encode_lossy(r.sequence) for r in fasta.read_fasta(genome_fa)])
+        native = timed("native_read_encoded_s", lambda: fasta.read_fasta_encoded(genome_fa))
+        if not (np.array_equal(records[0].data, seq.data)
+                and np.array_equal(native[0][2].data, seq.data)):
+            raise SystemExit("scale cli: the FASTA record does not encode to the genome")
+        args = cli.build_parser().parse_args(
+            ["-m", db_file, "--format", "jaspar16", "-s", genome_fa, "-o", "-",
+             "-P", str(DB_PVALUE), "--reverse"])
+        jobs = timed("prepare_motifs_s", lambda: cli.prepare_motifs(args))
+        strands = cli._build_strands(jobs, args)
+        timed("first_scan_s", lambda: MultiScanner(
+            [p for _, _, p in strands], thresholds=[j.threshold for j, _, _ in strands],
+            single_bucket=True, device=DEVICE).scan_arrays(records[0]))
+        del records, native
+
+        out = os.path.join(work, "genome.tsv")
+        launches, wall, timing = run_cli(
+            ["-m", db_file, "--format", "jaspar16", "-s", genome_fa, "-o", out,
+             "-P", str(DB_PVALUE), "--reverse"], "scale database x genome")
+        t0 = time.perf_counter()
+        si, mo, rev, pos, bits = cli_rows(out)
+        parse_s = time.perf_counter() - t0
+        ids = mo + DB_MOTIFS * rev
+        order = np.lexsort((pos, ids))
+        if not (np.array_equal(ids[order], want[0]) and np.array_equal(pos[order], want[1])
+                and np.array_equal(bits[order], want[2]) and not si.any()):
+            raise SystemExit(f"scale cli: rows != scan_arrays ({len(pos)} rows vs "
+                             f"{len(want[0])})")
+        expect = group_launches(cli_group_steps(ms, len(seq)))
+        if {name: launches[name] for name in expect} != expect:
+            raise SystemExit(f"scale cli: launches {launches}, expected {expect}")
+        rest = timing["startup_s"] - split["read_encode_s"] - split["first_scan_s"]
+        log("scale", check="the CLI's TSV rows == scan_arrays", rows=len(pos),
+            fasta_bytes=fa_bytes, wall_s=f"{wall:.3f}", launches=launches,
+            cli_timing=json.dumps(timing), tsv_parse_s=f"{parse_s:.3f}")
+        log("scale", split="the CLI on one record", **{k: f"{v:.3f}" for k, v in split.items()},
+            read_encode_mb_s=f"{fa_bytes / split['read_encode_s'] / 1e6:.1f}",
+            native_mb_s=f"{fa_bytes / split['native_read_encoded_s'] / 1e6:.1f}",
+            rest_s=f"{rest:.3f}", rest_us_per_hit=f"{rest / max(len(pos), 1) * 1e6:.2f}")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def cli_group_steps(ms, length: int) -> int:
+    """The (group, segment) steps of the CLI's database scan of a record of
+    ``length`` symbols: the groups of ``ms``'s motifs as the CLI's scanner
+    routes them, each over the segments of its shortest motif."""
+    from lightmotif_tpu_torch.ops import multi
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    k = ms.pssms[0].alphabet.size
+    short, _ = multi.route_motifs(ms.pssm_stack, ms.lengths, ms.thresholds, k,
+                                  MultiScanner.dense_m_limit(k))
+    size = MultiScanner.GROUP_MOTIFS
+    return sum(-(-max(length - int(ms.lengths[short[s:s + size]].min()) + 1, 0)
+                 // MultiScanner.SEGMENT) for s in range(0, short.size, size))
+
+
+def phase_scale(pssm, pssms, ths, counts, ecoli, sweep: bool = False) -> dict:
+    """The database scan at chromosome scale, and the paths beside it:
+    on the 50 Mbp genome and on the chromosome, ``MultiScanner``
+    (:func:`scale_database`), what its graphs keep on 2 segments and on
+    all of them (:func:`graph_memory`), ``ShardedMultiScanner``
+    (:func:`scale_sharded`); MX000001 on the chromosome
+    (:func:`scale_single`); the CLI on the 50 Mbp genome
+    (:func:`scale_cli`).  With ``sweep``, ``MultiScanner`` on the 50 Mbp
+    genome and the Scanner on the chromosome at each segment size.  Returns
+    the launches of every drive."""
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    genomes = scale_genomes()
+    log("scale", genomes=",".join(f"{n}={len(s)}" for n, s in genomes),
+        chromosome_n=int((np.asarray(genomes[1][1].data) == 4).sum()),
+        inputs_s=f"{time.perf_counter() - t0:.3f}")
+    segments = {}
+    for name, seq in genomes:
+        ms, want, launches = scale_database(name, seq, pssms, ths)
+        add(launches)
+        segments[name] = segments_of(ms, len(seq))
+        if sweep and name == "genome_50mbp":
+            scale_sweep(name, seq, pssms, ths, want, ecoli)
+        add(scale_sharded(name, seq, ms, want))
+        if name == "chromosome":
+            add(scale_single(pssm, seq, sweep))
+        else:
+            add(scale_cli(seq, counts, ms, want))
+        del ms, want
+        settle()
+    for name, seq in genomes[::-1]:
+        graph_memory(pssms, ths, seq, MultiScanner.SEGMENT, (2, segments[name]), phase="scale")
+    log("scale", launches=total, seconds=f"{time.perf_counter() - t0:.3f}")
+    return total
+
+
+def scale_only() -> int:
+    """The build, then :func:`phase_scale` with its sweeps."""
+    phase_card()
+    phase_build()
+    pssm, ecoli = build_inputs()
+    pssms, ths, counts = synthetic_database(DB_MOTIFS, DB_SEED)
+    phase_scale(pssm, pssms, ths, counts, ecoli, sweep=True)
+    print(json.dumps({"ok": True, "scale_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3643,11 +4153,14 @@ def main(argv: list) -> int:
     mode = argv[:-2] if parent is not None else argv
     if mode == ["--mesh-only"]:
         return mesh_only(parent)
+    if mode == ["--scale-only"] and parent is None:
+        return scale_only()
     if mode == ["--stages-only"] and parent is not None:
         return stages_only(parent)
     if mode:
         print(f"chip_smoke: unknown arguments {argv} (--mesh-only [--parent DIR], "
-              "--parent DIR, --stages-only --parent DIR, or none)", file=sys.stderr)
+              "--scale-only, --parent DIR, --stages-only --parent DIR, or none)",
+              file=sys.stderr)
         return 2
     phase_card()
     phase_imports()
@@ -3685,6 +4198,8 @@ def main(argv: list) -> int:
     phase_host_cost(pssm, seq)
     probe_entries = phase_probes(ms, seq, times)
     probe_entries.update(phase_score_probes(pssm, seq, ms, times))
+    for name, n in phase_scale(pssm, ms.pssms, ms.thresholds, counts, seq).items():
+        launches[name] += n
     if parent is not None:
         phase_parent(parent)
     sources = {"score_f32": (SOURCE, REPLACES), "score_u8": (SOURCE, REPLACES),
@@ -3726,8 +4241,12 @@ def stages_only(parent: str) -> int:
 def mesh_only(parent: str | None = None) -> int:
     """The sharded scans alone, with what they are held to: the build,
     the Scanner's and the database's single-device hits, then the mesh
-    phases (for a run on several cards), and with ``parent`` the walls
-    against that checkout (:func:`phase_parent`)."""
+    phases (for a run on several cards), the sharded database scan of the
+    scale phase's two genomes against ``MultiScanner`` on the first card
+    (:func:`scale_sharded`), and with ``parent`` the walls against that
+    checkout (:func:`phase_parent`)."""
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
     phase_card()
     phase_build()
     pssm, seq = build_inputs()
@@ -3736,6 +4255,12 @@ def mesh_only(parent: str | None = None) -> int:
     phase_mesh(pssm, seq, ms, scanner_hits, brute)
     phase_mesh_cards(pssm, seq, ms, scanner_hits, brute, counts)
     phase_mesh_procs(scanner_hits, brute)
+    for name, genome in scale_genomes():
+        single = MultiScanner(ms.pssms, thresholds=ms.thresholds, device=DEVICE)
+        mo, pos, sc = single.scan_arrays(genome)
+        scale_sharded(name, genome, single, (mo, pos, (sc + np.float32(0.0)).view(np.uint32)))
+        del single
+        settle()
     if parent is not None:
         phase_parent(parent)
     print(json.dumps({"ok": True, "mesh_only": True, "device": {

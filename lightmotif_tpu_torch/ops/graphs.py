@@ -15,12 +15,19 @@ the last one's graphs, so a capacity that grows leaves nothing behind.
 Under a key each piece of work (``name``) runs eagerly at its first
 issue (which also sets each kernel's attributes on the device), is
 captured on a side stream of its device at its second, and replayed
-after that.  A sequence scanned once is never captured.  A capture
-reuses the memory its work frees, in a pool of its own, so a graph holds
-about what one eager run of its work needs at its peak.  Its outputs are
-static tensors, which each replay writes again (with the same values: a
-key's work depends only on its inputs and capacities).  Nothing falls
-back: a capture that fails raises.
+after that.  A sequence scanned once is never captured.  A graph's
+outputs are static tensors, which each replay writes again (with the same
+values: a key's work depends only on its inputs and capacities).  Nothing
+falls back: a capture that fails raises.
+
+The graphs of a key share one memory pool.  A capture reuses the memory
+its own work frees and the scratch of the graphs captured before it
+(never their outputs, which stay allocated), so the dispatch's graph and
+the merge that reads its outputs hold together about what one eager scan
+needs at its peak, not the sum of both peaks.  A later graph's outputs
+may lie in an earlier one's scratch: they are valid until an earlier
+graph of the key replays again, and a caller reads them before that (the
+fetch reads the merge's output as soon as it is replayed).
 
 A kernel wrapper called while a graph is recorded launches nothing; it
 adds to the recording's tally (:func:`.kernels.recording`), and each
@@ -51,6 +58,9 @@ class _Graph:
 #: The state of work issued once: run eagerly, captured at the next issue.
 _WARM = object()
 
+#: Where a key's work keeps the memory pool its graphs share.
+_POOL = object()
+
 
 class Replays:
     """The CUDA graphs of one device, per (owner, tag) at one key.
@@ -66,7 +76,8 @@ class Replays:
 
     def _work(self, owner, tag, key) -> dict:
         """``{name: _WARM | _Graph | memo}`` of (``owner``, ``tag``) at
-        ``key``; a new key drops the last key's."""
+        ``key``, and its graphs' memory pool; a new key drops the last
+        key's."""
         sets = self._sets.setdefault(owner, {})
         held = sets.get(tag)
         if held is None or held[0] != key:
@@ -103,7 +114,9 @@ class Replays:
         work = self._work(owner, tag, key)
         step = work[name]
         if step is _WARM:
-            step = work[name] = self._capture(fn)
+            if _POOL not in work:
+                work[_POOL] = torch.cuda.graph_pool_handle()
+            step = work[name] = self._capture(fn, work[_POOL])
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             step.graph.replay()
         kernels.count_replay(step.tally)
@@ -119,15 +132,15 @@ class Replays:
             work[name] = fn()
         return work[name]
 
-    def _capture(self, fn: Callable) -> _Graph:
-        """Record ``fn()``'s work into a new graph on the side stream, with
-        a memory pool of its own.  Raises what the capture raised."""
+    def _capture(self, fn: Callable, pool) -> _Graph:
+        """Record ``fn()``'s work into a new graph on the side stream, its
+        memory in ``pool``.  Raises what the capture raised."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         graph, tally = torch.cuda.CUDAGraph(), []
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             with kernels.recording(tally):
-                graph.capture_begin()
+                graph.capture_begin(pool=pool)
                 try:
                     out = fn()
                 except BaseException:

@@ -29,11 +29,15 @@ from .ops.pipeline import DeviceSequence, as_device_seq, resolve_device
 
 __all__ = ["Hit", "Scanner", "MultiHit", "MultiScanner"]
 
-#: Window starts per segment.  It bounds the scan's scratch memory
-#: (about 14 bytes per window start: the int32 discrete scores, the
-#: candidate mask and the halo-padded ranks); a bacterial genome is
-#: one segment.
-DEFAULT_SEGMENT = 1 << 24
+#: Window starts per segment of the ``Scanner``.  It bounds the scan's
+#: scratch memory (about 9 bytes per window start at its peak: the int32
+#: discrete scores and the candidate mask), and each segment reads the
+#: device once more (its candidate count), so fewer segments scan faster:
+#: on an NVIDIA H100 a 248,956,422 bp chromosome scans in 4 segments of
+#: 2**26 in half the time of 15 of 2**24, and in one of 2**28 only a fifth
+#: faster with four times the memory (``chip_smoke.py --scale-only``).  A
+#: bacterial genome is one segment.
+DEFAULT_SEGMENT = 1 << 26
 
 #: Seed capacity of the database scan's fixed-size buffers (candidates
 #: per segment of a motif group, hits per dense motif), the JAX
@@ -312,9 +316,17 @@ class MultiScanner:
     #: prefilter geometry serves (DNA m <= 128, protein m <= 32).
     DENSE_M_LIMIT: int | None = None
 
-    #: Window starts per segment (the K3 output is 4 bytes per window
-    #: start); a bacterial genome is one segment.
-    SEGMENT = DEFAULT_SEGMENT
+    #: Window starts per segment.  A segment's scratch grows with it (the
+    #: prefilter's output, 4 bytes per window start; phase C's pass bits,
+    #: 512 bytes per candidate of a 2,048-lane group).  On an NVIDIA H100
+    #: the steady wall of a 50 Mbp genome against a 4,692-PSSM database
+    #: is flat from 2**22 to 2**25 window starts a segment, and one eager
+    #: scan's peak memory is least at 2**23 (``chip_smoke.py
+    #: --scale-only``).  At 2**23 a bacterial genome is one segment, and a
+    #: segment's candidate capacity (at most every window start) stays
+    #: inside the int32 guard of 2,048-lane groups
+    #: (:func:`~.ops.multi._check_capacities`).
+    SEGMENT = 1 << 23
 
     def __init__(self, pssms, seq=None, thresholds=0.0,
                  capacity: int = DEFAULT_CAPACITY,
