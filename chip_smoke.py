@@ -7,6 +7,8 @@
     python3 chip_smoke.py --mesh-only --parent DIR  # and phase 22
     python3 chip_smoke.py --parent DIR  # all, then phase 22 against DIR
     python3 chip_smoke.py --stages-only --parent DIR  # phases 1-3, 22
+    python3 chip_smoke.py --one-pssm-cards [--parent DIR]  # 1-2, 5, 16's
+        # one-PSSM sharded scans on 1..N cards, 22's one-PSSM walls
 
 Phases, one line of output each (any failure exits non-zero):
 
@@ -14,7 +16,7 @@ Phases, one line of output each (any failure exits non-zero):
    versions; every module of the port imported, with no JAX;
 2. build: ``nvcc`` compiles ``lightmotif_tpu_torch/ops/csrc/*.cu`` for
    ``sm_90a``, one process per source, all at once: first the production
-   build (``score.cu``, ``prefilter.cu``, ``phase_c.cu``, ``pairs.cu``),
+   build (``score.cu``, ``scan.cu``, ``prefilter.cu``, ``phase_c.cu``, ``pairs.cu``),
    then the probe build (``probes.cu``), each with its own seconds;
 3. SASS: ``cuobjdump -sass`` of the prefilter library, the tensor-core
    instructions (``IMMA``) of every instantiation of the tensor-core
@@ -22,21 +24,32 @@ Phases, one line of output each (any failure exits non-zero):
    hold some; the lookup kernel of probe P7 holds none), and phase C's
    kernel (``phase_c.cu``); of the scoring library, K1's production
    instantiation adds with ``FADD`` and has no ``FFMA`` (no
-   contraction), K2's looks up with ``PRMT``; the pairs library adds
-   with ``FADD`` and has no ``FFMA``; the ``ptxas -v`` registers and
-   spills of phase C's and the pairs library's kernels;
+   contraction), K2's looks up with ``PRMT``; the pairs library and C3's
+   (``scan.cu``) add with ``FADD`` and have no ``FFMA``; the ``ptxas -v``
+   registers and spills of phase C's, the pairs library's and C3's
+   kernels;
 4. K1 and K2 against their plain PyTorch versions on the card
    (``torch.equal``): DNA (through the production instantiations, and the
    generic one past K2's m = 257), protein, k = 7 and k = 256 tables,
    random sequences with ranks >= K and wildcard runs, ragged
-   ``n_scores``, and the main path's own shapes;
+   ``n_scores``, and the main path's own shapes; then C3, the
+   Scanner's compaction, rescore and keep (``scan.cu``), against its plain
+   version (``torch.equal`` of the counters and the kept hits): DNA,
+   protein, k = 7 and k = 256 tables, candidate counts below, at and
+   above the capacity, threshold -inf, ragged lengths, wildcard runs,
+   exact zero sums (+0.0 bits), and the genome's one segment at p = 1e-5
+   and at p = 1e-2 (kept hits past a Scanner's first head);
 5. the main path at full size: an E. coli-sized genome (4,641,652 bp,
    seed 0xECC011) against PRODORIC MX000001 -- full-genome bit parity
    of ``pssm.score`` with the sequential host oracle, the known best
    hit (position 3,254,602, f32 bits 0x4197E448, which must win the
-   exact tie with position 2,558,379), and the two-pass ``Scanner`` at
-   p = 1e-5 against the host brute force, in one segment and in five;
-   both kernels must have been launched by this phase;
+   exact tie with position 2,558,379, in ``score_max`` and in
+   ``Scanner.max``), and the two-pass ``Scanner`` at p = 1e-5 against
+   the host brute force, in one segment, in five, and seeded at a
+   capacity of 4, which must ratchet; K2 and C3 once per segment and
+   re-run; a steady ``collect`` and ``max`` read the card once each, and
+   the issue never (sync debug mode "error"); every kernel of the path
+   must have been launched by this phase;
 6. K3, the multi-motif prefilter on the int8 tensor cores, against its
    plain version (``torch.equal`` on every window that fits): DNA
    groups of 16, 256 (ragged lengths) and 2,048 motif lanes with m_max
@@ -88,7 +101,8 @@ Phases, one line of output each (any failure exits non-zero):
     (against the brute force over the concatenation, windows inside one
     record); each class's launches are counted from 0 over its own call
     and must be K1 once, K2 once per segment and K3, phase C and the
-    pairs kernel once per motif group and segment;
+    pairs kernel once per motif group and segment (K2 and C3 once per
+    segment for ``BatchScanner``);
 12. the FIMO-like CLI through its files: the database written as a
     JASPAR16 file, the genome and the records as FASTA, MX000001 as a
     one-motif file.  In this process (``cli.main``, launch counts reset
@@ -116,9 +130,11 @@ Phases, one line of output each (any failure exits non-zero):
     to 200, the planted site recovered by a 1,200-step run (about six
     sweeps of the sequences), seconds per step;
 16. the sharded scans (``parallel``) at full width on 8 shards of the
-    card: ``ShardedScanner`` equal to phase 5's Scanner hits, its
-    ``max`` and ``sharded_argmax`` the known best hit, which wins its tie
-    across shards 4 and 5; ``ShardedMultiScanner`` with the database, on
+    card: ``ShardedScanner`` equal to phase 5's Scanner hits (K2 and C3
+    once per shard), its ``max`` and ``sharded_argmax`` the known best
+    hit, which wins its tie across shards 4 and 5; one read per steady
+    ``collect`` and ``max``, every shard's K2 and C3 issued under the
+    sync debug mode "error"; ``ShardedMultiScanner`` with the database, on
     the 8 shards and on the default mesh, equal to ``MultiScanner`` and
     the brute force (K3, phase C and the pairs kernel once per group and
     shard); its issue (every shard's steps, graph replays) under the
@@ -149,14 +165,17 @@ Phases, one line of output each (any failure exits non-zero):
     time the card could take: bytes over HBM's rate or operations over
     the card's peak) and a ``conv1d`` library yardstick: device time per
     launch (launches queued behind a GPU spin), and one call with the
-    host's launch cost; then ``score_max``, the Scanner's wall time, K3,
+    host's launch cost; then ``score_max``, the Scanner's wall time (a
+    fresh scanner; a resident one, steady, and its idle share in one
+    profiled run), C3 at the genome beside its plain version and bound, K3,
     K4 and K5 at their shapes, the database scan's steady-state wall
     beside the plain stages' (K3, then the plain versions of phase C and
     the pairs kernel) in the same call, in the K3 and u16 modes and, from
     one more run through the scanner's timing hook and ``torch.profiler``
     after a warm-up run, its split by stage, device-busy time (the trace's
     device events) and host time, then the same of the steady path (graph
-    replays, no hook); the batch classes' walls;
+    replays, no hook); the batch classes' walls (``BatchScanner`` with its
+    reads);
 19. the host's part of one ``kernels.score_f32`` call (median enqueue
     time of 400 calls) beside the earlier wrapper's per-call work and the
     kernel's device time;
@@ -185,6 +204,9 @@ Phases, one line of output each (any failure exits non-zero):
     checkouts, each in processes of its own, in turns (parent, change,
     change, parent): the database's ``scan_arrays`` on one card, its
     ``ShardedMultiScanner`` on 8 shards of one card and on 1..N cards;
+    MX000001's resident ``Scanner.collect()`` on the genome and on the
+    chromosome, ``BatchScanner.collect`` and ``ShardedScanner.collect`` on
+    8 shards and on 1..N cards;
 23. the database scan at chromosome scale (``[scale]``): the 50 Mbp
     genome of ``bench_biggenome`` (seed 0xB16) and a seeded stand-in of
     the 248,956,422 bp GRCh38 chromosome 1 (N runs of 10,000 at each end
@@ -199,7 +221,8 @@ Phases, one line of output each (any failure exits non-zero):
     one read a call, walls in turns and each card's split; on the
     chromosome, ``Pipeline.score_max`` against K1 plus a host scan of the
     last maximum and ``Scanner.collect()`` at p = 1e-5 against K1 +
-    threshold + ``nonzero``; the CLI on the 50 Mbp genome as one FASTA
+    threshold + ``nonzero`` (K2 and C3 once per segment and re-run, one
+    read a steady call, one profiled steady run); the CLI on the 50 Mbp genome as one FASTA
     record (both strands, p = 1e-6), its rows equal to ``scan_arrays``,
     with its split (read and encode, motif preparation, first scan, the
     rest per hit); then what the CUDA graphs keep beside one eager scan's
@@ -249,6 +272,10 @@ PHASE_C_SOURCE = "lightmotif_tpu_torch/ops/csrc/phase_c.cu"
 PHASE_C_REPLACES = "lightmotif_tpu/ops/multi.py:868"
 PAIRS_SOURCE = "lightmotif_tpu_torch/ops/csrc/pairs.cu"
 PAIRS_REPLACES = "lightmotif_tpu/ops/multi.py:975"
+# the Scanner's compaction, rescore and keep after K2: XLA code of the JAX
+# scan_segment (threshold_positions, rescore_positions, the front compaction)
+C3_SOURCE = "lightmotif_tpu_torch/ops/csrc/scan.cu"
+C3_REPLACES = "lightmotif_tpu/ops/xla_ops.py:159"
 PROBE_SOURCE = "lightmotif_tpu_torch/ops/csrc/probes.cu"
 P6_REPLACES = "experiments/int8_probe.py:54"
 P7_REPLACES = "experiments/int8_probe2.py:98"
@@ -547,6 +574,16 @@ def phase_sass() -> int:
         keep_pairs_fadd=sum(o.count("FADD") for n, o in ops.items() if "keep_pairs" in n),
         ptxas=" | ".join(ptxas_lines(log_text, ("row_offsets", "keep_pairs"))))
 
+    # C3's rescore adds with FADD, never FFMA
+    lib = next(p for p in build.build_info()["paths"] if p.name.startswith("liblm-scan-"))
+    ops = sass_opcodes(lib)
+    n_fadd = sum(o.count("FADD") for o in ops.values())
+    n_ffma = sum(o.count("FFMA") for o in ops.values())
+    if not any("tile_write" in n for n in ops) or n_fadd < 1 or n_ffma:
+        raise SystemExit(f"sass: the scan library has {n_fadd} FADD and {n_ffma} FFMA")
+    log("sass", library=lib.name, functions=len(ops), fadd=n_fadd, ffma=n_ffma,
+        ptxas=" | ".join(ptxas_lines(log_text, ("tile_counts", "tile_offsets", "tile_write"))))
+
     lib = next(p for p in build.build_info()["paths"] if "score" in p.name)
     ops = sass_opcodes(lib)
     found = {}
@@ -631,13 +668,96 @@ def phase_kernels(pssm, seq) -> dict:
     return errs
 
 
+#: C3's cases: (k, m, length, highest rank + 1, threshold kind, capacity
+#: kind); "zeros" sums +x, -x and -0.0 to exact zeros
+C3_CASES = [(5, 15, 400_003, 4, "dense", "below"), (5, 15, 400_003, 4, "dense", "at"),
+            (5, 15, 400_003, 4, "sparse", "above"), (5, 12, 200_001, 6, "neginf", "above"),
+            (21, 10, 150_000, 21, "dense", "above"), (21, 40, 100_000, 23, "sparse", "below"),
+            (7, 7, 4_097, 9, "dense", "below"), (256, 3, 60_000, 256, "dense", "at"),
+            (256, 5, 30_000, 256, "neginf", "below"), (5, 6, 50_000, 5, "zeros", "above"),
+            (5, 15, 15, 4, "neginf", "above")]
+
+
+def check_scan_compact(what, scores, seq, table, n, t_scaled, threshold, cap) -> dict:
+    """C3 against its plain version on the card (``torch.equal``): the
+    counters, then the kept hits (positions and f32 bits, as int32), the
+    slots the contract defines.  Returns the case's counts."""
+    from lightmotif_tpu_torch.ops import kernels, torch_ops
+
+    counts, packed = kernels.scan_compact(scores, seq, table, n, t_scaled, threshold, cap)
+    want_counts, want_packed = torch_ops.scan_compact(scores, seq, table, n, t_scaled,
+                                                      threshold, cap)
+    torch.cuda.synchronize()
+    if not torch.equal(counts, want_counts):
+        raise SystemExit(f"scan_compact {what}: counters {counts.tolist()} != plain "
+                         f"{want_counts.tolist()}")
+    n_kept = int(want_counts[1])
+    if not torch.equal(packed[:, :n_kept], want_packed[:, :n_kept]):
+        bad = int(torch.nonzero((packed[:, :n_kept] != want_packed[:, :n_kept]).any(0))[0])
+        raise SystemExit(f"scan_compact {what}: kept hit {bad} {packed[:, bad].tolist()} != "
+                         f"plain {want_packed[:, bad].tolist()}")
+    return {"count": int(want_counts[0]), "n_kept": n_kept, "cap": cap}
+
+
+def phase_scan_compact(pssm, seq) -> float:
+    """C3 (``kernels.scan_compact``) against its plain version on DNA,
+    protein, k = 7 and k = 256 tables (ranks >= K and wildcard runs),
+    ragged lengths, candidate counts below, at and above the capacity,
+    threshold -inf, exact zero sums (+0.0 bits), then at the main path's
+    shape -- the genome's one segment at p = 1e-5, and at a threshold of
+    ~46,000 candidates whose kept hits outgrow a Scanner's first head.
+    Returns the largest difference (0.0: every case equal)."""
+    from lightmotif_tpu_torch.ops import kernels
+    from lightmotif_tpu_torch.ops.multi import HEAD_SLOTS
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+    from lightmotif_tpu_torch.scanner import DEFAULT_CAPACITY
+
+    rng = np.random.default_rng(0xC3)
+    for k, m, length, ranks, kind, cap_kind in C3_CASES:
+        s = rng.integers(0, ranks, size=length).astype(np.uint8)
+        for start in rng.integers(0, length, size=10):
+            s[start : start + int(rng.integers(1, 60))] = k - 1
+        if kind == "zeros":
+            w = np.zeros((m, k), np.float32)
+            w[:, 0], w[:, 1], w[:, 2] = 1.5, -1.5, -0.0
+        else:
+            w = rng.normal(size=(m, k)).astype(np.float32)
+        d = rng.integers(0, max(256 // m, 2), size=(m, k)).astype(np.uint8)
+        n = length - m + 1
+        sd, wd, dd = (torch.from_numpy(a).to(DEVICE) for a in (s, w, d))
+        scores = kernels.score_u8(sd, dd, n)
+        q = 0.999 if kind == "sparse" else 0.5
+        t_scaled = int(torch.quantile(scores[:n].float(), q))
+        count = int((scores[:n] >= t_scaled).sum())
+        cap = {"below": max(count // 3, 1), "at": max(count, 1), "above": 2 * count + 7}[cap_kind]
+        threshold = {"neginf": -np.inf, "zeros": 0.0}.get(kind, -0.5)
+        got = check_scan_compact(f"k={k} m={m}", scores, sd, wd, n, t_scaled, threshold, cap)
+        log("scan_compact", k=k, m=m, length=length, threshold=threshold, equal=True, **got)
+    dseq = DeviceSequence(seq, DEVICE)
+    m = len(pssm)
+    n = len(seq) - m + 1
+    chunk = dseq.data[: n + m - 1]
+    w = torch.from_numpy(np.ascontiguousarray(pssm.data, np.float32)).to(DEVICE)
+    dm = pssm.to_discrete()
+    scores = kernels.score_u8(chunk, torch.from_numpy(dm.data).to(DEVICE), n)
+    for what, t in (("p=1e-5", pssm.score_distribution().score(1e-5)),
+                    ("p=1e-2", pssm.score_distribution().score(1e-2))):
+        got = check_scan_compact(f"genome {what}", scores, chunk, w, n, dm.scale(t), t,
+                                 DEFAULT_CAPACITY)
+        log("scan_compact", shape=f"genome, one segment, {what}", equal=True,
+            head_slots=HEAD_SLOTS, **got)
+        if what == "p=1e-2" and got["n_kept"] <= HEAD_SLOTS:
+            raise SystemExit(f"scan_compact: the p=1e-2 case keeps {got['n_kept']} hits only")
+    return 0.0
+
+
 def phase_main_path(pssm, seq) -> tuple:
     """The main path on the genome; returns its launches and the
     Scanner's hits at p = 1e-5 (positions, f32 bits)."""
     from lightmotif_tpu_torch import Scanner
     from lightmotif_tpu_torch.ops import kernels
     from lightmotif_tpu_torch.ops.pipeline import Pipeline
-    from lightmotif_tpu_torch.scanner import DEFAULT_SEGMENT
+    from lightmotif_tpu_torch.scanner import DEFAULT_CAPACITY, DEFAULT_SEGMENT
 
     host = pssm.score_host(seq)
     n = host.shape[0]
@@ -658,20 +778,61 @@ def phase_main_path(pssm, seq) -> tuple:
     log("main", check="score_max", argmax=am, bits=hex(f32_bits(mx)),
         tie_at=KNOWN_TIE_POS)
 
-    for block_size in (DEFAULT_SEGMENT, n // 4):
-        scanner = Scanner(pssm, seq, threshold=t, block_size=block_size)
-        hits = scanner.collect()
-        pos = np.array([h.position for h in hits], dtype=np.int64)
-        bits = np.array([f32_bits(h.score) for h in hits], dtype=np.uint32)
+    def one_pssm(scanner, what, fn, segments):
+        """``fn`` of ``scanner`` (the same hits as the brute force for a
+        collect, the known best for a max), launching K2 and C3 once per
+        segment and once per re-run."""
+        before = {k: kernels.LAUNCHES[k] for k in ("score_u8", "scan_compact")}
+        reruns = scanner.reruns
+        got = fn()
+        launched = {k: kernels.LAUNCHES[k] - v for k, v in before.items()}
+        want = segments + scanner.reruns - reruns
+        if launched != {"score_u8": want, "scan_compact": want}:
+            raise SystemExit(f"{what}: launches {launched}, {segments} segments and "
+                             f"{scanner.reruns - reruns} re-runs")
+        if fn == scanner.max:
+            if got.position != KNOWN_BEST_POS or f32_bits(got.score) != KNOWN_BEST_BITS:
+                raise SystemExit(f"{what} failed: {got}")
+            return got
+        pos = np.array([h.position for h in got], dtype=np.int64)
+        bits = np.array([f32_bits(h.score) for h in got], dtype=np.uint32)
         if not (np.array_equal(pos, want_pos) and np.array_equal(bits, want_bits)):
-            raise SystemExit(f"Scanner != brute force at block_size {block_size}: "
-                             f"{len(hits)} hits vs {len(want_pos)}")
-        log("main", check="Scanner.collect", threshold=t, hits=len(hits),
-            segments=-(-n // block_size))
-    best = Scanner(pssm, seq, threshold=t).max()
-    if best.position != KNOWN_BEST_POS or f32_bits(best.score) != KNOWN_BEST_BITS:
-        raise SystemExit(f"Scanner.max failed: {best}")
-    log("main", check="Scanner.max", position=best.position)
+            raise SystemExit(f"{what} != brute force: {len(got)} hits vs {len(want_pos)}")
+        return got
+
+    for block_size, capacity in ((DEFAULT_SEGMENT, DEFAULT_CAPACITY), (n // 4, DEFAULT_CAPACITY),
+                                 (DEFAULT_SEGMENT, 4)):
+        scanner = Scanner(pssm, seq, threshold=t, block_size=block_size, capacity=capacity)
+        segments = -(-n // block_size)
+        hits = one_pssm(scanner, f"Scanner.collect (block_size {block_size}, capacity "
+                        f"{capacity})", scanner.collect, segments)
+        first = (scanner.host_reads, scanner.reruns, scanner.capacity)
+        if capacity == 4 and not (scanner.capacity > 4 and scanner.reruns == segments):
+            raise SystemExit(f"Scanner at capacity 4 did not ratchet: {first}")
+        # a steady collect and max read the card once and run nothing again
+        scanner.host_reads = 0
+        one_pssm(scanner, "a steady Scanner.collect", scanner.collect, segments)
+        best = one_pssm(scanner, "Scanner.max", scanner.max, segments)
+        if scanner.host_reads != 2 or scanner.reruns != first[1]:
+            raise SystemExit(f"Scanner: a steady collect and max read the card "
+                             f"{scanner.host_reads} times, {scanner.reruns} re-runs")
+        # the issue reads nothing (sync debug mode "error")
+        torch.cuda.synchronize()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            issued = scanner._issue(scanner._runs(int(scanner.dm.scale(t)), t))
+        except RuntimeError as e:
+            raise SystemExit(f"Scanner: the issue read the card: {e}") from None
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if len(issued) != segments:
+            raise SystemExit(f"Scanner: {len(issued)} segments issued, {segments} expected")
+        log("main", check="Scanner.collect == brute force; a steady collect and max read the "
+            "card once each, the issue never (sync debug mode error); K2 and C3 once a segment "
+            "and a re-run", threshold=t, hits=len(hits), segments=segments, capacity=capacity,
+            first_reads=first[0], reruns=first[1], capacity_after=scanner.capacity,
+            steady_reads=1, best=best.position, best_bits=hex(f32_bits(best.score)),
+            tie_at=KNOWN_TIE_POS)
 
     launches = dict(kernels.LAUNCHES)
     if min(launches.values()) < 1:
@@ -1442,7 +1603,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     MultiBatchScanner with the database against the brute force over the
     concatenation, windows inside one record.  Each class's launches are
     counted from 0 over its own call, before its oracle runs: K1 once
-    for the reducer, K2 once per segment for the scanner, K3, phase C and
+    for the reducer, K2 and C3 once per segment for the scanner, K3, phase C and
     the pairs kernel once per motif group and segment for the database
     (its second scan: the first settles the capacities).  Returns (records, the
     BatchReducer, the MultiBatchScanner, its hit arrays)."""
@@ -1484,8 +1645,8 @@ def phase_batch(pssm, seq, ms) -> tuple:
     launches_bs = launch_counts()
     # one concatenation of the records with m - 1 separators each
     n_windows = sum(map(len, records)) + len(records) * (m - 1) - m + 1
-    expect("BatchScanner.collect", launches_bs,
-           {"score_u8": -(-n_windows // DEFAULT_SEGMENT)})
+    segments = -(-n_windows // DEFAULT_SEGMENT) + bs._scanner.reruns
+    expect("BatchScanner.collect", launches_bs, {"score_u8": segments, "scan_compact": segments})
     for i, (r, hits) in enumerate(zip(records, got)):
         own = Scanner(pssm, r, threshold=t, device=DEVICE).collect()
         if [(h.position, f32_bits(h.score)) for h in hits] != \
@@ -1781,7 +1942,8 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
                 and not (si.any() or mo.any() or rev.any())):
             raise SystemExit(f"cli MX000001 x genome != Scanner ({len(pos)} rows vs "
                              f"{len(scanner_hits[0])})")
-        if launches["score_u8"] < 1 or launches["prefilter_any8"]:
+        if launches["score_u8"] < 1 or launches["scan_compact"] < 1 or launches[
+                "prefilter_any8"]:
             raise SystemExit(f"cli MX000001 x genome: launches {launches}")
         log("cli", run="MX000001 x genome", rows=len(pos), equal_scanner=True,
             launches=launches, wall_s=f"{wall:.3f}", cli_timing=json.dumps(timing))
@@ -1798,7 +1960,7 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
                  "--mesh"], f"{what} --mesh")
             if open(mesh_out).read() != want_tsv:
                 raise SystemExit(f"cli {what} --mesh: TSV != the solo TSV")
-            if launches[kernel] < 1:
+            if launches[kernel] < 1 or (kernel == "score_u8" and launches["scan_compact"] < 1):
                 raise SystemExit(f"cli {what} --mesh: launches {launches}")
             log("cli", run=f"{what} --mesh", rows=want_tsv.count("\n") - 1,
                 equal_solo_tsv=True, launches=launches, wall_s=f"{wall:.3f}")
@@ -2092,16 +2254,19 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     sc = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
     hits = sc.collect()
     torch.cuda.synchronize()
-    expect("ShardedScanner.collect", launch_counts(), {"score_u8": MESH_SHARDS})
+    one_pssm = {"score_u8": MESH_SHARDS + sc.reruns, "scan_compact": MESH_SHARDS + sc.reruns}
+    expect("ShardedScanner.collect", launch_counts(), one_pssm)
     shard_hits = sc.shard_hits.tolist()
     pos = np.asarray([h.position for h in hits], np.int64)
     bits = np.asarray([f32_bits(h.score) for h in hits], np.uint32)
     if not (np.array_equal(pos, scanner_hits[0]) and np.array_equal(bits, scanner_hits[1])):
         raise SystemExit(f"mesh: ShardedScanner != Scanner ({len(hits)} vs {len(scanner_hits[0])})")
     reset_launches()
+    reruns = sc.reruns
     best = sc.max()
     torch.cuda.synchronize()
-    expect("ShardedScanner.max", launch_counts(), {"score_u8": MESH_SHARDS})
+    one_pssm = {k: MESH_SHARDS + sc.reruns - reruns for k in ("score_u8", "scan_compact")}
+    expect("ShardedScanner.max", launch_counts(), one_pssm)
     if best.position != KNOWN_BEST_POS or f32_bits(best.score) != KNOWN_BEST_BITS:
         raise SystemExit(f"mesh: ShardedScanner.max {best}")
     log("mesh", check="ShardedScanner.collect == Scanner, max == the known best",
@@ -2169,8 +2334,8 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
         if by_shards[MESH_SHARDS] > by_shards[1]:
             raise SystemExit(f"mesh: {name} reads the card more on {MESH_SHARDS} shards: "
                              f"{by_shards}")
-    if reads["ShardedMultiScanner.collect_arrays"] != {1: 1, MESH_SHARDS: 1}:
-        raise SystemExit(f"mesh: the steady database scan reads {reads}")
+    if any(by_shards != {1: 1, MESH_SHARDS: 1} for by_shards in reads.values()):
+        raise SystemExit(f"mesh: a steady call reads the card more than once: {reads}")
     ms.host_reads = 0
     ms.collect_arrays()
     log("mesh", host_reads="MultiScanner.collect_arrays", steady=ms.host_reads)
@@ -2464,48 +2629,57 @@ def walls_in_turns(sharded, single, runs: int = RUNS) -> tuple:
 
 
 def mesh_no_reads(sc, t) -> None:
-    """The loops over shards of the sharded scan (its launch step on
-    every shard, then its finish step) and of ``sharded_argmax`` (K1
-    and the last-max reduction per shard, then the merge on each card and
-    across the cards) under the sync debug mode "error", on every card of
-    the scanner's mesh: any read of a card inside them raises.  The
-    steps' hits equal ``ShardedScanner``'s."""
+    """The loops over shards of the one-PSSM sharded scan (every shard's
+    K2 and C3, for ``collect`` and for ``max``) and of ``sharded_argmax``
+    (K1 and the last-max reduction per shard, then the merge on each card
+    and across the cards) under the sync debug mode "error", on every card
+    of the scanner's mesh: any read of a card inside them raises.  The
+    issued shards' hits (one read, :func:`kept_hits`) equal
+    ``ShardedScanner``'s, their best (one read) the known best; a steady
+    ``collect`` and ``max`` read once each (``HOST_READS``)."""
     from lightmotif_tpu_torch.ops import kernels, torch_ops
     from lightmotif_tpu_torch.parallel import mesh as mesh_mod
+    from lightmotif_tpu_torch.scanner import best_hit, kept_hits, merge_best
 
     prepared, tables = sc._prep()
     shards, chunk, n_scores = prepared
+    want = [(h.position, f32_bits(h.score)) for h in sc.collect()]
+    sc.max()
+    mesh_mod.reset_host_reads()
+    sc.collect()
+    sc.max()
+    steady = mesh_mod.HOST_READS
+    if steady != 2:
+        raise SystemExit(f"mesh: a steady collect and max read the cards {steady} times")
+    m, t_scaled = len(sc.pssm), sc.dm.scale(t)
     sync_all()
     try:
         torch.cuda.set_sync_debug_mode("error")
-        launched = mesh_mod._launch_shards(tables, prepared, sc.dm.scale(t), len(sc.pssm))
-        torch.cuda.set_sync_debug_mode("default")
-        counts = mesh_mod._read_counts([c for rows in launched.values() for *_, c in rows])
-        torch.cuda.set_sync_debug_mode("error")
-        finished = mesh_mod._finish_shards(launched, counts, tables, chunk, t)
+        segments = mesh_mod._issue_shards(tables, prepared, t_scaled, t, m, sc.cap)
+        candidates = mesh_mod._issue_shards(tables, prepared, t_scaled, -np.inf, m, sc.cap)
         best = {}
         for d, shard in shards:
             n_local = mesh_mod._owned(n_scores, d, chunk)
             scores = kernels.score_f32(shard, tables[shard.device][0], n_local)[:n_local]
             best.setdefault(shard.device, []).append(
                 (torch_ops.max_last(scores), torch_ops.argmax_last(scores) + d * chunk))
-        first = shards[0][1].device
-        merged = [mesh_mod._best_of(*(torch.stack(c) for c in zip(*pairs)))
-                  for pairs in best.values()]
-        merged = mesh_mod._best_of(*(torch.stack([v.to(first) for v in c])
-                                     for c in zip(*merged)))
+        merged = merge_best([pair for pairs in best.values() for pair in pairs])
     except RuntimeError as e:
         raise SystemExit(f"mesh: the card was read inside a loop over shards: {e}") from None
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    got = sorted(int(p) for pos, _, keep in finished for p in pos[keep].tolist())
-    if got != [h.position for h in sc.collect()]:
-        raise SystemExit("mesh: the steps under the sync debug mode != ShardedScanner")
+    positions, scores, *_ = kept_hits(segments, sc.cap, {}, mesh_mod.multi.read_host)
+    if [(int(p), f32_bits(v)) for p, v in zip(positions, scores)] != want:
+        raise SystemExit("mesh: the shards issued under the sync debug mode != ShardedScanner")
+    top, _, _ = best_hit(candidates, sc.cap, mesh_mod.multi.read_host)
+    if [f32_bits(top[0]), top[1]] != [KNOWN_BEST_BITS, KNOWN_BEST_POS]:
+        raise SystemExit(f"mesh: the issued candidates' best is {top}")
     if [f32_bits(merged[0].item()), int(merged[1])] != [KNOWN_BEST_BITS, KNOWN_BEST_POS]:
         raise SystemExit(f"mesh: the merge on the card gives {merged}")
     log("mesh", check="no read of a card inside the loops over shards (sync debug mode "
-        "error): the launch and the finish steps, K1 + argmax_last, the merge",
-        shards=len(shards), cards=len(best), candidates=sum(counts), hits=len(got))
+        "error): every shard's K2 and C3 (collect, max), K1 + argmax_last, the merge; a "
+        "steady collect and max read once each", shards=len(shards), cards=len(best),
+        cap=sc.cap, hits=len(want), steady_reads=steady)
 
 
 def mesh_issue_no_reads(sm, brute, phase: str) -> None:
@@ -2579,30 +2753,17 @@ def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute, counts=None) -> None:
     ShardedMultiScanner), and walls on 1..N cards, one shard per card,
     beside the single-device walls of the same call.  With one card, a
     log line says so."""
-    from lightmotif_tpu_torch.parallel import (ShardedMultiScanner, ShardedScanner,
-                                               make_genome_mesh, sharded_argmax)
+    from lightmotif_tpu_torch.parallel import ShardedMultiScanner, make_genome_mesh
 
     cards = make_genome_mesh()  # every card
     if len(cards) < 2:
         log("mesh", multi_card=f"not run, {len(cards)} device")
         return
-    t = pssm.score_distribution().score(1e-5)
-    genome = np.asarray(seq.data)
     want = ms.scan_arrays(seq)
     walls = {}
-    on_first = ShardedScanner(pssm, seq, threshold=t, mesh=cards[:1])
     for k in range(1, len(cards) + 1):
         mesh = cards[:k]
-        sc = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
-        hits = sc.collect()
-        if [h.position for h in hits] != scanner_hits[0].tolist() or [
-                f32_bits(h.score) for h in hits] != scanner_hits[1].tolist():
-            raise SystemExit(f"mesh_cards: ShardedScanner on {k} cards != Scanner")
-        best = sc.max()
-        mx, am = sharded_argmax(pssm.data, genome, mesh=mesh)
-        if [best.position, f32_bits(best.score), am, f32_bits(mx)] != [
-                KNOWN_BEST_POS, KNOWN_BEST_BITS, KNOWN_BEST_POS, KNOWN_BEST_BITS]:
-            raise SystemExit(f"mesh_cards: {k} cards, max {best}, argmax ({mx}, {am})")
+        one_pssm_on_cards(pssm, seq, scanner_hits, mesh, walls)
         reset_launches()
         sm = ShardedMultiScanner(ms.pssms, thresholds=ms.thresholds, mesh=mesh)
         got = sm.scan_arrays(seq)
@@ -2615,25 +2776,20 @@ def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute, counts=None) -> None:
         check_scan(f"mesh_cards ShardedMultiScanner on {k} cards", got, brute)
         if not same_hits(got, want):
             raise SystemExit(f"mesh_cards: ShardedMultiScanner on {k} cards != MultiScanner")
-        log("mesh_cards", check="ShardedScanner, max, sharded_argmax, ShardedMultiScanner "
-            "== one card", cards=k, hits=len(hits), database_hits=len(got[0]),
-            shard_hits=sm.shard_hits.tolist())
+        log("mesh_cards", check="ShardedMultiScanner == one card", cards=k,
+            database_hits=len(got[0]), shard_hits=sm.shard_hits.tolist())
         # the sync debug checks on every card of this mesh
-        mesh_no_reads(sc, t)
         mesh_issue_no_reads(sm, brute, "mesh_cards")
         if k == len(cards):
             for scanner in sm._scanners.values():
                 dispatch_no_reads(scanner, seq, brute, "mesh_cards")
-        for op, sharded, single in (
-                ("ShardedMultiScanner.collect_arrays / MultiScanner.scan_arrays",
-                 sm.collect_arrays, lambda: ms.scan_arrays(seq)),
-                ("ShardedScanner.collect / ShardedScanner.collect on the first card",
-                 sc.collect, on_first.collect)):
-            sharded_ms, single_ms, runs = walls_in_turns(sharded, single)
-            walls.setdefault(op, {})[k] = float(sharded_ms)
-            log("times", op=f"mesh walls on {k} cards, one shard each: {op}",
-                sharded_ms=sharded_ms, single_ms=single_ms, runs=runs,
-                positions_per_s=f"{len(seq) / float(sharded_ms) * 1e3:.4g}")
+        op = "ShardedMultiScanner.collect_arrays / MultiScanner.scan_arrays"
+        sharded_ms, single_ms, runs = walls_in_turns(sm.collect_arrays,
+                                                     lambda: ms.scan_arrays(seq))
+        walls.setdefault(op, {})[k] = float(sharded_ms)
+        log("times", op=f"mesh walls on {k} cards, one shard each: {op}",
+            sharded_ms=sharded_ms, single_ms=single_ms, runs=runs,
+            positions_per_s=f"{len(seq) / float(sharded_ms) * 1e3:.4g}")
         # where each card's time goes in one steady collect_arrays: once
         # with the ops and CUDA calls alone, once with the Python calls too
         for stack in (False, True):
@@ -2642,11 +2798,79 @@ def phase_mesh_cards(pssm, seq, ms, scanner_hits, brute, counts=None) -> None:
             log("mesh_cards", split="ShardedMultiScanner.collect_arrays, one profiled run",
                 cards=k, python_calls=stack, wall_ms=f"{wall:.4f}", run_ms=run_ms,
                 per_card=json.dumps(per_card), per_thread=json.dumps(per_thread))
+    log_scaling(walls)
+    if counts is not None:
+        cli_mesh_cards(seq, counts, brute, len(cards))
+
+
+def log_scaling(walls: dict) -> None:
+    """Each op's scaling over the cards: its 1-card wall over k times its
+    k-card wall."""
     for op, by_k in walls.items():
         log("mesh_cards", scaling=op, **{f"cards_{k}": f"{by_k[1] / (k * w):.3f}"
                                          for k, w in by_k.items()})
-    if counts is not None:
-        cli_mesh_cards(seq, counts, brute, len(cards))
+
+
+def one_pssm_on_cards(pssm, seq, scanner_hits, mesh, walls: dict) -> None:
+    """The one-PSSM sharded scans on ``mesh`` (cards, one shard each):
+    ``ShardedScanner.collect`` and ``sharded_scan`` equal to the Scanner's
+    hits, ``max`` and ``sharded_argmax`` the known best hit; every shard's
+    K2 and C3 issued under the sync debug mode "error" on every card and
+    one read a steady call (:func:`mesh_no_reads`); the wall of
+    ``collect`` in turns with the same call on the first card alone,
+    kept in ``walls``."""
+    from lightmotif_tpu_torch.parallel import ShardedScanner, sharded_argmax, sharded_scan
+
+    t = pssm.score_distribution().score(1e-5)
+    k = len(mesh)
+    sc = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
+    hits = sc.collect()
+    dm = pssm.to_discrete()
+    pos, scores = sharded_scan(pssm.data, dm.data, np.asarray(seq.data), t, dm.scale(t),
+                               mesh=mesh)
+    for what, got in (("ShardedScanner", [(h.position, f32_bits(h.score)) for h in hits]),
+                      ("sharded_scan", list(zip(pos.tolist(), map(f32_bits, scores))))):
+        if got != list(zip(scanner_hits[0].tolist(), scanner_hits[1].tolist())):
+            raise SystemExit(f"mesh_cards: {what} on {k} cards != Scanner")
+    best = sc.max()
+    mx, am = sharded_argmax(pssm.data, np.asarray(seq.data), mesh=mesh)
+    if [best.position, f32_bits(best.score), am, f32_bits(mx)] != [
+            KNOWN_BEST_POS, KNOWN_BEST_BITS, KNOWN_BEST_POS, KNOWN_BEST_BITS]:
+        raise SystemExit(f"mesh_cards: {k} cards, max {best}, argmax ({mx}, {am})")
+    log("mesh_cards", check="ShardedScanner, sharded_scan, max, sharded_argmax == one card",
+        cards=k, hits=len(hits), cap=sc.cap, reruns=sc.reruns)
+    mesh_no_reads(sc, t)
+    on_first = ShardedScanner(pssm, seq, threshold=t, mesh=mesh[:1])
+    op = "ShardedScanner.collect / ShardedScanner.collect on the first card"
+    sharded_ms, single_ms, runs = walls_in_turns(sc.collect, on_first.collect)
+    walls.setdefault(op, {})[k] = float(sharded_ms)
+    log("times", op=f"mesh walls on {k} cards, one shard each: {op}", sharded_ms=sharded_ms,
+        single_ms=single_ms, runs=runs,
+        positions_per_s=f"{len(seq) / float(sharded_ms) * 1e3:.4g}")
+
+
+def one_pssm_cards(parent: str | None = None) -> int:
+    """The one-PSSM sharded scans alone on every card
+    (:func:`one_pssm_on_cards` on 1..N cards), with what they are held to
+    (the build, the Scanner's hits), and with ``parent`` the one-PSSM
+    walls of both checkouts in turns (:func:`phase_parent`)."""
+    from lightmotif_tpu_torch.parallel import make_genome_mesh
+
+    phase_card()
+    phase_build()
+    pssm, seq = build_inputs()
+    _, scanner_hits = phase_main_path(pssm, seq)
+    cards = make_genome_mesh()
+    walls = {}
+    for k in range(1, len(cards) + 1):
+        one_pssm_on_cards(pssm, seq, scanner_hits, cards[:k], walls)
+    log_scaling(walls)
+    if parent is not None:
+        phase_parent(parent, one_pssm=True)
+    print(json.dumps({"ok": True, "one_pssm_cards": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def cli_mesh_cards(seq, counts, brute, n_cards: int) -> None:
@@ -2846,7 +3070,8 @@ def run_ranks(label: str, backend: str, cards: list, shards_each: int,
 
     for r, run in zip(res, runs):
         k3 = int(r["k3"]) + run["reruns"]["database"]["group"]
-        want = {"collect": {"score_u8": shards_each}, "max": {"score_u8": shards_each},
+        one_pssm = {"score_u8": shards_each, "scan_compact": shards_each}
+        want = {"collect": one_pssm, "max": one_pssm,
                 "argmax": {"score_f32": shards_each},
                 "database": {"prefilter_any8": k3, "phase_c_bits": k3,
                              "pairs_rescore": k3 * PAIRS_KERNELS}}
@@ -3128,7 +3353,53 @@ def phase_times(pssm, seq) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     log("times", op="Scanner(...).collect() wall, p=1e-5",
         ms=f"{statistics.median(walls[1:]):.4f}")
+    out["scan_compact"] = time_scan_compact(pssm, dseq, t)
+    scanner = Scanner(pssm, dseq, threshold=t, device=DEVICE)
+    log("times", op="Scanner.collect() wall, steady, resident sequence, p=1e-5",
+        **wall_stats(wall_ms(scanner.collect)))
+    t_scaled = int(scanner.dm.scale(t))
+    log("times", op="Scanner._hits wall (the hit arrays, no Hit objects), steady",
+        **wall_stats(wall_ms(lambda: scanner._hits(t_scaled, t))))
+    log("times", op="Scanner.collect(), one profiled steady run",
+        **steady_profile(scanner.collect))
     return out
+
+
+def time_scan_compact(pssm, dseq, t) -> dict:
+    """C3 at the main path's shape (the genome's one segment, p = 1e-5,
+    the default capacity) beside its plain version, device time per launch
+    in turns (plain, kernel, kernel, plain), and its bound on this run's
+    data: K2's int32 scores read once, the windows of the candidates it
+    rescores (the first ``cap``, m bytes each) and the table once, the
+    counters and the kept hits written once; or the rescore's f32 adds, m
+    per rescored candidate.  No single PyTorch call computes it (library
+    none).  ``launches`` counts C3 calls (three kernels each)."""
+    from lightmotif_tpu_torch.ops import kernels, torch_ops
+    from lightmotif_tpu_torch.scanner import DEFAULT_CAPACITY
+
+    m = len(pssm)
+    n = dseq.length - m + 1
+    chunk = dseq.data[: n + m - 1]
+    dm = pssm.to_discrete()
+    w = torch.from_numpy(np.ascontiguousarray(pssm.data, np.float32)).to(DEVICE)
+    scores = kernels.score_u8(chunk, torch.from_numpy(dm.data).to(DEVICE), n)
+    args = (scores, chunk, w, n, dm.scale(t), t, DEFAULT_CAPACITY)
+    counts = kernels.scan_compact(*args)[0].tolist()
+    p1 = time_cuda(lambda: torch_ops.scan_compact(*args), repeat=20)
+    k1 = time_cuda(lambda: kernels.scan_compact(*args), repeat=20)
+    k2 = time_cuda(lambda: kernels.scan_compact(*args), repeat=20)
+    p2 = time_cuda(lambda: torch_ops.scan_compact(*args), repeat=20)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    call_ms = time_cuda(lambda: kernels.scan_compact(*args))
+    rescored = min(counts[0], DEFAULT_CAPACITY)
+    nbytes = 4 * n + rescored * m + w.nbytes + 12 + 8 * counts[1]
+    bound_ms, bound_by = bound(nbytes, rescored * m, "f32")
+    log("times", kernel="scan_compact", shape=f"genome, one segment of {n} window starts",
+        candidates=counts[0], kept=counts[1], ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        runs=f"k={k1:.4f},{k2:.4f} p={p1:.4f},{p2:.4f}", call_ms=f"{call_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, library="none")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def phase_database_times(ms, seq) -> tuple:
@@ -3294,51 +3565,120 @@ from lightmotif_tpu_torch.parallel import ShardedMultiScanner, make_genome_mesh
 from lightmotif_tpu_torch.scanner import MultiScanner
 torch.cuda.set_device(0)
 pssm, seq = cs.build_inputs()
-pssms, ths, _ = cs.synthetic_database(cs.DB_MOTIFS, cs.DB_SEED)
-ms = MultiScanner(pssms, thresholds=ths, device=cs.DEVICE)
-hits = len(ms.scan_arrays(seq)[0])
-out = {"hits": hits, "scan_arrays": cs.wall_ms(lambda: ms.scan_arrays(seq))}
-runs = [("8_shards", [cs.DEVICE] * 8)]
 cards = make_genome_mesh()
-runs += [(f"{k}_cards", cards[:k]) for k in range(1, len(cards) + 1)]
-for name, mesh in runs:
-    sm = ShardedMultiScanner(pssms, thresholds=ths, mesh=mesh).bind(seq)
-    if len(sm.collect_arrays()[0]) != hits:
-        sys.exit(f"{name}: hits differ")
-    out[name] = cs.wall_ms(sm.collect_arrays)
+out = {"hits": 0}
+if sys.argv[1:] != ["one_pssm"]:
+    pssms, ths, _ = cs.synthetic_database(cs.DB_MOTIFS, cs.DB_SEED)
+    ms = MultiScanner(pssms, thresholds=ths, device=cs.DEVICE)
+    out["hits"] = hits = len(ms.scan_arrays(seq)[0])
+    out["scan_arrays"] = cs.wall_ms(lambda: ms.scan_arrays(seq))
+    runs = [("8_shards", [cs.DEVICE] * 8)]
+    runs += [(f"{k}_cards", cards[:k]) for k in range(1, len(cards) + 1)]
+    for name, mesh in runs:
+        sm = ShardedMultiScanner(pssms, thresholds=ths, mesh=mesh).bind(seq)
+        if len(sm.collect_arrays()[0]) != hits:
+            sys.exit(f"{name}: hits differ")
+        out[name] = cs.wall_ms(sm.collect_arrays)
+# the one-PSSM paths: MX000001 at p = 1e-5
+from lightmotif_tpu_torch.batch import BatchScanner
+from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+from lightmotif_tpu_torch.parallel import ShardedScanner
+from lightmotif_tpu_torch.scanner import Scanner
+t = pssm.score_distribution().score(1e-5)
+scanner = Scanner(pssm, DeviceSequence(seq, cs.DEVICE), threshold=t, device=cs.DEVICE)
+one = len(scanner.collect())
+out["one_pssm_hits"] = one
+out["Scanner.collect"] = cs.wall_ms(scanner.collect)
+bs = BatchScanner(pssm, cs.genome_records(seq), threshold=t, device=cs.DEVICE)
+bs.collect()
+out["BatchScanner.collect"] = cs.wall_ms(bs.collect)
+for name, mesh in [("8 shards", [cs.DEVICE] * 8)] + [
+        (f"{k} cards", cards[:k]) for k in range(1, len(cards) + 1)]:
+    sc = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
+    if len(sc.collect()) != one:
+        sys.exit(f"ShardedScanner {name}: hits differ")
+    out[f"ShardedScanner.collect, {name}"] = cs.wall_ms(sc.collect)
+chromosome = cs.scale_genomes()[1][1]
+scanner = Scanner(pssm, DeviceSequence(chromosome, cs.DEVICE), threshold=t, device=cs.DEVICE)
+out["chromosome_hits"] = len(scanner.collect())
+out["Scanner.collect, chromosome"] = cs.wall_ms(scanner.collect, cs.SCALE_RUNS)
 print(json.dumps(out))
 """
 
 
-def parent_walls(root: str, cache: str) -> dict:
+def parent_walls(root: str, cache: str, one_pssm: bool = False) -> dict:
     """The steady walls (ms) of the checkout at ``root``, in a process of
     its own that imports that checkout's package and ``chip_smoke`` (the
     same seeded genome and database), building into ``cache``: the
     database's ``scan_arrays`` on the first card, its
     ``ShardedMultiScanner.collect_arrays`` on 8 shards of the first card
-    and on 1..N cards, one shard each."""
+    and on 1..N cards, one shard each; MX000001 at p = 1e-5: a resident
+    ``Scanner.collect()`` on the genome and on the chromosome,
+    ``BatchScanner.collect`` over the genome's records, and
+    ``ShardedScanner.collect`` on 8 shards and on 1..N cards.  With
+    ``one_pssm``, the MX000001 walls alone."""
     import os
 
     proc = subprocess.run(
-        [sys.executable, "-c", WALLS_CHILD], cwd=root, capture_output=True, text=True,
-        timeout=900, env=dict(os.environ, PYTHONPATH=root, LIGHTMOTIF_TPU_COMPILE_CACHE=cache))
+        [sys.executable, "-c", WALLS_CHILD, *(["one_pssm"] if one_pssm else [])], cwd=root,
+        capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=root, LIGHTMOTIF_TPU_COMPILE_CACHE=cache))
     if proc.returncode != 0:
         raise SystemExit(f"walls of {root} failed\n{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.splitlines()[-1])
 
 
-def phase_parent(root: str) -> None:
+def phase_parent(root: str, one_pssm: bool = False) -> None:
     """This tree beside the parent checkout at ``root``: the tensor-core
     instructions (``IMMA``) of every instantiation of the prefilter and
     of phase C equal, the pairs library's ``FADD`` and ``FFMA`` counts
     equal, the ``ptxas -v`` lines of both; then the steady walls of both
     checkouts (:func:`parent_walls`), each in processes of its own, in
     turns (parent, change, change, parent): the database's
-    ``scan_arrays``, 8 shards on one card, and 1..N cards."""
+    ``scan_arrays``, 8 shards on one card, and 1..N cards, and MX000001's
+    one-PSSM walls.  With ``one_pssm``, only the one-PSSM walls (no
+    build of the parent's libraries, no database)."""
     import os
-    import re
     import shutil
     import tempfile
+
+    if not one_pssm:
+        parent_sass(root)
+    caches = {who: tempfile.mkdtemp(prefix=f"chip-smoke-{who}-") for who in ("parent", "change")}
+    here_root = os.path.dirname(os.path.abspath(__file__))
+    walls = functools.partial(parent_walls, one_pssm=one_pssm)
+    try:
+        runs = [walls(root, caches["parent"]), walls(here_root, caches["change"]),
+                walls(here_root, caches["change"]), walls(root, caches["parent"])]
+    finally:
+        for path in caches.values():
+            shutil.rmtree(path, ignore_errors=True)
+    counted = ("hits", "one_pssm_hits", "chromosome_hits")
+    if any(len({r[k] for r in runs}) != 1 for k in counted):
+        raise SystemExit(f"parent: scan hits differ: {[[r[k] for k in counted] for r in runs]}")
+    med = statistics.median
+    for op in (k for k in runs[0] if k not in counted):
+        a = [med(runs[0][op]), med(runs[3][op])]
+        b = [med(runs[1][op]), med(runs[2][op])]
+        log("parent", op=f"{op} wall, steady, own process each, in turns", hits=runs[0]["hits"],
+            parent_ms=f"{min(a):.4f}", ms=f"{min(b):.4f}",
+            runs=f"p:{a[0]:.4f},{a[1]:.4f}/c:{b[0]:.4f},{b[1]:.4f}")
+    def best(who, op):
+        return min(med(runs[i][op]) for i in who)
+
+    for op in (k for k in runs[1] if k[0].isdigit()):
+        log("parent", op=f"{op} / scan_arrays of the same checkout",
+            ratio=f"{best((1, 2), op) / best((1, 2), 'scan_arrays'):.3f}",
+            parent_ratio=f"{best((0, 3), op) / best((0, 3), 'scan_arrays'):.3f}")
+
+
+def parent_sass(root: str) -> None:
+    """The parent's prefilter, phase C and pairs libraries built from the
+    checkout at ``root``: their tensor-core (``IMMA``) counts, and the
+    pairs library's ``FADD`` and ``FFMA`` counts, equal to this tree's,
+    with the ``ptxas -v`` lines of both."""
+    import re
+    import shutil
 
     from lightmotif_tpu_torch.ops import build
 
@@ -3367,31 +3707,6 @@ def phase_parent(root: str) -> None:
                                                         "keep_pairs")):
         log("change", ptxas=line)
     shutil.rmtree(parent.dir, ignore_errors=True)
-
-    caches = {who: tempfile.mkdtemp(prefix=f"chip-smoke-{who}-") for who in ("parent", "change")}
-    here_root = os.path.dirname(os.path.abspath(__file__))
-    try:
-        runs = [parent_walls(root, caches["parent"]), parent_walls(here_root, caches["change"]),
-                parent_walls(here_root, caches["change"]), parent_walls(root, caches["parent"])]
-    finally:
-        for path in caches.values():
-            shutil.rmtree(path, ignore_errors=True)
-    if len({r["hits"] for r in runs}) != 1:
-        raise SystemExit(f"parent: scan hits differ: {[r['hits'] for r in runs]}")
-    med = statistics.median
-    for op in (k for k in runs[0] if k != "hits"):
-        a = [med(runs[0][op]), med(runs[3][op])]
-        b = [med(runs[1][op]), med(runs[2][op])]
-        log("parent", op=f"{op} wall, steady, own process each, in turns", hits=runs[0]["hits"],
-            parent_ms=f"{min(a):.4f}", ms=f"{min(b):.4f}",
-            runs=f"p:{a[0]:.4f},{a[1]:.4f}/c:{b[0]:.4f},{b[1]:.4f}")
-    def best(who, op):
-        return min(med(runs[i][op]) for i in who)
-
-    for op in (k for k in runs[1] if k.endswith("_cards") or k.endswith("_shards")):
-        log("parent", op=f"{op} / scan_arrays of the same checkout",
-            ratio=f"{best((1, 2), op) / best((1, 2), 'scan_arrays'):.3f}",
-            parent_ratio=f"{best((0, 3), op) / best((0, 3), 'scan_arrays'):.3f}")
 
 
 def time_prefilter(name, seq, args, m, what: str) -> dict:
@@ -3468,8 +3783,9 @@ def phase_mode_times(ms, seq, db, groups5) -> dict:
 
 def phase_batch_times(pssm, records, br, mbs) -> None:
     """Steady-state walls of the batched records: BatchReducer (rebind +
-    argmax) beside a per-record ``Pipeline.score_max`` loop, and
-    MultiBatchScanner (prepare + rebind + collect_arrays)."""
+    argmax) beside a per-record ``Pipeline.score_max`` loop, BatchScanner
+    (collect, with its reads) and MultiBatchScanner (prepare + rebind +
+    collect_arrays)."""
     from lightmotif_tpu_torch.ops.pipeline import Pipeline
 
     med = statistics.median
@@ -3481,6 +3797,16 @@ def phase_batch_times(pssm, records, br, mbs) -> None:
     log("times", op=f"BatchReducer rebind+argmax wall, {len(records)} records",
         ms=f"{med(reducer):.4f}", p90_ms=f"{sorted(reducer)[int(0.9 * RUNS)]:.4f}",
         per_record_score_max_ms=f"{med(per_record):.4f}")
+    from lightmotif_tpu_torch.batch import BatchScanner
+
+    t = pssm.score_distribution().score(1e-5)
+    bs = BatchScanner(pssm, records, threshold=t, device=DEVICE)
+    walls = wall_ms(bs.collect)
+    bs._scanner.host_reads = 0
+    bs.collect()
+    log("times", op=f"BatchScanner.collect wall, steady, {len(records)} records, p=1e-5",
+        ms=f"{med(walls):.4f}", p90_ms=f"{sorted(walls)[int(0.9 * RUNS)]:.4f}",
+        steady_reads=bs._scanner.host_reads)
     multi = wall_ms(lambda: mbs.rebind_prepared(mbs.prepare(records)).collect_arrays())
     log("times", op=f"MultiBatchScanner prepare+rebind+collect_arrays wall, "
         f"{len(records)} records x {len(mbs.pssms)} PSSMs",
@@ -3865,13 +4191,82 @@ def scale_sweep(name, seq, pssms, ths, want, ecoli) -> None:
         settle()
 
 
+def scale_dense(pssm, dseq, w, n: int, top, last: int) -> None:
+    """The Scanner on a scale genome at dense thresholds (0.0, the
+    default, and p = 0.5): the hit arrays of a first and a steady
+    ``_hits`` equal to K1 + threshold + ``nonzero`` on the card, ``max()``
+    equal to K1's last maximum ``(top, last)``, one read per batch of
+    ``READ_AHEAD`` in a steady call, and the memory it holds: the card's
+    allocated peak above what was allocated before, against the bound of
+    one segment's K2 scores and four batches' hit buffers (the buffers,
+    their gathered heads or tails, the best's temporaries), and the
+    reader's pinned buffer."""
+    from lightmotif_tpu_torch import Scanner
+    from lightmotif_tpu_torch import scanner as scanner_mod
+    from lightmotif_tpu_torch.ops import kernels
+
+    for label, t in (("0.0, the default", 0.0),
+                     ("p = 0.5", pssm.score_distribution().score(0.5))):
+        scores = kernels.score_f32(dseq.data, w, n)[:n]
+        hit = torch.nonzero(scores >= torch.tensor(t, device=DEVICE)).flatten()
+        want_pos = hit.cpu().numpy()
+        want_bits = (scores[hit] + 0.0).cpu().numpy().view(np.uint32)
+        del scores, hit
+        settle()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        scanner = Scanner(pssm, dseq, threshold=t)
+        t_scaled = int(scanner.dm.scale(t))
+        row = {}
+        for run in ("first", "steady"):
+            scanner.host_reads = 0
+            t0 = time.perf_counter()
+            pos, scores = scanner._hits(t_scaled, t)
+            row[f"{run}_ms"] = f"{(time.perf_counter() - t0) * 1e3:.4f}"
+            row[f"{run}_reads"] = scanner.host_reads
+            if not (np.array_equal(pos, want_pos)
+                    and np.array_equal((scores + np.float32(0.0)).view(np.uint32), want_bits)):
+                raise SystemExit(f"scale dense {label}: {len(pos)} hits vs {len(want_pos)}")
+        del pos, scores
+        scanner.host_reads = 0
+        best = scanner.max()
+        if best is None or (best.position, f32_bits(best.score)) != (last, f32_bits(top)):
+            raise SystemExit(f"scale dense {label}: max {best} against ({top}, {last})")
+        peak = torch.cuda.max_memory_allocated() - base
+        buffer = scanner._reader._buffer
+        pinned = 0 if buffer is None else buffer.numel()
+        segments = -(-n // scanner.block_size)
+        per = max(1, scanner_mod.READ_AHEAD // (8 * scanner.capacity))
+        batch = min(per, segments) * 8 * scanner.capacity
+        bound = 4 * scanner.block_size + 4 * batch + (64 << 20)
+        mib = 1 << 20
+        log("scale", check="Scanner at a dense threshold == K1 + threshold + nonzero; max == "
+            "K1's last maximum; one read a batch; memory inside one segment's K2 scores and "
+            "four batches", threshold=label, t=f"{t:.6f}", hits=len(want_pos),
+            segments=segments, capacity=scanner.capacity, reruns=scanner.reruns,
+            segments_a_read=min(per, segments), **row, max_reads=scanner.host_reads,
+            peak_mib=round(peak / mib, 2), bound_mib=round(bound / mib, 2),
+            batch_mib=round(batch / mib, 2), pinned_mib=round(pinned / mib, 2),
+            read_ahead_mib=round(scanner_mod.READ_AHEAD / mib, 2))
+        batches = -(-segments // per)
+        if row["steady_reads"] != batches or scanner.host_reads != batches:
+            raise SystemExit(f"scale dense {label}: {row['steady_reads']} reads a steady "
+                             f"call and {scanner.host_reads} a max, {batches} batches")
+        if peak > bound or pinned > 2 * batch + (1 << 20):
+            raise SystemExit(f"scale dense {label}: {peak / mib:.2f} MiB allocated at the "
+                             f"peak (bound {bound / mib:.2f}), {pinned / mib:.2f} MiB pinned")
+        del scanner
+        settle()
+
+
 def scale_single(pssm, seq, sweep: bool) -> dict:
     """MX000001 on a scale genome: ``Pipeline.score_max`` (K1 once)
     against K1 plus a host scan of the last maximum, ``Scanner.collect()``
     at p = 1e-5 (K2 once per segment of ``DEFAULT_SEGMENT``) against K1 +
-    threshold + ``nonzero`` on the card, their walls; with ``sweep``, the
-    Scanner at each of :data:`SCALE_SEGMENTS` and two larger segments.
-    Returns the launches of the two drives."""
+    threshold + ``nonzero`` on the card, their walls, and
+    :func:`scale_dense`; with ``sweep``, the Scanner at each of
+    :data:`SCALE_SEGMENTS` and two larger segments.  Returns the launches
+    of the two drives."""
     from lightmotif_tpu_torch import Scanner
     from lightmotif_tpu_torch.ops import kernels
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence, Pipeline
@@ -3917,14 +4312,31 @@ def scale_single(pssm, seq, sweep: bool) -> dict:
     scanner = Scanner(pssm, seq, threshold=t)
     segments = -(-n // scanner.block_size)
     launches = collect(scanner, "Scanner.collect")
-    if launches["score_u8"] != segments:
-        raise SystemExit(f"scale Scanner.collect: launches {launches}, {segments} segments")
+    runs = segments + scanner.reruns
+    if launches["score_u8"] != runs or launches["scan_compact"] != runs:
+        raise SystemExit(f"scale Scanner.collect: launches {launches}, {segments} segments, "
+                         f"{scanner.reruns} re-runs")
     for name, v in launches.items():
         total[name] = total.get(name, 0) + v
+    first = {"first_reads": scanner.host_reads, "reruns": scanner.reruns,
+             "capacity": scanner.capacity}
     scanner = Scanner(pssm, dseq, threshold=t)
-    log("scale", check="Scanner.collect == K1 + threshold + nonzero on the card", threshold=t,
-        hits=len(want_pos), segments=segments, segment=scanner.block_size, launches=launches,
-        **wall_stats(wall_ms(scanner.collect, SCALE_RUNS)), **memory_mib())
+    walls = wall_ms(scanner.collect, SCALE_RUNS)
+    scanner.host_reads = 0
+    collect(scanner, "a steady Scanner.collect")
+    if scanner.host_reads != 1:
+        raise SystemExit(f"scale: a steady Scanner.collect read {scanner.host_reads} times")
+    log("scale", check="Scanner.collect == K1 + threshold + nonzero on the card; a steady "
+        "collect reads once", threshold=t, hits=len(want_pos), segments=segments,
+        segment=scanner.block_size, launches=launches, **first, steady_reads=1,
+        **wall_stats(walls), **memory_mib())
+    log("scale", profile="one steady Scanner.collect on the chromosome",
+        **steady_profile(scanner.collect))
+    t_scaled = int(scanner.dm.scale(t))
+    log("scale", op="Scanner._hits on the chromosome (the hit arrays, no Hit objects)",
+        **wall_stats(wall_ms(lambda: scanner._hits(t_scaled, t), SCALE_RUNS)))
+    del scanner
+    scale_dense(pssm, dseq, w, n, top, last)
     if sweep:
         for block in (*SCALE_SEGMENTS, 1 << 26, 1 << 28):
             settle()
@@ -4157,9 +4569,12 @@ def main(argv: list) -> int:
         return scale_only()
     if mode == ["--stages-only"] and parent is not None:
         return stages_only(parent)
+    if mode == ["--one-pssm-cards"]:
+        return one_pssm_cards(parent)
     if mode:
         print(f"chip_smoke: unknown arguments {argv} (--mesh-only [--parent DIR], "
-              "--scale-only, --parent DIR, --stages-only --parent DIR, or none)",
+              "--scale-only, --parent DIR, --stages-only --parent DIR, "
+              "--one-pssm-cards [--parent DIR], or none)",
               file=sys.stderr)
         return 2
     phase_card()
@@ -4168,6 +4583,7 @@ def main(argv: list) -> int:
     phase_sass()
     pssm, seq = build_inputs()
     errs = phase_kernels(pssm, seq)
+    errs["scan_compact"] = phase_scan_compact(pssm, seq)
     cases = list(prefilter_cases())
     errs["prefilter_any8"] = phase_k3(cases)
     errs.update(phase_k4k5(cases, seq))
@@ -4207,7 +4623,8 @@ def main(argv: list) -> int:
                "prefilter_any": (K3_SOURCE, K4_REPLACES),
                "prefilter_any16": (K3_SOURCE, K5_REPLACES),
                "phase_c_bits": (PHASE_C_SOURCE, PHASE_C_REPLACES),
-               "pairs_rescore": (PAIRS_SOURCE, PAIRS_REPLACES)}
+               "pairs_rescore": (PAIRS_SOURCE, PAIRS_REPLACES),
+               "scan_compact": (C3_SOURCE, C3_REPLACES)}
     errs.update(STAGE_ERRS)  # the worst of every check of the two
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -7,7 +7,8 @@ together:
 
 * :class:`BatchScanner` concatenates the records with ``m - 1``
   wildcard separators, runs one two-pass :class:`~.scanner.Scanner`
-  (K2) over the concatenation and splits the hits back per record;
+  (K2 and C3 per segment, one read) over the concatenation and splits
+  the hits back per record;
 * :class:`BatchReducer` packs the records into uniform slots, scores
   every window with K1 and reduces each slot to its (max, argmax);
 * :class:`MultiBatchScanner` runs the database scan
@@ -85,20 +86,14 @@ class BatchScanner:
 
     def collect(self) -> list:
         """Per-record hit lists (``[[Hit, ...], ...]``), each ordered by
-        position like a per-record :class:`~.scanner.Scanner` run."""
+        position like a per-record :class:`~.scanner.Scanner` run: the
+        concatenation's hits come in position order, so each record's do."""
         sc = self._scanner
-        pos, scores = [], []
-        for p, s in sc._scan_segments(int(sc.dm.scale(sc.threshold)), sc.threshold):
-            pos.append(p)
-            scores.append(s)
+        pos, scores = sc._hits(int(sc.dm.scale(sc.threshold)), sc.threshold)
         out = [[] for _ in self._offsets]
-        if pos:
-            rec, local, kept = _split(np.concatenate(pos), np.concatenate(scores),
-                                      self._offsets, self._lengths, len(self.pssm))
-            for r, p, s in zip(rec.tolist(), local.tolist(), kept.tolist()):
-                out[r].append(Hit(p, s))
-        for hits in out:
-            hits.sort(key=lambda h: h.position)
+        rec, local, kept = _split(pos, scores, self._offsets, self._lengths, len(self.pssm))
+        for r, p, s in zip(rec.tolist(), local.tolist(), kept.tolist()):
+            out[r].append(Hit(p, s))
         return out
 
 

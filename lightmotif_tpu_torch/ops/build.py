@@ -10,7 +10,7 @@ its source, the ``csrc/*.cuh`` headers the sources share and the flags,
 so a changed source is rebuilt and an unchanged one is loaded as it is.
 
 Production and probes are built apart.  :func:`library` builds and loads
-``score.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu`` and asks
+``score.cu``, ``scan.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu`` and asks
 only for the entry points the production wrappers call
 (:data:`PRODUCTION_SYMBOLS`); :func:`probe_library`
 adds ``probes.cu`` and the probes' entry points (:data:`PROBE_SYMBOLS`).  A
@@ -68,7 +68,7 @@ PACKAGE_BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ENV = "LIGHTMOTIF_TPU_COMPILE_CACHE"
 
 #: The sources of the production entry points, and those of the probes.
-PRODUCTION_SOURCES = ("score.cu", "prefilter.cu", "phase_c.cu", "pairs.cu")
+PRODUCTION_SOURCES = ("score.cu", "scan.cu", "prefilter.cu", "phase_c.cu", "pairs.cu")
 PROBE_SOURCES = ("probes.cu",)
 
 NVCC_FLAGS = [
@@ -80,6 +80,7 @@ NVCC_FLAGS = [
 _I64 = ctypes.c_longlong
 _P = ctypes.c_void_p
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 
 #: ``name: (argtypes, restype)`` of the C functions the production
 #: wrappers (``kernels.py``, ``multi_kernel.py``, ``multi_stages.py``) call.
@@ -88,6 +89,9 @@ PRODUCTION_SYMBOLS = {
     "lm_score_smem": ([_INT, _INT, _INT], _I64),
     "lm_score_f32": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
     "lm_score_u8": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
+    "lm_scan_scratch": ([_I64], _I64),
+    "lm_scan_compact": (
+        [_P, _P, _P, _INT, _INT, _I64, _INT, _F32, _I64, _P, _P, _P, _P], _INT),
     "lm_prefilter_lanes": ([], _INT),
     "lm_prefilter_production": ([], _INT),
     "lm_prefilter_smem": ([_INT, _INT, _INT, _INT], _I64),
@@ -278,7 +282,7 @@ def _build(names) -> dict:
 
 def build_info(probes: bool = False) -> dict:
     """Compile the libraries that are not up to date, all at once:
-    ``score.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu``, and
+    ``score.cu``, ``scan.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu``, and
     ``probes.cu`` with ``probes``.  Returns ``paths`` (one library per source), ``compiled`` (the ones
     this call built), ``seconds`` (wall time of the build, 0.0 when
     every library was found) and the compilers' ``log`` (``ptxas -v``
@@ -314,8 +318,8 @@ def _load(probes: bool) -> SimpleNamespace:
 
 def library() -> SimpleNamespace:
     """The production entry points (:data:`PRODUCTION_SYMBOLS`), with their
-    signatures set, from ``score.cu``, ``prefilter.cu``, ``phase_c.cu`` and
-    ``pairs.cu``."""
+    signatures set, from ``score.cu``, ``scan.cu``, ``prefilter.cu``,
+    ``phase_c.cu`` and ``pairs.cu``."""
     lib = _LIBS.get(False)  # no lock once loaded: every launch asks
     return lib if lib is not None else _load(False)
 

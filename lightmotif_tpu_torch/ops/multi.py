@@ -87,6 +87,7 @@ __all__ = [
     "RERUNS",
     "reset_reruns",
     "head_width",
+    "ratchet",
     "seed_capacities",
     "Entry",
     "group_steps",
@@ -782,6 +783,12 @@ def head_width(hint: int, cap: int) -> int:
     return min(cap, width)
 
 
+def ratchet(cap: int, need: int) -> int:
+    """The JAX package's capacity rule: ``cap``, or the next power of two
+    at or above ``need`` where ``need`` outgrows it."""
+    return max(cap, 1 << (need - 1).bit_length()) if need > cap else cap
+
+
 def seed_capacities(group: dict, capacity: int = DEFAULT_CAPACITY) -> tuple:
     """A group's first ``(cap, cap_hits)``, as the JAX ``MultiScanner``
     seeds them: the hit capacity grows with the group's lanes, so a first
@@ -1061,11 +1068,8 @@ def settle_entries(entries: list, counts, widths, read=read_host, state=None, hi
     settled, kept, complete = [], {}, True
     for e, c, w in zip(entries, counts, widths):
         while _overflowed(e, c):
-            n_cand, need = int(c[0]), int(c[1])
-            cap = max(e.cap, 1 << (n_cand - 1).bit_length()) if n_cand > e.cap else e.cap
-            cap_hits = (max(e.cap_hits, 1 << (need - 1).bit_length()) if need > e.cap_hits
-                        else e.cap_hits)
-            e = e.rerun(cap, cap_hits)._replace(offset=e.offset)
+            e = e.rerun(ratchet(e.cap, int(c[0])),
+                        ratchet(e.cap_hits, int(c[1])))._replace(offset=e.offset)
             kernels.count_launch(RERUNS, "dense" if isinstance(e.key, tuple) else "group")
             c = read(e.counts)
             complete = False

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the scan primitives.
 
 Counterpart of :mod:`lightmotif_tpu.ops.xla_ops`.  These are the
-reference versions of the CUDA kernels in ``csrc/score.cu``: the kernel
+reference versions of the CUDA kernels in ``csrc/``: the kernel
 wrappers in :mod:`.kernels` run them for tensors on the CPU, the CPU
 tests hold them to the JAX package, and ``chip_smoke.py`` holds the
 kernels to them on the card.
@@ -18,6 +18,9 @@ Arithmetic contracts, as in the JAX package:
 Sequences are flat ``uint8`` rank tensors.  A window that runs past the
 end of the sequence reads the wildcard (rank ``K - 1``), and so does any
 rank ``>= K``.
+
+:func:`scan_compact` is the plain version of C3 (``csrc/scan.cu``), the
+Scanner's compaction, rescore and keep after K2.
 
 :func:`prefilter_any8`, :func:`prefilter_any` and :func:`prefilter_any16`
 are the plain versions of the multi-motif prefilters K3, K4 and K5
@@ -38,10 +41,8 @@ __all__ = [
     "prefilter_any16",
     "max_last",
     "argmax_last",
-    "compact_mask",
     "rescore_positions",
-    "scan_launch",
-    "scan_finish",
+    "scan_compact",
     "scan_segment",
 ]
 
@@ -155,65 +156,68 @@ def argmax_last(scores: torch.Tensor) -> torch.Tensor:
     return torch.where(scores == top, pos, -1).max()
 
 
-def compact_mask(mask: torch.Tensor, count: int) -> torch.Tensor:
-    """Ascending indices of the set entries of a boolean mask, given
-    their number ``count``: no read of the device (``nonzero`` would
-    read the count to size its output)."""
-    return torch.nonzero_static(mask, size=count).flatten()
-
-
 def rescore_positions(seq: torch.Tensor, pssm: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
-    """Exact f32 scores of selected window starts (sequential j-order
-    adds, as ``ScoringMatrix.score_position``).  Every window must lie
-    inside ``seq``."""
-    m = pssm.shape[0]
+    """Exact f32 scores of selected window starts: from +0.0, the
+    sequential ascending-j adds of ``pssm[j, s[p + j]]``, as the JAX
+    package's ``rescore_positions`` (so a sum of -0.0 terms is +0.0).
+    Ranks ``>= K`` read the wildcard.  Every window must lie inside
+    ``seq``."""
+    m, k = pssm.shape
+    rows = torch.arange(m, device=seq.device)
+    terms = pssm[rows, seq[positions[:, None] + rows].to(torch.int64).clamp_(max=k - 1)]
     acc = torch.zeros(positions.shape, dtype=torch.float32, device=seq.device)
     for j in range(m):
-        acc = acc + pssm[j][seq[positions + j].to(torch.int64)]
+        acc = acc + terms[:, j]
     return acc
 
 
-def scan_launch(chunk: torch.Tensor, n_here: int, dm: torch.Tensor, t_scaled: int):
-    """The launch step of :func:`scan_segment`: the discrete first pass
-    (the scoring kernel in discrete mode) over the segment's ``n_here``
-    window starts, the candidate mask ``>= t_scaled`` and its count, all
-    left on the device.  Returns ``(mask, count)``, ``count`` an int64
-    scalar tensor."""
-    from . import kernels
+def scan_compact(scores: torch.Tensor, seq: torch.Tensor, pssm: torch.Tensor, n_here: int,
+                 t_scaled: int, threshold: float, cap: int):
+    """C3's plain version: the fixed-capacity compaction, exact rescore and
+    keep of one segment, given its discrete scores, with no read of the
+    device.
 
-    mask = kernels.score_u8(chunk, dm, n_here) >= t_scaled
-    return mask, mask.sum()
+    ``scores``: int32 ``[>= n_here]`` (K2's; only the first ``n_here``
+    are read); ``seq``: uint8, the segment's ``n_here`` window starts and
+    their ``m - 1`` halo; ``pssm``: f32 ``[m, K]``.  The candidates are
+    the window starts with ``score >= t_scaled``; the first ``cap`` of
+    them in ascending order are rescored (:func:`rescore_positions`) and
+    kept where the f32 score is ``>= threshold`` (as an f32).
 
-
-def scan_finish(seq: torch.Tensor, mask: torch.Tensor, count: int,
-                pssm: torch.Tensor, threshold: float):
-    """The finish step of :func:`scan_segment`, given the number of set
-    entries of ``mask`` (the candidates of :func:`scan_launch`, or of
-    several segments laid end to end in ``seq``) as a host integer: the
-    candidates compacted at that size, rescored exactly, and the keep
-    mask ``score >= threshold``, with no read of the device.
-
-    Returns ``(positions, scores, keep)``, ``count`` entries each, in
-    ascending position order.
+    Returns ``(counts, packed)``: ``counts`` int32 ``[3]`` = ``[exact
+    candidate count, n_kept, valid]`` (``n_kept`` among the first ``cap``
+    candidates; ``valid`` is always 1, the compaction being complete at
+    any density); ``packed`` int32 ``[2, cap]``, the kept hits
+    front-compacted in ascending position order, as positions and f32
+    bits.  Slots past ``n_kept`` hold zeros here and anything in the
+    kernel: callers read ``packed[:, :n_kept]``.  The counterpart of the
+    JAX ``scan_segment`` after its discrete pass (``dense=True``).
     """
-    idx = compact_mask(mask, count)
-    fscores = rescore_positions(seq, pssm, idx)
-    return idx, fscores, fscores >= torch.tensor(threshold, dtype=torch.float32)
+    cand = scores[:n_here] >= t_scaled
+    # no more than n_here candidates: a short segment rescores only its own
+    idx = torch.nonzero_static(cand, size=min(cap, n_here), fill_value=n_here).flatten()
+    live = idx < n_here
+    fscores = rescore_positions(seq, pssm, torch.where(live, idx, 0))
+    threshold = torch.tensor(threshold, dtype=torch.float32)
+    keep = live & (fscores >= threshold)
+    # each kept hit's slot; the others land in a dump slot past the end
+    slot = torch.where(keep, torch.cumsum(keep, 0) - 1, cap)
+    packed = torch.zeros((2, cap + 1), dtype=torch.int32, device=scores.device)
+    packed[0].scatter_(0, slot, idx.to(torch.int32))
+    packed[1].scatter_(0, slot, fscores.view(torch.int32))
+    counts = torch.stack([cand.sum().clamp(max=2**31 - 1), keep.sum(),
+                          torch.ones((), dtype=torch.int64, device=scores.device)])
+    return counts.to(torch.int32), packed[:, :cap]
 
 
-def scan_segment(chunk: torch.Tensor, n_here: int, dm: torch.Tensor,
-                 pssm: torch.Tensor, t_scaled: int, threshold: float):
-    """Two-pass scan of one segment: :func:`scan_launch`, then
-    :func:`scan_finish`.
-
+def scan_segment(chunk: torch.Tensor, n_here: int, dm: torch.Tensor, pssm: torch.Tensor,
+                 t_scaled: int, threshold: float, cap: int):
+    """Two-pass scan of one segment at a fixed capacity, all plain: the
+    discrete scores (:func:`score_u8`), then :func:`scan_compact`.  The
+    counterpart of the JAX ``xla_ops.scan_segment`` (``dense=True``);
     ``chunk`` holds the segment's ``n_here`` window starts plus the
-    (m-1)-position halo.  The discrete first pass selects the candidates
-    ``>= t_scaled``; they are rescored exactly and kept where the f32
-    score is ``>= threshold``.  Returns ``(positions, scores)`` of the
-    kept hits, in ascending position order.  Two reads of the device:
-    the candidate count and, in the boolean index, the kept count.
-    """
-    mask, count = scan_launch(chunk, n_here, dm, t_scaled)
-    positions, scores, keep = scan_finish(chunk, mask, int(count), pssm, threshold)
-    return positions[keep], scores[keep]
+    (m-1)-position halo.  Returns ``(counts int32 [3], packed int32 [2,
+    cap])``, with no read of the device."""
+    return scan_compact(score_u8(chunk, dm, n_here), chunk, pssm, n_here, t_scaled,
+                        threshold, cap)

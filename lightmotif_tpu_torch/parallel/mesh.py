@@ -14,13 +14,17 @@ shard is issued before the host reads anything, as the JAX package's
 device a fixed number of times per call, whatever the number of shards:
 
 * :func:`sharded_scan` and :meth:`ShardedScanner.collect` issue every
-  shard's launch step (:func:`~.ops.torch_ops.scan_launch`: the scoring
-  kernel in discrete mode, K2, the candidate mask and its count), read
-  the candidate counts (one read per distinct device), issue the finish
-  step (:func:`~.ops.torch_ops.scan_finish`: compaction at the known
-  size, exact rescore, keep) once per device over its shards' segments
-  laid end to end, then read each device's candidates, shifted to genome
-  positions, with their keep flags (one read per device);
+  shard's two-pass scan at a fixed capacity
+  (:func:`~.ops.kernels.scan_segment`: the scoring kernel in discrete
+  mode, K2, then C3's compaction, exact rescore and keep), from one
+  thread, with no read;
+  then each device lays its shards' counters and hit heads end to end,
+  the first device gathers every device's, and the host reads once
+  (:func:`~.scanner.kept_hits`).  Only when a shard's candidates
+  outnumber the capacity (every shard that did runs once more at the
+  next power of two at or above the worst shard's count, and a
+  ``ShardedScanner`` keeps that capacity, as the JAX package's retry
+  does) or its kept hits outgrow its head is the mesh read again;
 * :func:`sharded_argmax` (exact f32 scores, K1, and the last-max
   reduction per shard) and :meth:`ShardedScanner.max` merge each
   shard's ``(max, position)`` on its device, then every device's pair on
@@ -54,11 +58,11 @@ CUDA device under NCCL (each process calls ``torch.cuda.set_device``
 before ``init_process_group``).  Other backends are refused.  Once a
 process group is initialised the exchange runs, one rank included.
 
-The single-PSSM scans compact at the exact count, read between their
-two steps, so they need no capacities: their ``cap`` is accepted for
-signature compatibility and unused.  The database scan keeps the JAX
-package's capacities and ratchets (``cap`` seeds them, per device).
-``pad_unit`` sets the shard alignment.
+Both scans run at the JAX package's fixed capacities: the one-PSSM
+scan's candidates per shard (:func:`sharded_scan`'s ``cap``; a
+``ShardedScanner`` starts at 65,536 and ratchets) and the database
+scan's capacities (``cap`` seeds them; they ratchet per device and
+group).  ``pad_unit`` sets the shard alignment.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ import torch
 
 from ..ops import kernels, multi, torch_ops
 from ..ops.pipeline import PAD_MULTIPLE, DeviceSequence, resolve_device
+from ..scanner import DEFAULT_CAPACITY, best_hit, issue_segment, kept_hits, merge_best
 from ..sequence import EncodedSequence
 
 __all__ = [
@@ -197,13 +202,6 @@ def _best_everywhere(best):
     return float(top), int(every[scores == top, 1].max())
 
 
-def _best_of(scores: torch.Tensor, positions: torch.Tensor) -> tuple:
-    """``(max score, the largest position holding it)`` of two vectors on
-    one device, left there."""
-    top = scores.max()
-    return top, torch.where(scores == top, positions, -1).max()
-
-
 def _merge_best(pairs: list):
     """Merge ``(score, position)`` scalar tensors by the last-max rule:
     those of each device on it, then each device's on the device of the
@@ -212,14 +210,7 @@ def _merge_best(pairs: list):
     on the host, or ``None`` for no pairs."""
     if not pairs:
         return None
-    by_device = {}
-    for score, position in pairs:
-        by_device.setdefault(score.device, []).append((score, position))
-    first = pairs[0][0].device
-    merged = [_best_of(*(torch.stack(column) for column in zip(*group)))
-              for group in by_device.values()]
-    top, position = _best_of(*(torch.stack([t.to(first) for t in column])
-                               for column in zip(*merged)))
+    top, position = merge_best(pairs)
     bits, position = _to_host(torch.stack([top.view(torch.int32).to(torch.int64), position]))
     return float(np.int32(bits).view(np.float32)), int(position)
 
@@ -304,110 +295,53 @@ def _tables(pssm_data, dm_data, mesh: list) -> dict:
     return {dev: (pssm[dev], dm[dev]) for dev in pssm}
 
 
-def _read_counts(counts: list) -> list:
-    """Host integers of int64 scalar tensors: one read per distinct
-    device, whatever the number of tensors."""
-    by_device = {}
-    for i, count in enumerate(counts):
-        by_device.setdefault(count.device, []).append(i)
-    out = [0] * len(counts)
-    for idx in by_device.values():
-        for i, value in zip(idx, _to_host(torch.stack([counts[i] for i in idx]))):
-            out[i] = int(value)
-    return out
+def _counted(reader: multi.HostReader):
+    """``read(tensor)`` through ``reader``, counted in :data:`HOST_READS`."""
+    def read(tensor):
+        _count_read()
+        return reader.read(tensor)
+
+    return read
 
 
-def _launch_shards(tables: dict, prepared, t_scaled: int, m: int) -> dict:
-    """The launch step (:func:`~.ops.torch_ops.scan_launch`) on every
-    shard that owns windows, with no read of the device: ``{device:
-    [(shard, segment, mask, count), ...]}``."""
+def _issue_shards(tables: dict, prepared, t_scaled: int, threshold: float, m: int,
+                  cap: int) -> list:
+    """K2 and C3 (:func:`~.ops.kernels.scan_segment`) on every shard that
+    owns windows, at ``cap``, from this thread, with no read of any
+    device: their :class:`~.scanner.Segment` s in shard order, each
+    offset its shard's first window start, keyed by its global shard
+    index."""
     shards, chunk, n_scores = prepared
-    launched = {}
+    segments = []
     for d, shard in shards:
         n_local = _owned(n_scores, d, chunk)
         if n_local:
             segment = shard[: n_local + m - 1]
-            launched.setdefault(segment.device, []).append((d, segment, *torch_ops.scan_launch(
-                segment, n_local, tables[segment.device][1], int(t_scaled))))
-    return launched
-
-
-def _finish_shards(launched: dict, counts: list, tables: dict, chunk: int,
-                   threshold: float) -> list:
-    """The finish step of each device's shards together, given their
-    candidate counts in :func:`_launch_shards`' order, with no read of
-    the device: :func:`~.ops.torch_ops.scan_finish` over the device's
-    segments laid end to end, so the rescore's small ops run once per
-    device, not once per shard.  Returns, per device with candidates,
-    ``(global positions, scores, keep)`` of every candidate of its
-    shards, in position order."""
-    finished, at = [], 0
-    for device, rows in launched.items():
-        here, at = counts[at : at + len(rows)], at + len(rows)
-        if not sum(here):
-            continue
-        positions, scores, keep = torch_ops.scan_finish(
-            torch.cat([segment for _, segment, _, _ in rows]),
-            torch.cat([mask for _, _, mask, _ in rows]),
-            sum(here), tables[device][0], float(threshold))
-        # a shard's candidates are a run of the compacted slots: shift its
-        # run from the concatenation's coordinates to the genome's
-        shift, offset = [], 0
-        for (d, segment, _, _), count in zip(rows, here):
-            if count:
-                shift.append(torch.full((count,), d * chunk - offset, dtype=torch.int64,
-                                        device=device))
-            offset += segment.shape[0]
-        finished.append((positions + torch.cat(shift), scores, keep))
-    return finished
-
-
-def _scan_shards(tables: dict, prepared, threshold: float, t_scaled: int, m: int) -> list:
-    """The two-pass scan of every shard, with one read per distinct
-    device between the two steps (its shards' candidate counts):
-    :func:`_finish_shards` of :func:`_launch_shards`."""
-    launched = _launch_shards(tables, prepared, t_scaled, m)
-    counts = _read_counts([count for rows in launched.values() for *_, count in rows])
-    return _finish_shards(launched, counts, tables, prepared[1], threshold)
-
-
-def _kept_hits(finished: list, chunk: int) -> tuple:
-    """The kept hits of :func:`_scan_shards`' devices on the host, one
-    read per device.  Returns ``(positions int64, scores float32,
-    {shard: kept count})``, ordered by position."""
-    hits = []
-    for positions, scores, keep in finished:
-        hits.append(_to_host(torch.stack(
-            [positions, scores.view(torch.int32).to(torch.int64), keep.to(torch.int64)])))
-    if not hits:
-        return np.zeros(0, np.int64), np.zeros(0, np.float32), {}
-    host = np.concatenate(hits, axis=1)
-    host = host[:, host[2] != 0]
-    host = host[:, np.argsort(host[0], kind="stable")]  # devices may interleave shards
-    shard, kept = np.unique(host[0] // chunk, return_counts=True)
-    return (host[0], host[1].astype(np.int32).view(np.float32),
-            dict(zip(shard.tolist(), kept.tolist())))
-
-
-def _best_shard_hit(finished: list):
-    """The best exact hit among the candidates of :func:`_scan_shards`'
-    devices (scanned at threshold ``-inf``, so every candidate is kept),
-    merged on the devices and read once: ``(score, position)`` or
-    ``None``."""
-    return _merge_best([_best_of(scores, positions) for positions, scores, _ in finished])
+            pssm, dm = tables[segment.device]
+            run = functools.partial(kernels.scan_segment, segment, n_local, dm, pssm,
+                                    int(t_scaled), float(threshold))
+            segments.append(issue_segment(run, d * chunk, d, cap))
+    return segments
 
 
 # -- one PSSM -------------------------------------------------------------------
 
 
-def _sharded_scan(tables, prepared, threshold, t_scaled, m, n_local_shards):
-    """The hits of this process's shards and of every shard of every
-    process (int64 ``[global shards]``)."""
+def _sharded_scan(tables, prepared, threshold, t_scaled, m, n_local_shards, cap, hints,
+                  reader) -> tuple:
+    """The hits of this process's shards, read once in steady state
+    (:func:`~.scanner.kept_hits`), and the kept count of every shard of
+    every process (int64 ``[global shards]``).  Returns ``(positions,
+    scores, shard counts, cap, reruns)``, ``cap`` the capacity the shards
+    needed."""
     local = dict.fromkeys((d for d, _ in prepared[0]), 0)
-    positions, scores, kept = _kept_hits(
-        _scan_shards(tables, prepared, threshold, t_scaled, m), prepared[1])
-    local.update(kept)
-    return positions, scores, _gather_counts(local, _shard_block(n_local_shards)[0])
+    segments = _issue_shards(tables, prepared, t_scaled, threshold, m, cap)
+    positions, scores, over = np.zeros(0, np.int64), np.zeros(0, np.float32), []
+    if segments:
+        positions, scores, cap, over, kept = kept_hits(segments, cap, hints, _counted(reader))
+        local.update({s.key: int(k) for s, k in zip(segments, kept)})
+    counts = _gather_counts(local, _shard_block(n_local_shards)[0])
+    return positions, scores, counts, cap, len(over)
 
 
 def sharded_scan(
@@ -427,16 +361,22 @@ def sharded_scan(
 
     ``pssm_data`` / ``dm_data``: the scoring matrix's f32 and its
     discrete matrix's u8 tables; ``t_scaled``: the threshold on the
-    discrete scale.  ``prepared``: ``(shards, chunk, n_scores)`` from
-    :func:`prepare_shards`, to scan an uploaded genome again.  ``cap`` is
-    unused (compaction is exact).  Two reads per distinct device.
+    discrete scale; ``cap``: the candidates a shard holds (shards with
+    more run once more at the next power of two at or above the worst
+    shard's count).  ``prepared``: ``(shards, chunk, n_scores)`` from
+    :func:`prepare_shards`, to scan an uploaded genome again.  One read
+    when every shard fits ``cap`` and its head of
+    :data:`~.ops.multi.HEAD_SLOTS` hits.
     """
     mesh = make_genome_mesh(mesh)
     m = pssm_data.shape[0]
+    if int(cap) < 1:
+        raise ValueError("cap must be positive")
     if prepared is None:
         prepared = prepare_shards(encoded, mesh, m, pssm_data.shape[1] - 1, pad_unit)
     tables = _tables(pssm_data, dm_data, mesh)
-    positions, scores, _ = _sharded_scan(tables, prepared, threshold, t_scaled, m, len(mesh))
+    positions, scores, *_ = _sharded_scan(tables, prepared, threshold, t_scaled, m, len(mesh),
+                                          int(cap), {}, multi.HostReader())
     return positions, scores
 
 
@@ -474,8 +414,13 @@ class ShardedScanner:
 
     The genome is sharded and uploaded once, with the PSSM's tables, at
     the first scan, and reused by every :meth:`collect` and :meth:`max`.
-    ``shard_hits`` holds the hits of every shard (of every process)
-    after a :meth:`collect`."""
+    :attr:`cap`, the candidates a shard holds, starts at the JAX
+    package's 65,536 and ratchets to what the shards needed, so a steady
+    call reads once on any number of devices (:data:`HOST_READS`);
+    :attr:`reruns` counts the shards run again at a larger capacity.
+    Every shard's hit buffers wait for the one read together, as the JAX
+    mesh's sharded arrays do.  ``shard_hits`` holds the
+    hits of every shard (of every process) after a :meth:`collect`."""
 
     def __init__(self, pssm, seq, threshold: float = 0.0,
                  mesh: list | None = None, pad_unit: int | None = None):
@@ -484,11 +429,16 @@ class ShardedScanner:
         self.threshold = float(threshold)
         self.mesh = make_genome_mesh(mesh)
         self.pad_unit = pad_unit
+        self.cap = DEFAULT_CAPACITY
         if hasattr(seq, "unstripe"):
             seq = seq.unstripe()
         self.encoded = np.asarray(seq.data)
         self.shard_hits = None
+        #: shards re-run at a larger capacity since the scanner was made
+        self.reruns = 0
         self._prepared = None  # the sharded genome and the tables on the mesh
+        self._hints = {}  # shard -> its last n_kept: the head widths
+        self._reader = multi.HostReader()
 
     def _prep(self):
         if self._prepared is None:
@@ -503,24 +453,30 @@ class ShardedScanner:
         from ..scanner import Hit
 
         prepared, tables = self._prep()
-        positions, scores, self.shard_hits = _sharded_scan(
+        positions, scores, self.shard_hits, self.cap, reruns = _sharded_scan(
             tables, prepared, self.threshold, self.dm.scale(self.threshold),
-            len(self.pssm), len(self.mesh))
+            len(self.pssm), len(self.mesh), self.cap, self._hints, self._reader)
+        self.reruns += reruns
         return [Hit(int(p), float(s)) for p, s in zip(positions, scores)]
 
     def max(self):
         """Best exact hit among the discrete candidates of every shard
         (the semantics of :meth:`~.scanner.Scanner.max`: the score may be
         below the threshold, ``scan.rs:200-249``); ties go to the larger
-        position.  Across processes, every process gets the global
-        best."""
+        position.  The shards' bests are merged on each device, then on
+        the first (:func:`~.scanner.best_hit`), and read once.  Across
+        processes, every process gets the global best."""
         from ..scanner import Hit
 
         prepared, tables = self._prep()
         # keep every discrete candidate: the f32 keep-filter is -inf
-        finished = _scan_shards(tables, prepared, -np.inf, self.dm.scale(self.threshold),
-                                len(self.pssm))
-        best = _best_everywhere(_best_shard_hit(finished))
+        segments = _issue_shards(tables, prepared, self.dm.scale(self.threshold), -np.inf,
+                                 len(self.pssm), self.cap)
+        best = None
+        if segments:
+            best, self.cap, over = best_hit(segments, self.cap, _counted(self._reader))
+            self.reruns += len(over)
+        best = _best_everywhere(best)
         return None if best is None else Hit(best[1], best[0])
 
 

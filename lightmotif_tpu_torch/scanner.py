@@ -2,14 +2,26 @@
 
 Counterpart of :mod:`lightmotif_tpu.scanner`: ``Scanner`` for one PSSM
 and ``MultiScanner`` for a motif database.  Each segment of the
-sequence runs :func:`~.ops.torch_ops.scan_segment` in the ``Scanner``:
+sequence runs :func:`~.ops.kernels.scan_segment` in the ``Scanner``, at a
+fixed capacity, as the JAX package's ``scan_segment``:
 
-1. discrete scores of every window start (the scoring kernel in
+1. discrete scores of every window start (K2, the scoring kernel in
    discrete mode), an over-estimate of the f32 score, like the
    reference's u8 matrix;
-2. exact compaction of the candidates at or above the scaled threshold;
-3. exact f32 rescore of the candidates (sequential-order adds);
-4. the final f32 threshold mask.
+2. C3: the candidates at or above the scaled threshold, the first
+   ``capacity`` of them in position order with their exact count, their
+   exact f32 rescore (sequential-order adds), the final f32 threshold
+   and the front compaction of the kept hits.
+
+The segments are issued before the host reads anything, as many at a
+time as :data:`READ_AHEAD` bytes of hit buffers hold (every segment of a
+chromosome at the seed capacity); then one read fetches every issued
+segment's counters and the head of its kept hits (:func:`read_heads`).
+A segment whose candidates outnumber the capacity runs again at the
+next power of two at or above its count, and the scanner keeps that
+capacity (the JAX ratchet), so a steady scan reads the device once a
+batch: once, unless a dense threshold ratchets the capacity so far that
+fewer segments fit the read-ahead.
 
 Segments carry an (m-1)-position halo -- the same overlap rule as the
 reference's wrap rows (``seq.rs:369-381``) -- so scratch memory stays
@@ -19,30 +31,41 @@ bounded on long sequences.  Hits come out sorted by position.
 from __future__ import annotations
 
 import functools
+import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from .matrix import ScoringMatrix
-from .ops import graphs, multi, multi_kernel, torch_ops
+from .ops import graphs, kernels, multi, multi_kernel
 from .ops.pipeline import DeviceSequence, as_device_seq, resolve_device
 
 __all__ = ["Hit", "Scanner", "MultiHit", "MultiScanner"]
 
-#: Window starts per segment of the ``Scanner``.  It bounds the scan's
-#: scratch memory (about 9 bytes per window start at its peak: the int32
-#: discrete scores and the candidate mask), and each segment reads the
-#: device once more (its candidate count), so fewer segments scan faster:
-#: on an NVIDIA H100 a 248,956,422 bp chromosome scans in 4 segments of
-#: 2**26 in half the time of 15 of 2**24, and in one of 2**28 only a fifth
-#: faster with four times the memory (``chip_smoke.py --scale-only``).  A
-#: bacterial genome is one segment.
+#: Window starts per segment of the ``Scanner``.  It bounds the scratch
+#: of one segment's scan, K2's int32 scores (4 bytes a window start,
+#: which C3 reads; the next segment reuses them), while
+#: :data:`READ_AHEAD` bounds the hit buffers that wait for a read.  Each
+#: segment launches K2 and C3 once: on an NVIDIA H100 a 248,956,422 bp
+#: chromosome scanned in 4 segments of 2**26 in half the time of 15 of
+#: 2**24, and in one of 2**28 only a fifth faster with four times the
+#: memory (``chip_smoke.py --scale-only``, measured while each segment
+#: was read on its own).  A bacterial genome is one segment.
 DEFAULT_SEGMENT = 1 << 26
 
-#: Seed capacity of the database scan's fixed-size buffers (candidates
-#: per segment of a motif group, hits per dense motif), the JAX
-#: package's; the ``Scanner``'s compaction is exact and does not use it.
+#: Seed capacity of the fixed-size buffers: the ``Scanner``'s candidates
+#: per segment, and the database scan's (candidates per segment of a
+#: motif group, hits per dense motif), the JAX package's.  Each ratchets.
 DEFAULT_CAPACITY = multi.DEFAULT_CAPACITY
+
+#: Bytes of hit buffers (C3's ``packed``, 8 bytes a slot of the
+#: capacity) that the ``Scanner`` issues before it reads them: 512
+#: segments at the seed capacity.  A capacity ratcheted by a dense
+#: threshold issues fewer segments a read (one, once a segment's buffer
+#: alone outgrows it), so the device memory that waits for a read and the
+#: reader's pinned buffer stay bounded whatever the sequence's length.
+READ_AHEAD = 1 << 28
 
 
 @functools.total_ordering
@@ -53,7 +76,7 @@ class Hit:
     __slots__ = ("position", "score")
 
     def __init__(self, position: int, score: float):
-        if np.isnan(score):
+        if math.isnan(score):
             raise ValueError("hit score cannot be NaN")
         self.position = int(position)
         self.score = float(score)
@@ -162,8 +185,200 @@ def _reference_max(pssm, dm, seq, threshold: float,
     return Hit(best[0], best[1]) if best is not None else None
 
 
+class Segment(NamedTuple):
+    """One issued segment (or shard) of a one-PSSM scan: C3's ``counts``
+    (int32 ``[3]``) and ``packed`` (int32 ``[2, cap]``) on its device,
+    the ``offset`` added to its positions, the ``key`` of its head hint,
+    and ``run(cap)``, which issues it again at another capacity and
+    returns ``(counts, packed)``."""
+
+    counts: torch.Tensor
+    packed: torch.Tensor
+    offset: int
+    key: object
+    run: Callable
+
+
+def issue_segment(run: Callable, offset: int, key, cap: int) -> Segment:
+    """``run(cap)`` issued (K2 and C3, no read), as a :class:`Segment`."""
+    return Segment(*run(cap), offset, key, run)
+
+
+def read_pieces(pieces: list, read) -> list:
+    """Every entry's 1-D int32 tensors (``pieces[i]``, on one device each)
+    in one read: each device's pieces laid end to end on it, copied to
+    the device of the first entry with any (copies on the current
+    streams) and read there.  Returns each entry's pieces as numpy
+    copies, ``[]`` for an entry with none."""
+    by_device = {}
+    for i, ts in enumerate(pieces):
+        if ts:
+            by_device.setdefault(ts[0].device, []).append(i)
+    out = [[] for _ in pieces]
+    if not by_device:
+        return out
+    first = next(iter(by_device))
+    flats = [torch.cat([t for i in idx for t in pieces[i]]) for idx in by_device.values()]
+    flat = read(flats[0] if len(flats) == 1
+                else torch.cat([f.to(first, non_blocking=True) for f in flats]))
+    at = 0
+    for idx in by_device.values():
+        for i in idx:
+            for t in pieces[i]:
+                out[i].append(flat[at : at + t.numel()].copy())
+                at += t.numel()
+    return out
+
+
+def _rerun(segments: list, counts: np.ndarray, cap: int) -> tuple:
+    """Issue again, once each at the ratcheted capacity (no read), the
+    segments whose candidates outnumbered ``cap``.  Returns ``(segments,
+    cap, rerun indices)``."""
+    over = np.nonzero(counts[:, 0] > cap)[0].tolist()
+    if not over:
+        return segments, cap, over
+    cap = multi.ratchet(cap, int(counts[:, 0].max()))
+    segments = list(segments)
+    for i in over:
+        segments[i] = issue_segment(segments[i].run, segments[i].offset, segments[i].key, cap)
+    return segments, cap, over
+
+
+_EMPTY = [np.zeros(0, np.int32)] * 2
+
+
+def read_heads(segments: list, hints: dict, read) -> tuple:
+    """One read (:func:`read_pieces`): every issued segment's counters
+    and the head of its kept hits, :func:`~.ops.multi.head_width` of its
+    key's hint in ``hints`` at its capacity.  Returns ``(counts int64
+    [segments, 3], widths, heads)``, ``heads[i]`` the positions and f32
+    bits of the head."""
+    widths = [multi.head_width(hints.get(s.key, 0), s.packed.shape[1]) for s in segments]
+    got = read_pieces([[s.counts, s.packed[0, :w], s.packed[1, :w]]
+                       for s, w in zip(segments, widths)], read)
+    return np.stack([g[0] for g in got]).astype(np.int64), widths, [g[1:] for g in got]
+
+
+def settle(segments: list, kept: list, widths: list, heads: list, hints: dict, read) -> tuple:
+    """The kept hits of segments that fit their capacity, from
+    :func:`read_heads`' heads and their ``kept`` counts, and one more read
+    of the hits past the heads where a segment keeps more.  Each key's
+    hint becomes ``max(hint // 2, n_kept)``.  Returns per segment its
+    positions (int64, shifted by its offset) and f32 scores, in position
+    order."""
+    tails = read_pieces([[s.packed[0, w:k], s.packed[1, w:k]] if k > w else []
+                         for s, w, k in zip(segments, widths, kept)], read)
+    positions, scores = [], []
+    for s, head, tail, k in zip(segments, heads, tails, kept):
+        tail = tail or _EMPTY
+        positions.append(np.concatenate([head[0], tail[0]])[:k].astype(np.int64) + s.offset)
+        scores.append(np.concatenate([head[1], tail[1]])[:k].view(np.float32))
+        hints[s.key] = max(hints.get(s.key, 0) >> 1, k)
+    return positions, scores
+
+
+def kept_hits(segments: list, cap: int, hints: dict, read) -> tuple:
+    """The kept hits of issued segments, one read in steady state
+    (:func:`read_heads`); then, only where needed, the re-runs of the
+    segments that overflowed ``cap``, all at once (one more read, their
+    counters), and the hits past the heads (:func:`settle`, one more).
+
+    Returns ``(positions int64, scores float32, cap, reruns, kept)``:
+    the hits ordered as the segments (each segment's in position order,
+    shifted by its offset), the capacity the segments needed, the
+    indices of the re-run segments and each segment's kept count."""
+    n = len(segments)
+    counts, widths, heads = read_heads(segments, hints, read)
+    segments, cap, over = _rerun(segments, counts, cap)
+    if over:
+        again = read_pieces([[segments[i].counts] if i in over else [] for i in range(n)], read)
+        for i in over:
+            counts[i], widths[i], heads[i] = again[i][0], 0, _EMPTY
+    positions, scores = settle(segments, counts[:, 1].tolist(), widths, heads, hints, read)
+    return (np.concatenate(positions) if n else np.zeros(0, np.int64),
+            np.concatenate(scores) if n else np.zeros(0, np.float32), cap, over, counts[:, 1])
+
+
+def best_of(scores: torch.Tensor, positions: torch.Tensor) -> tuple:
+    """``(max score, the largest position holding it)`` of two vectors on
+    one device, left there (the reference's last-max rule,
+    ``pli/mod.rs:146``)."""
+    top = scores.max()
+    return top, torch.where(scores == top, positions, -1).max()
+
+
+def _segment_best(s: Segment) -> tuple:
+    """A segment's best kept hit on its device: ``(score, position)``,
+    ``(-inf, -1)`` when it keeps none."""
+    slots = torch.arange(s.packed.shape[1], dtype=torch.int32, device=s.packed.device)
+    valid = slots < s.counts[1]
+    top, position = best_of(torch.where(valid, s.packed[1].view(torch.float32), float("-inf")),
+                            torch.where(valid, s.packed[0], -1))
+    # int32 over the slots, the offset added to the one position
+    return top, torch.where(position < 0, -1, position.to(torch.int64) + s.offset)
+
+
+def merge_best(pairs: list) -> tuple:
+    """``(score, position)`` scalar tensors merged by the last-max rule
+    (:func:`best_of`), with no read: those of each device on it, then
+    each device's on the device of the first pair, where the merged pair
+    is left."""
+    by_device = {}
+    for pair in pairs:
+        by_device.setdefault(pair[0].device, []).append(pair)
+    first = pairs[0][0].device
+    merged = [best_of(*(torch.stack(column) for column in zip(*group)))
+              for group in by_device.values()]
+    return best_of(*(torch.stack([t.to(first, non_blocking=True) for t in column])
+                     for column in zip(*merged)))
+
+
+def _best_flat(segments: list) -> torch.Tensor:
+    """Every segment's counters, in order, then the f32 bits and the
+    position of the best kept hit of all (:func:`merge_best`), as one
+    int64 tensor on the first segment's device."""
+    first = segments[0].counts.device
+    top, position = merge_best([_segment_best(s) for s in segments])
+    counts = torch.cat([s.counts.to(first, non_blocking=True) for s in segments])
+    return torch.cat([counts.to(torch.int64), top.view(torch.int32).to(torch.int64).reshape(1),
+                      position.reshape(1)])
+
+
+def read_best(segments: list, read) -> tuple:
+    """One read of issued segments' counters and of their best kept hit,
+    merged on the devices (:func:`_best_flat`).  Returns ``(counts int64
+    [segments, 3], (score, position) or None)``.  A segment that
+    overflowed its capacity gives the best of its first candidates: a
+    candidate all the same."""
+    n = len(segments)
+    host = read(_best_flat(segments))
+    bits, position = (int(v) for v in host[3 * n :])
+    best = None if position < 0 else (float(np.int32(bits).view(np.float32)), position)
+    return host[: 3 * n].reshape(n, 3), best
+
+
+def best_hit(segments: list, cap: int, read) -> tuple:
+    """The best kept hit of issued segments, read once in steady state
+    (:func:`read_best`); the segments that overflowed ``cap`` run again,
+    all at once, at the ratcheted capacity, and the merge is read once
+    more.  Returns ``((score, position) or None, cap, reruns)``."""
+    counts, best = read_best(segments, read)
+    segments, cap, over = _rerun(segments, counts, cap)
+    if over:
+        best = read_best(segments, read)[1]
+    return best, cap, over
+
+
 class Scanner:
-    """Iterator over hits of a PSSM in a sequence above a threshold."""
+    """Iterator over hits of a PSSM in a sequence above a threshold.
+
+    ``capacity`` seeds the candidates a segment holds; it ratchets, as in
+    the JAX package, to the capacity the scans needed (:attr:`capacity`).
+    The segments are issued with no read of the device, in batches of
+    :data:`READ_AHEAD` bytes of hit buffers, and each batch is read at
+    once (:meth:`_scan`): :attr:`host_reads` counts the reads (one per
+    steady :meth:`collect` whose segments fit one batch),
+    :attr:`reruns` the segments that ran again at a larger capacity."""
 
     def __init__(
         self,
@@ -180,38 +395,102 @@ class Scanner:
         self.threshold = float(threshold)
         self.block_size = int(block_size)
         self.capacity = int(capacity)
+        if self.capacity < 1:
+            raise ValueError("capacity must be positive")
         self.device = resolve_device(device)
         self._dseq = as_device_seq(seq, self.device)
+        self._tables = None  # the f32 and u8 tables on the device
+        self._reader = multi.HostReader()
+        self._head_hint = {}  # segment offset -> its last n_kept: the head widths
+        #: reads of the device since the scanner was made
+        self.host_reads = 0
+        #: segments re-run at a larger capacity since the scanner was made
+        self.reruns = 0
 
-    def _scan_segments(self, t_scaled: int, threshold: float):
-        """Yield (positions, scores) numpy arrays of the kept hits of
-        each segment, in ascending position order."""
+    def _read(self, tensor: torch.Tensor) -> np.ndarray:
+        self.host_reads += 1
+        return self._reader.read(tensor)
+
+    def _segment_run(self, chunk, n_here: int, t_scaled: int, threshold: float, cap: int):
+        pssm_dev, dm_dev = self._tables
+        return kernels.scan_segment(chunk, n_here, dm_dev, pssm_dev, t_scaled, threshold, cap)
+
+    def _runs(self, t_scaled: int, threshold: float) -> list:
+        """``(offset, run)`` of every segment, in position order;
+        ``run(cap)`` issues the segment's K2 and C3 (no read) and returns
+        C3's ``(counts, packed)``."""
         m = len(self.pssm)
         n_total = max(self._dseq.length - m + 1, 0)
         if n_total == 0:
-            return
+            return []
         if self.block_size < 1:
             raise ValueError("block_size must be positive")
-        pssm_dev = torch.as_tensor(
-            np.ascontiguousarray(self.pssm.data, dtype=np.float32),
-            device=self.device)
-        dm_dev = torch.as_tensor(
-            np.ascontiguousarray(self.dm.data, dtype=np.uint8),
-            device=self.device)
+        if self._tables is None:
+            self._tables = tuple(
+                torch.as_tensor(np.ascontiguousarray(data, dtype=dtype), device=self.device)
+                for data, dtype in ((self.pssm.data, np.float32), (self.dm.data, np.uint8)))
         data = self._dseq.data
+        runs = []
         for off in range(0, n_total, self.block_size):
             n_here = min(self.block_size, n_total - off)
-            chunk = data[off : off + n_here + m - 1]
-            positions, scores = torch_ops.scan_segment(
-                chunk, n_here, dm_dev, pssm_dev, t_scaled, threshold)
-            if positions.numel():
-                yield positions.cpu().numpy() + off, scores.cpu().numpy()
+            runs.append((off, functools.partial(
+                self._segment_run, data[off : off + n_here + m - 1], n_here, t_scaled,
+                threshold)))
+        return runs
+
+    def _issue(self, runs: list) -> list:
+        """:meth:`_runs`' segments issued at :attr:`capacity`, with no
+        read of the device: their :class:`Segment` s."""
+        return [issue_segment(run, off, off, self.capacity) for off, run in runs]
+
+    def _scan(self, t_scaled: int, threshold: float, read_batch) -> None:
+        """Every segment, issued in batches of as many segments as
+        :data:`READ_AHEAD` bytes of hit buffers hold at :attr:`capacity`
+        (at least one), each batch read by ``read_batch(segments)``, which
+        returns their counters.  A segment whose candidates outnumbered
+        the capacity goes back to the front of the queue, to run once more
+        at the next power of two at or above the batch's largest count,
+        which the scanner keeps (the JAX ratchet): so a re-run, too, waits
+        for its read in batches of the read-ahead."""
+        queue = self._runs(t_scaled, threshold)
+        while queue:
+            cap = self.capacity
+            batch = queue[: max(1, READ_AHEAD // (8 * cap))]
+            del queue[: len(batch)]
+            counts = read_batch(self._issue(batch))
+            over = counts[:, 0] > cap
+            if over.any():
+                self.capacity = multi.ratchet(cap, int(counts[:, 0].max()))
+                self.reruns += int(over.sum())
+                queue[:0] = [run for run, o in zip(batch, over) if o]
+
+    def _hits(self, t_scaled: int, threshold: float) -> tuple:
+        """``(positions int64, scores float32)`` of the kept hits, in
+        position order: :meth:`_scan`, each batch read by
+        :func:`read_heads` (and :func:`settle` where a segment keeps more
+        than its head)."""
+        parts = {}
+
+        def read_batch(segments):
+            counts, widths, heads = read_heads(segments, self._head_hint, self._read)
+            fit = [i for i, (s, c) in enumerate(zip(segments, counts[:, 0].tolist()))
+                   if c <= s.packed.shape[1]]
+            got = settle([segments[i] for i in fit], counts[fit, 1].tolist(),
+                         [widths[i] for i in fit], [heads[i] for i in fit], self._head_hint,
+                         self._read)
+            for i, p, sc in zip(fit, *got):
+                parts[segments[i].offset] = (p, sc)
+            return counts
+
+        self._scan(t_scaled, threshold, read_batch)
+        if not parts:
+            return np.zeros(0, np.int64), np.zeros(0, np.float32)
+        return tuple(np.concatenate([parts[off][j] for off in sorted(parts)]) for j in (0, 1))
 
     def __iter__(self):
-        t_scaled = int(self.dm.scale(self.threshold))
-        for positions, scores in self._scan_segments(t_scaled, self.threshold):
-            for p, s in zip(positions.tolist(), scores.tolist()):
-                yield Hit(p, s)
+        positions, scores = self._hits(int(self.dm.scale(self.threshold)), self.threshold)
+        for p, s in zip(positions.tolist(), scores.tolist()):
+            yield Hit(p, s)
 
     def collect(self) -> list:
         return list(self)
@@ -230,7 +509,10 @@ class Scanner:
         reference's candidates and always returns the true best exact
         score among them; the reference raises its cutoff to each
         accepted candidate's quantized score (``scan.rs:236``), which
-        can skip a later candidate whose exact score is higher.
+        can skip a later candidate whose exact score is higher.  The
+        segments are those of :meth:`collect`, with the f32 keep-filter
+        at ``-inf``; each batch's best is merged on the device and read
+        once (:func:`read_best`).
 
         ``mode="reference"`` replays the reference's rising-cutoff
         algorithm exactly (AVX2 geometry: 32 lanes, 256-row blocks,
@@ -244,14 +526,16 @@ class Scanner:
             raise ValueError(f"unknown max mode {mode!r}")
         # keep every discrete candidate: the f32 keep-filter is -inf
         # while the discrete cutoff still comes from the threshold
-        t_scaled = int(self.dm.scale(self.threshold))
-        best = None
-        for positions, scores in self._scan_segments(t_scaled, -np.inf):
-            i = int(np.lexsort((positions, scores))[-1])
-            cand = Hit(int(positions[i]), float(scores[i]))
-            if best is None or cand > best:
-                best = cand
-        return best
+        best = []
+
+        def read_batch(segments):
+            counts, got = read_best(segments, self._read)
+            best.extend([got] if got is not None else [])
+            return counts
+
+        self._scan(int(self.dm.scale(self.threshold)), -np.inf, read_batch)
+        # the last-max rule: the largest score, then the largest position
+        return Hit(*max(best)[::-1]) if best else None
 
 
 class MultiHit(Hit):

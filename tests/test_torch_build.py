@@ -141,15 +141,15 @@ def test_production_build_leaves_the_probes_out(fresh, fake_nvcc, monkeypatch):
     info = build.build_info()
     built = sorted(pathlib.Path(line).name for line in fake_nvcc.read_text().split())
     # compiled together, in any order
-    assert built == ["pairs.cu", "phase_c.cu", "prefilter.cu", "score.cu"]
-    assert [p.name.split("-")[1] for p in info["compiled"]] == ["score", "prefilter", "phase_c",
-                                                                "pairs"]
+    assert built == ["pairs.cu", "phase_c.cu", "prefilter.cu", "scan.cu", "score.cu"]
+    assert [p.name.split("-")[1] for p in info["compiled"]] == ["score", "scan", "prefilter",
+                                                                "phase_c", "pairs"]
     assert build.build_info() is info  # built once per process
     probes = build.build_info(probes=True)
     built = [pathlib.Path(line).name for line in fake_nvcc.read_text().split()]
-    assert built[4:] == ["probes.cu"]
+    assert built[len(build.PRODUCTION_SOURCES):] == ["probes.cu"]
     assert [p.name.split("-")[1] for p in probes["compiled"]] == ["probes"]
-    assert probes["paths"][:4] == info["paths"]
+    assert probes["paths"][:len(build.PRODUCTION_SOURCES)] == info["paths"]
     # a second process finds every library and compiles nothing
     monkeypatch.setattr(build, "_INFO", {})
     assert build.build_info(probes=True)["compiled"] == []

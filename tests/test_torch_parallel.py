@@ -453,7 +453,7 @@ def test_host_reads_do_not_grow_with_shards(pssms, genome, database, path):
     dm = tp.to_discrete()
     seq = tlm.EncodedSequence(genome)
     _, tps, db_genome, ths = database
-    reads = []
+    reads, heavy = [], []
     for shards in (1, 2, 8):
         mesh = cpu_mesh(shards)
         sc = tpar.ShardedScanner(tp, seq, threshold=-8.0, mesh=mesh, pad_unit=256)
@@ -469,14 +469,19 @@ def test_host_reads_do_not_grow_with_shards(pssms, genome, database, path):
                                                   pad_unit=256),
             "database": lambda: sm.scan_arrays(db_genome),
         }[path]
-        if path == "database":
+        if path in ("collect", "database"):
             call()  # the first scan settles the capacities and the heads
         tmesh.reset_host_reads()
-        call()
+        got = call()
         reads.append(tmesh.HOST_READS)
-    # the candidate counts and the kept hits; the best, once; the database
-    # scan's counters with its hit heads, once per device
-    assert reads == [1 if path in ("argmax", "database") else 2] * 3
+        if path == "sharded_scan":
+            # a one-shot call has no head hint: a shard that keeps more
+            # hits than the first head is read once more
+            chunk = tmesh._chunk_for(len(genome) - len(tp) + 1, shards, 256)
+            heavy.append(int(np.bincount(got[0] // chunk).max()) > multi.HEAD_SLOTS)
+    # every shard's counters with its hit head; the best; the database
+    # scan's counters with its hit heads: once, on any number of shards
+    assert reads == [1 + h for h in heavy] if path == "sharded_scan" else [1] * 3
 
 
 @pytest.mark.parametrize("shards", MESHES)
@@ -625,3 +630,76 @@ def test_launch_counts_are_exact_under_threads():
         sys.setswitchinterval(interval)
     assert kernels.LAUNCHES["score_u8"] - before[0] == threads * per_thread
     assert multi_kernel.LAUNCHES["prefilter_any8"] - before[1] == threads * per_thread
+
+
+# -- the one-PSSM scan at fixed capacities ----------------------------------------
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+@pytest.mark.parametrize("threshold", [12.0, -8.0])
+def test_sharded_scan_at_a_capacity_of_four(pssms, genome, shards, threshold):
+    """At ``cap=4`` the port's sharded scan equals the JAX package's: at
+    12.0 no shard holds more than four candidates and both scan at 4; at
+    -8.0 every shard overflows, and the JAX scan, which starts at its
+    dense compaction, refuses (``OverflowError``) where the port runs each
+    overflowed shard once more at the next power of two at or above the
+    worst shard's count -- its hits are then the JAX scan's at its
+    default capacity."""
+    jp, tp = pssms
+    jdm, dm = jp.to_discrete(), tp.to_discrete()
+    t_scaled = dm.scale(threshold)
+    kw = {"cap": 4} if threshold > 0 else {}
+    if not kw:
+        with pytest.raises(OverflowError):
+            jpar.sharded_scan(np.asarray(jp.data), np.asarray(jdm.data), genome.astype(np.int8),
+                              threshold, t_scaled, cap=4)
+    want = pairs(*jpar.sharded_scan(np.asarray(jp.data), np.asarray(jdm.data),
+                                    genome.astype(np.int8), threshold, t_scaled, **kw))
+    got = tpar.sharded_scan(np.asarray(tp.data), np.asarray(dm.data), genome, threshold,
+                            t_scaled, mesh=cpu_mesh(shards), cap=4)
+    assert pairs(*got) == want and want
+    sc = tpar.ShardedScanner(tp, tlm.EncodedSequence(genome), threshold=threshold,
+                             mesh=cpu_mesh(shards))
+    sc.cap = 4
+    hits = sc.collect()
+    assert pairs([h.position for h in hits], [h.score for h in hits]) == want
+    best = sc.max()
+    single = Scanner(tp, tlm.EncodedSequence(genome), threshold, device="cpu").max()
+    assert (best.position, bits(best.score)) == (single.position, bits(single.score))
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+def test_sharded_overflow_reruns_once_and_ratchets(pssms, genome, shards):
+    """A ``ShardedScanner`` seeded at a capacity of four: every shard
+    whose candidates outnumber it runs exactly once more, at the next
+    power of two at or above the worst shard's count, which the scanner
+    keeps; a steady call then reads once and runs nothing again."""
+    tp = pssms[1]
+    dm = tp.to_discrete()
+    seq = tlm.EncodedSequence(genome)
+    mesh = cpu_mesh(shards)
+    sc = tpar.ShardedScanner(tp, seq, threshold=-8.0, mesh=mesh)
+    sc.cap = 4
+    prepared, _ = sc._prep()
+    shards_, chunk, n_scores = prepared
+    # each shard's candidate count, from the plain discrete scores
+    counts = []
+    for d, shard in shards_:
+        n_local = tmesh._owned(n_scores, d, chunk)
+        if n_local:
+            u8 = kernels.score_u8(shard[: n_local + len(tp) - 1], torch.from_numpy(
+                np.ascontiguousarray(dm.data, np.uint8)), n_local)
+            counts.append(int((u8[:n_local] >= dm.scale(-8.0)).sum()))
+    want = [(h.position, int(bits(h.score))) for h in Scanner(tp, seq, -8.0, device="cpu")]
+    got = [(h.position, int(bits(h.score))) for h in sc.collect()]
+    assert got == want
+    assert sc.reruns == sum(c > 4 for c in counts) == len(counts)
+    assert sc.cap == 1 << (max(counts) - 1).bit_length()
+    tmesh.reset_host_reads()
+    assert [(h.position, int(bits(h.score))) for h in sc.collect()] == want
+    assert tmesh.HOST_READS == 1 and sc.reruns == len(counts)
+    tmesh.reset_host_reads()
+    best = sc.max()
+    assert tmesh.HOST_READS == 1 and sc.reruns == len(counts)
+    single = Scanner(tp, seq, -8.0, device="cpu").max()
+    assert (best.position, bits(best.score)) == (single.position, bits(single.score))
