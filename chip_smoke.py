@@ -9,6 +9,10 @@
     python3 chip_smoke.py --stages-only --parent DIR  # phases 1-3, 22
     python3 chip_smoke.py --one-pssm-cards [--parent DIR]  # 1-2, 5, 16's
         # one-PSSM sharded scans on 1..N cards, 22's one-PSSM walls
+    python3 chip_smoke.py --segment-times [--parent DIR]  # 1, the build,
+        # 3's and 4's segment kernel checks, 5, 20's segment kernel at its
+        # two shapes (beside the parent's K2 + C3), 23's MX000001 on the
+        # chromosome and its profiled kernels
 
 Phases, one line of output each (any failure exits non-zero):
 
@@ -24,30 +28,33 @@ Phases, one line of output each (any failure exits non-zero):
    hold some; the lookup kernel of probe P7 holds none), and phase C's
    kernel (``phase_c.cu``); of the scoring library, K1's production
    instantiation adds with ``FADD`` and has no ``FFMA`` (no
-   contraction), K2's looks up with ``PRMT``; the pairs library and C3's
-   (``scan.cu``) add with ``FADD`` and have no ``FFMA``; the ``ptxas -v``
-   registers and spills of phase C's, the pairs library's and C3's
-   kernels;
+   contraction), K2's looks up with ``PRMT``; the pairs library and both
+   forms of the segment kernel (``scan.cu``) add with ``FADD`` and have
+   no ``FFMA``; the ``ptxas -v`` registers and spills of phase C's, the
+   pairs library's and the segment kernel's kernels;
 4. K1 and K2 against their plain PyTorch versions on the card
    (``torch.equal``): DNA (through the production instantiations, and the
    generic one past K2's m = 257), protein, k = 7 and k = 256 tables,
    random sequences with ranks >= K and wildcard runs, ragged
-   ``n_scores``, and the main path's own shapes; then C3, the
-   Scanner's compaction, rescore and keep (``scan.cu``), against its plain
-   version (``torch.equal`` of the counters and the kept hits): DNA,
-   protein, k = 7 and k = 256 tables, candidate counts below, at and
-   above the capacity, threshold -inf, ragged lengths, wildcard runs,
-   exact zero sums (+0.0 bits), and the genome's one segment at p = 1e-5
-   and at p = 1e-2 (kept hits past a Scanner's first head);
+   ``n_scores``, and the main path's own shapes; then the segment kernel,
+   the Scanner's discrete pass, compaction, rescore and keep in one
+   launch (``scan.cu``), against its plain version (``torch.equal`` of the
+   counters, the kept hits and the best of them): DNA, protein, k = 7 and
+   k = 256 tables, m = 1 and m = 300, no candidate, capacities of 1,
+   below, at and above the count and on and inside a tile's candidates,
+   threshold -inf, ragged lengths, wildcard runs, exact zero sums (+0.0
+   bits), and the genome's one segment at p = 1e-5 and at p = 1e-2 (kept
+   hits past a Scanner's first head);
 5. the main path at full size: an E. coli-sized genome (4,641,652 bp,
    seed 0xECC011) against PRODORIC MX000001 -- full-genome bit parity
    of ``pssm.score`` with the sequential host oracle, the known best
    hit (position 3,254,602, f32 bits 0x4197E448, which must win the
    exact tie with position 2,558,379, in ``score_max`` and in
-   ``Scanner.max``), and the two-pass ``Scanner`` at p = 1e-5 against
+   ``Scanner.max``), ``Pipeline.score_discrete`` (K2 once) against the
+   host's clamped sums, and the two-pass ``Scanner`` at p = 1e-5 against
    the host brute force, in one segment, in five, and seeded at a
-   capacity of 4, which must ratchet; K2 and C3 once per segment and
-   re-run; a steady ``collect`` and ``max`` read the card once each, and
+   capacity of 4, which must ratchet; the segment kernel once per
+   segment and re-run, K2 never; a steady ``collect`` and ``max`` read the card once each, and
    the issue never (sync debug mode "error"); every kernel of the path
    must have been launched by this phase;
 6. K3, the multi-motif prefilter on the int8 tensor cores, against its
@@ -100,9 +107,8 @@ Phases, one line of output each (any failure exits non-zero):
     per-record Scanners) and ``MultiBatchScanner`` with the database
     (against the brute force over the concatenation, windows inside one
     record); each class's launches are counted from 0 over its own call
-    and must be K1 once, K2 once per segment and K3, phase C and the
-    pairs kernel once per motif group and segment (K2 and C3 once per
-    segment for ``BatchScanner``);
+    and must be K1 once, the segment kernel once per segment and K3,
+    phase C and the pairs kernel once per motif group and segment;
 12. the FIMO-like CLI through its files: the database written as a
     JASPAR16 file, the genome and the records as FASTA, MX000001 as a
     one-motif file.  In this process (``cli.main``, launch counts reset
@@ -130,10 +136,11 @@ Phases, one line of output each (any failure exits non-zero):
     to 200, the planted site recovered by a 1,200-step run (about six
     sweeps of the sequences), seconds per step;
 16. the sharded scans (``parallel``) at full width on 8 shards of the
-    card: ``ShardedScanner`` equal to phase 5's Scanner hits (K2 and C3
-    once per shard), its ``max`` and ``sharded_argmax`` the known best
-    hit, which wins its tie across shards 4 and 5; one read per steady
-    ``collect`` and ``max``, every shard's K2 and C3 issued under the
+    card: ``ShardedScanner`` equal to phase 5's Scanner hits (the segment
+    kernel once per shard), its ``max`` and ``sharded_argmax`` the known
+    best hit, which wins its tie across shards 4 and 5; one read per
+    steady ``collect`` and ``max``, every shard's segment kernel issued
+    under the
     sync debug mode "error"; ``ShardedMultiScanner`` with the database, on
     the 8 shards and on the default mesh, equal to ``MultiScanner`` and
     the brute force (K3, phase C and the pairs kernel once per group and
@@ -167,7 +174,8 @@ Phases, one line of output each (any failure exits non-zero):
     launch (launches queued behind a GPU spin), and one call with the
     host's launch cost; then ``score_max``, the Scanner's wall time (a
     fresh scanner; a resident one, steady, and its idle share in one
-    profiled run), C3 at the genome beside its plain version and bound, K3,
+    profiled run), the segment kernel at the genome and at one 2**26-start
+    chromosome segment beside its plain version and bound, K3,
     K4 and K5 at their shapes, the database scan's steady-state wall
     beside the plain stages' (K3, then the plain versions of phase C and
     the pairs kernel) in the same call, in the K3 and u16 modes and, from
@@ -221,7 +229,7 @@ Phases, one line of output each (any failure exits non-zero):
     one read a call, walls in turns and each card's split; on the
     chromosome, ``Pipeline.score_max`` against K1 plus a host scan of the
     last maximum and ``Scanner.collect()`` at p = 1e-5 against K1 +
-    threshold + ``nonzero`` (K2 and C3 once per segment and re-run, one
+    threshold + ``nonzero`` (the segment kernel once per segment and re-run, one
     read a steady call, one profiled steady run); the CLI on the 50 Mbp genome as one FASTA
     record (both strands, p = 1e-6), its rows equal to ``scan_arrays``,
     with its split (read and encode, motif preparation, first scan, the
@@ -272,10 +280,11 @@ PHASE_C_SOURCE = "lightmotif_tpu_torch/ops/csrc/phase_c.cu"
 PHASE_C_REPLACES = "lightmotif_tpu/ops/multi.py:868"
 PAIRS_SOURCE = "lightmotif_tpu_torch/ops/csrc/pairs.cu"
 PAIRS_REPLACES = "lightmotif_tpu/ops/multi.py:975"
-# the Scanner's compaction, rescore and keep after K2: XLA code of the JAX
-# scan_segment (threshold_positions, rescore_positions, the front compaction)
-C3_SOURCE = "lightmotif_tpu_torch/ops/csrc/scan.cu"
-C3_REPLACES = "lightmotif_tpu/ops/xla_ops.py:159"
+# the Scanner's segment in one launch: XLA code of the JAX scan_segment (its
+# discrete pass through K2's Pallas kernel, threshold_positions,
+# rescore_positions, the front compaction)
+SEGMENT_SOURCE = "lightmotif_tpu_torch/ops/csrc/scan.cu"
+SEGMENT_REPLACES = "lightmotif_tpu/ops/xla_ops.py:291"
 PROBE_SOURCE = "lightmotif_tpu_torch/ops/csrc/probes.cu"
 P6_REPLACES = "experiments/int8_probe.py:54"
 P7_REPLACES = "experiments/int8_probe2.py:98"
@@ -516,11 +525,32 @@ def score_mangled(variant: int, discrete: bool) -> str:
             f"ELi{grp}EE")
 
 
+def scan_sass() -> None:
+    """The segment kernel's two forms (``scan.cu``: the ``__byte_perm``
+    and the generic lookup) rescore with ``FADD`` and the library has no
+    ``FFMA``; their instruction counts and ``ptxas -v`` lines."""
+    from lightmotif_tpu_torch.ops import build
+
+    lib = next(p for p in build.build_info()["paths"] if p.name.startswith("liblm-scan-"))
+    ops = sass_opcodes(lib)
+    forms = {n: o for n, o in ops.items() if "scan_kernel" in n}
+    n_fadd = {n: o.count("FADD") for n, o in forms.items()}
+    n_ffma = sum(o.count("FFMA") for o in ops.values())
+    if len(forms) != 2 or min(n_fadd.values()) < 1 or n_ffma:
+        raise SystemExit(f"sass: the scan library's kernels {list(forms)}: FADD {n_fadd}, "
+                         f"{n_ffma} FFMA")
+    log("sass", library=lib.name, functions=len(ops), fadd=sum(n_fadd.values()), ffma=n_ffma,
+        prmt=sum(o.count("PRMT") for o in forms.values()),
+        instructions=sum(len(o) for o in forms.values()),
+        ptxas=" | ".join(ptxas_lines(build.build_info()["log"], ("scan_kernel",))))
+
+
 def phase_sass() -> int:
     """The prefilter library's SASS: every tensor-core instantiation, the
     production one and P9's bits form included, must hold tensor-core
     instructions; the lookup kernel (P7's baseline) holds none.  Phase C's
-    kernel holds IMMA too; the pairs library adds with FADD, never FFMA;
+    kernel holds IMMA too; the pairs library and both forms of the segment
+    kernel add with FADD, never FFMA;
     both with their ``ptxas -v`` registers and spills.  The scoring
     library's: K1's production instantiation adds with FADD and never with
     FFMA (no contraction), K2's looks up with PRMT.  Returns the
@@ -574,15 +604,7 @@ def phase_sass() -> int:
         keep_pairs_fadd=sum(o.count("FADD") for n, o in ops.items() if "keep_pairs" in n),
         ptxas=" | ".join(ptxas_lines(log_text, ("row_offsets", "keep_pairs"))))
 
-    # C3's rescore adds with FADD, never FFMA
-    lib = next(p for p in build.build_info()["paths"] if p.name.startswith("liblm-scan-"))
-    ops = sass_opcodes(lib)
-    n_fadd = sum(o.count("FADD") for o in ops.values())
-    n_ffma = sum(o.count("FFMA") for o in ops.values())
-    if not any("tile_write" in n for n in ops) or n_fadd < 1 or n_ffma:
-        raise SystemExit(f"sass: the scan library has {n_fadd} FADD and {n_ffma} FFMA")
-    log("sass", library=lib.name, functions=len(ops), fadd=n_fadd, ffma=n_ffma,
-        ptxas=" | ".join(ptxas_lines(log_text, ("tile_counts", "tile_offsets", "tile_write"))))
+    scan_sass()
 
     lib = next(p for p in build.build_info()["paths"] if "score" in p.name)
     ops = sass_opcodes(lib)
@@ -668,86 +690,86 @@ def phase_kernels(pssm, seq) -> dict:
     return errs
 
 
-#: C3's cases: (k, m, length, highest rank + 1, threshold kind, capacity
-#: kind); "zeros" sums +x, -x and -0.0 to exact zeros
-C3_CASES = [(5, 15, 400_003, 4, "dense", "below"), (5, 15, 400_003, 4, "dense", "at"),
-            (5, 15, 400_003, 4, "sparse", "above"), (5, 12, 200_001, 6, "neginf", "above"),
-            (21, 10, 150_000, 21, "dense", "above"), (21, 40, 100_000, 23, "sparse", "below"),
-            (7, 7, 4_097, 9, "dense", "below"), (256, 3, 60_000, 256, "dense", "at"),
-            (256, 5, 30_000, 256, "neginf", "below"), (5, 6, 50_000, 5, "zeros", "above"),
-            (5, 15, 15, 4, "neginf", "above")]
+#: The segment kernel's cases beside the card tests' (``tests/torch_segments.py``,
+#: which makes each case's inputs): (k, m, length, highest rank + 1,
+#: threshold kind, capacity kind), the longer ones here.
+SEGMENT_CASES = [(5, 15, 400_003, 4, "dense", "below"), (5, 15, 400_003, 4, "dense", "at"),
+                 (5, 15, 400_003, 4, "sparse", "above"), (5, 12, 200_001, 6, "neginf", "above"),
+                 (21, 10, 150_000, 21, "dense", "above"), (21, 40, 100_000, 23, "sparse", "below"),
+                 (7, 7, 4_097, 9, "dense", "below"), (256, 3, 60_000, 256, "dense", "at"),
+                 (256, 5, 30_000, 256, "neginf", "below"), (5, 6, 50_000, 5, "zeros", "above"),
+                 (5, 15, 15, 4, "neginf", "above"), (5, 1, 10_000, 5, "dense", "above"),
+                 (5, 300, 20_000, 4, "dense", "below"), (5, 15, 30_001, 4, "none", "above"),
+                 (5, 15, 30_001, 4, "dense", "one"), (5, 15, 30_001, 4, "dense", "tile_first"),
+                 (5, 15, 30_001, 4, "dense", "tile_second"),
+                 (5, 15, 30_001, 4, "dense", "tile_inside"),
+                 (5, 15, 200_001, 4, "sparse", "tile_first")]
 
 
-def check_scan_compact(what, scores, seq, table, n, t_scaled, threshold, cap) -> dict:
-    """C3 against its plain version on the card (``torch.equal``): the
-    counters, then the kept hits (positions and f32 bits, as int32), the
-    slots the contract defines.  Returns the case's counts."""
+def check_scan_segment(what, chunk, n, dm, table, t_scaled, threshold, cap) -> dict:
+    """The segment kernel against its plain version on the card
+    (``torch.equal``): the counters, the kept hits (positions and f32 bits,
+    as int32; the slots the contract defines) and the best of them.
+    Returns the case's counts."""
     from lightmotif_tpu_torch.ops import kernels, torch_ops
 
-    counts, packed = kernels.scan_compact(scores, seq, table, n, t_scaled, threshold, cap)
-    want_counts, want_packed = torch_ops.scan_compact(scores, seq, table, n, t_scaled,
-                                                      threshold, cap)
+    got = kernels.scan_segment(chunk, n, dm, table, t_scaled, threshold, cap)
+    want = torch_ops.scan_segment(chunk, n, dm, table, t_scaled, threshold, cap)
     torch.cuda.synchronize()
-    if not torch.equal(counts, want_counts):
-        raise SystemExit(f"scan_compact {what}: counters {counts.tolist()} != plain "
-                         f"{want_counts.tolist()}")
-    n_kept = int(want_counts[1])
-    if not torch.equal(packed[:, :n_kept], want_packed[:, :n_kept]):
-        bad = int(torch.nonzero((packed[:, :n_kept] != want_packed[:, :n_kept]).any(0))[0])
-        raise SystemExit(f"scan_compact {what}: kept hit {bad} {packed[:, bad].tolist()} != "
-                         f"plain {want_packed[:, bad].tolist()}")
-    return {"count": int(want_counts[0]), "n_kept": n_kept, "cap": cap}
+    counts, packed, best = got
+    if not torch.equal(counts, want[0]):
+        raise SystemExit(f"scan_segment {what}: counters {counts.tolist()} != plain "
+                         f"{want[0].tolist()}")
+    n_kept = int(want[0][1])
+    if not torch.equal(packed[:, :n_kept], want[1][:, :n_kept]):
+        bad = int(torch.nonzero((packed[:, :n_kept] != want[1][:, :n_kept]).any(0))[0])
+        raise SystemExit(f"scan_segment {what}: kept hit {bad} {packed[:, bad].tolist()} != "
+                         f"plain {want[1][:, bad].tolist()}")
+    if not torch.equal(best, want[2]):
+        raise SystemExit(f"scan_segment {what}: best {best.tolist()} != plain "
+                         f"{want[2].tolist()}")
+    return {"count": int(want[0][0]), "n_kept": n_kept, "cap": cap, "best": best.tolist()}
 
 
-def phase_scan_compact(pssm, seq) -> float:
-    """C3 (``kernels.scan_compact``) against its plain version on DNA,
-    protein, k = 7 and k = 256 tables (ranks >= K and wildcard runs),
-    ragged lengths, candidate counts below, at and above the capacity,
-    threshold -inf, exact zero sums (+0.0 bits), then at the main path's
-    shape -- the genome's one segment at p = 1e-5, and at a threshold of
-    ~46,000 candidates whose kept hits outgrow a Scanner's first head.
-    Returns the largest difference (0.0: every case equal)."""
-    from lightmotif_tpu_torch.ops import kernels
+def phase_scan_segment(pssm, seq) -> float:
+    """The segment kernel (``kernels.scan_segment``) against its plain
+    version on DNA, protein, k = 7 and k = 256 tables (ranks >= K and
+    wildcard runs), m = 1 and m = 300, ragged lengths, no candidate,
+    capacities of 1, below, at and above the candidate count and on and
+    inside a tile's candidates, threshold -inf, exact zero sums (+0.0
+    bits), then at the main path's shape -- the genome's one segment at p
+    = 1e-5, and at a threshold of ~46,000 candidates whose kept hits
+    outgrow a Scanner's first head.  Returns the largest difference (0.0:
+    every case equal)."""
     from lightmotif_tpu_torch.ops.multi import HEAD_SLOTS
-    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
     from lightmotif_tpu_torch.scanner import DEFAULT_CAPACITY
+    from tests.torch_segments import segment_inputs
 
-    rng = np.random.default_rng(0xC3)
-    for k, m, length, ranks, kind, cap_kind in C3_CASES:
-        s = rng.integers(0, ranks, size=length).astype(np.uint8)
-        for start in rng.integers(0, length, size=10):
-            s[start : start + int(rng.integers(1, 60))] = k - 1
-        if kind == "zeros":
-            w = np.zeros((m, k), np.float32)
-            w[:, 0], w[:, 1], w[:, 2] = 1.5, -1.5, -0.0
-        else:
-            w = rng.normal(size=(m, k)).astype(np.float32)
-        d = rng.integers(0, max(256 // m, 2), size=(m, k)).astype(np.uint8)
-        n = length - m + 1
+    for i, (k, m, length, ranks, kind, cap_kind) in enumerate(SEGMENT_CASES):
+        s, d, w, n, t_scaled, threshold, cap, _ = segment_inputs(k, m, length, ranks, kind,
+                                                                 cap_kind, seed=0xC3 + i)
         sd, wd, dd = (torch.from_numpy(a).to(DEVICE) for a in (s, w, d))
-        scores = kernels.score_u8(sd, dd, n)
-        q = 0.999 if kind == "sparse" else 0.5
-        t_scaled = int(torch.quantile(scores[:n].float(), q))
-        count = int((scores[:n] >= t_scaled).sum())
-        cap = {"below": max(count // 3, 1), "at": max(count, 1), "above": 2 * count + 7}[cap_kind]
-        threshold = {"neginf": -np.inf, "zeros": 0.0}.get(kind, -0.5)
-        got = check_scan_compact(f"k={k} m={m}", scores, sd, wd, n, t_scaled, threshold, cap)
-        log("scan_compact", k=k, m=m, length=length, threshold=threshold, equal=True, **got)
-    dseq = DeviceSequence(seq, DEVICE)
+        got = check_scan_segment(f"k={k} m={m} {cap_kind}", sd, n, dd, wd, t_scaled, threshold,
+                                 cap)
+        if (kind == "zeros" and not got["n_kept"]) or (kind == "none" and got["count"]):
+            raise SystemExit(f"scan_segment k={k} m={m}: a {kind} case keeps "
+                             f"{got['n_kept']} of {got['count']}")
+        log("scan_segment", k=k, m=m, length=length, threshold=threshold, cap_kind=cap_kind,
+            equal=True, **got)
     m = len(pssm)
     n = len(seq) - m + 1
-    chunk = dseq.data[: n + m - 1]
+    chunk = torch.from_numpy(np.ascontiguousarray(seq.data, np.uint8)).to(DEVICE)
     w = torch.from_numpy(np.ascontiguousarray(pssm.data, np.float32)).to(DEVICE)
     dm = pssm.to_discrete()
-    scores = kernels.score_u8(chunk, torch.from_numpy(dm.data).to(DEVICE), n)
+    d = torch.from_numpy(np.ascontiguousarray(dm.data, np.uint8)).to(DEVICE)
     for what, t in (("p=1e-5", pssm.score_distribution().score(1e-5)),
                     ("p=1e-2", pssm.score_distribution().score(1e-2))):
-        got = check_scan_compact(f"genome {what}", scores, chunk, w, n, dm.scale(t), t,
+        got = check_scan_segment(f"genome {what}", chunk, n, d, w, dm.scale(t), t,
                                  DEFAULT_CAPACITY)
-        log("scan_compact", shape=f"genome, one segment, {what}", equal=True,
+        log("scan_segment", shape=f"genome, one segment, {what}", equal=True,
             head_slots=HEAD_SLOTS, **got)
         if what == "p=1e-2" and got["n_kept"] <= HEAD_SLOTS:
-            raise SystemExit(f"scan_compact: the p=1e-2 case keeps {got['n_kept']} hits only")
+            raise SystemExit(f"scan_segment: the p=1e-2 case keeps {got['n_kept']} hits only")
     return 0.0
 
 
@@ -778,16 +800,31 @@ def phase_main_path(pssm, seq) -> tuple:
     log("main", check="score_max", argmax=am, bits=hex(f32_bits(mx)),
         tie_at=KNOWN_TIE_POS)
 
+    # the discrete scores (the reference's u8 scoring): K2 once
+    dm = pssm.to_discrete()
+    before = kernels.LAUNCHES["score_u8"]
+    discrete = Pipeline(DEVICE).score_discrete(dm, seq).unstripe().data
+    ranks = np.asarray(seq.data, np.int64)
+    table = np.asarray(dm.data, np.int64)
+    want_u8 = np.zeros(n, np.int64)
+    for j in range(len(pssm)):
+        want_u8 += table[j][ranks[j : j + n]]
+    if not np.array_equal(discrete, np.minimum(want_u8, 255)) or \
+            kernels.LAUNCHES["score_u8"] - before != 1:
+        raise SystemExit("Pipeline.score_discrete != the host's clamped sums (or K2 not once)")
+    log("main", check="Pipeline.score_discrete == the host's clamped u8 sums; K2 once",
+        windows=n, candidates_at_p1e5=int((discrete >= dm.scale(t)).sum()))
+
     def one_pssm(scanner, what, fn, segments):
         """``fn`` of ``scanner`` (the same hits as the brute force for a
-        collect, the known best for a max), launching K2 and C3 once per
-        segment and once per re-run."""
-        before = {k: kernels.LAUNCHES[k] for k in ("score_u8", "scan_compact")}
+        collect, the known best for a max), launching the segment kernel
+        once per segment and once per re-run, and K2 never."""
+        before = {k: kernels.LAUNCHES[k] for k in ("score_u8", "scan_segment")}
         reruns = scanner.reruns
         got = fn()
         launched = {k: kernels.LAUNCHES[k] - v for k, v in before.items()}
         want = segments + scanner.reruns - reruns
-        if launched != {"score_u8": want, "scan_compact": want}:
+        if launched != {"score_u8": 0, "scan_segment": want}:
             raise SystemExit(f"{what}: launches {launched}, {segments} segments and "
                              f"{scanner.reruns - reruns} re-runs")
         if fn == scanner.max:
@@ -828,9 +865,9 @@ def phase_main_path(pssm, seq) -> tuple:
         if len(issued) != segments:
             raise SystemExit(f"Scanner: {len(issued)} segments issued, {segments} expected")
         log("main", check="Scanner.collect == brute force; a steady collect and max read the "
-            "card once each, the issue never (sync debug mode error); K2 and C3 once a segment "
-            "and a re-run", threshold=t, hits=len(hits), segments=segments, capacity=capacity,
-            first_reads=first[0], reruns=first[1], capacity_after=scanner.capacity,
+            "card once each, the issue never (sync debug mode error); the segment kernel once a "
+            "segment and a re-run, K2 never", threshold=t, hits=len(hits), segments=segments,
+            capacity=capacity, first_reads=first[0], reruns=first[1], capacity_after=scanner.capacity,
             steady_reads=1, best=best.position, best_bits=hex(f32_bits(best.score)),
             tie_at=KNOWN_TIE_POS)
 
@@ -1603,7 +1640,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     MultiBatchScanner with the database against the brute force over the
     concatenation, windows inside one record.  Each class's launches are
     counted from 0 over its own call, before its oracle runs: K1 once
-    for the reducer, K2 and C3 once per segment for the scanner, K3, phase C and
+    for the reducer, the segment kernel once per segment for the scanner, K3, phase C and
     the pairs kernel once per motif group and segment for the database
     (its second scan: the first settles the capacities).  Returns (records, the
     BatchReducer, the MultiBatchScanner, its hit arrays)."""
@@ -1646,7 +1683,7 @@ def phase_batch(pssm, seq, ms) -> tuple:
     # one concatenation of the records with m - 1 separators each
     n_windows = sum(map(len, records)) + len(records) * (m - 1) - m + 1
     segments = -(-n_windows // DEFAULT_SEGMENT) + bs._scanner.reruns
-    expect("BatchScanner.collect", launches_bs, {"score_u8": segments, "scan_compact": segments})
+    expect("BatchScanner.collect", launches_bs, {"scan_segment": segments})
     for i, (r, hits) in enumerate(zip(records, got)):
         own = Scanner(pssm, r, threshold=t, device=DEVICE).collect()
         if [(h.position, f32_bits(h.score)) for h in hits] != \
@@ -1942,25 +1979,24 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
                 and not (si.any() or mo.any() or rev.any())):
             raise SystemExit(f"cli MX000001 x genome != Scanner ({len(pos)} rows vs "
                              f"{len(scanner_hits[0])})")
-        if launches["score_u8"] < 1 or launches["scan_compact"] < 1 or launches[
-                "prefilter_any8"]:
+        if launches["scan_segment"] < 1 or launches["score_u8"] or launches["prefilter_any8"]:
             raise SystemExit(f"cli MX000001 x genome: launches {launches}")
         log("cli", run="MX000001 x genome", rows=len(pos), equal_scanner=True,
             launches=launches, wall_s=f"{wall:.3f}", cli_timing=json.dumps(timing))
 
         # --mesh (the default mesh: every card): the same TSVs through the
-        # sharded scanners, the prefilter and K2 launched
+        # sharded scanners, the prefilter and the segment kernel launched
         for what, mfile, extra, want_tsv, kernel in (
                 ("database x genome", db_file, ["-P", str(DB_PVALUE), "--reverse"], genome_tsv,
                  "prefilter_any8"),
-                ("MX000001 x genome", mx_file, [], open(out).read(), "score_u8")):
+                ("MX000001 x genome", mx_file, [], open(out).read(), "scan_segment")):
             mesh_out = os.path.join(work, "mesh.tsv")
             launches, wall, timing = run_cli(
                 ["-m", mfile, "--format", "jaspar16", "-s", genome_fa, "-o", mesh_out, *extra,
                  "--mesh"], f"{what} --mesh")
             if open(mesh_out).read() != want_tsv:
                 raise SystemExit(f"cli {what} --mesh: TSV != the solo TSV")
-            if launches[kernel] < 1 or (kernel == "score_u8" and launches["scan_compact"] < 1):
+            if launches[kernel] < 1 or launches["score_u8"]:
                 raise SystemExit(f"cli {what} --mesh: launches {launches}")
             log("cli", run=f"{what} --mesh", rows=want_tsv.count("\n") - 1,
                 equal_solo_tsv=True, launches=launches, wall_s=f"{wall:.3f}")
@@ -2254,7 +2290,7 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     sc = ShardedScanner(pssm, seq, threshold=t, mesh=mesh)
     hits = sc.collect()
     torch.cuda.synchronize()
-    one_pssm = {"score_u8": MESH_SHARDS + sc.reruns, "scan_compact": MESH_SHARDS + sc.reruns}
+    one_pssm = {"scan_segment": MESH_SHARDS + sc.reruns}
     expect("ShardedScanner.collect", launch_counts(), one_pssm)
     shard_hits = sc.shard_hits.tolist()
     pos = np.asarray([h.position for h in hits], np.int64)
@@ -2265,7 +2301,7 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
     reruns = sc.reruns
     best = sc.max()
     torch.cuda.synchronize()
-    one_pssm = {k: MESH_SHARDS + sc.reruns - reruns for k in ("score_u8", "scan_compact")}
+    one_pssm = {"scan_segment": MESH_SHARDS + sc.reruns - reruns}
     expect("ShardedScanner.max", launch_counts(), one_pssm)
     if best.position != KNOWN_BEST_POS or f32_bits(best.score) != KNOWN_BEST_BITS:
         raise SystemExit(f"mesh: ShardedScanner.max {best}")
@@ -2395,7 +2431,13 @@ def phase_mesh(pssm, seq, ms, scanner_hits, brute) -> dict:
 TIMED_RANGE = "chip_smoke.timed"
 
 
-def trace_kernels(prof) -> tuple:
+def event_name(e: dict) -> str:
+    """A trace event's kernel name, arguments dropped."""
+    name = e.get("name", "").replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0][:90] or "unnamed"
+
+
+def trace_kernels(prof, events=None) -> tuple:
     """The card's work in the recorded run of :func:`profiled`, from the
     trace's own device events (kernels, copies and sets on the current
     card, each with its start and duration) that start inside the
@@ -2403,8 +2445,8 @@ def trace_kernels(prof) -> tuple:
     (so work on two streams at once counts once), the ms of each kernel
     name (arguments dropped, equal names summed), the largest first, and
     the number of events, inside the range and before it (the warm-up
-    run's)."""
-    events = trace_events(prof)
+    run's).  ``events``: the trace's, when the caller exported it."""
+    events = trace_events(prof) if events is None else events
     card = torch.cuda.current_device()
     lo = min(float(e["ts"]) for e in events
              if e.get("cat") == "user_annotation" and e.get("name") == TIMED_RANGE)
@@ -2419,8 +2461,7 @@ def trace_kernels(prof) -> tuple:
             before += 1
             continue
         spans.append((t0, t0 + dur))
-        name = e.get("name", "").replace("(anonymous namespace)::", "").removeprefix("void ")
-        name = name.split("(")[0][:90] or "unnamed"
+        name = event_name(e)
         by_name[name] = by_name.get(name, 0.0) + dur / 1e3
     busy_us, end = 0.0, None
     for t0, t1 in sorted(spans):
@@ -2630,7 +2671,7 @@ def walls_in_turns(sharded, single, runs: int = RUNS) -> tuple:
 
 def mesh_no_reads(sc, t) -> None:
     """The loops over shards of the one-PSSM sharded scan (every shard's
-    K2 and C3, for ``collect`` and for ``max``) and of ``sharded_argmax``
+    segment kernel, for ``collect`` and for ``max``) and of ``sharded_argmax``
     (K1 and the last-max reduction per shard, then the merge on each card
     and across the cards) under the sync debug mode "error", on every card
     of the scanner's mesh: any read of a card inside them raises.  The
@@ -2677,7 +2718,7 @@ def mesh_no_reads(sc, t) -> None:
     if [f32_bits(merged[0].item()), int(merged[1])] != [KNOWN_BEST_BITS, KNOWN_BEST_POS]:
         raise SystemExit(f"mesh: the merge on the card gives {merged}")
     log("mesh", check="no read of a card inside the loops over shards (sync debug mode "
-        "error): every shard's K2 and C3 (collect, max), K1 + argmax_last, the merge; a "
+        "error): every shard's segment kernel (collect, max), K1 + argmax_last, the merge; a "
         "steady collect and max read once each", shards=len(shards), cards=len(best),
         cap=sc.cap, hits=len(want), steady_reads=steady)
 
@@ -2815,7 +2856,7 @@ def one_pssm_on_cards(pssm, seq, scanner_hits, mesh, walls: dict) -> None:
     """The one-PSSM sharded scans on ``mesh`` (cards, one shard each):
     ``ShardedScanner.collect`` and ``sharded_scan`` equal to the Scanner's
     hits, ``max`` and ``sharded_argmax`` the known best hit; every shard's
-    K2 and C3 issued under the sync debug mode "error" on every card and
+    segment kernel issued under the sync debug mode "error" on every card and
     one read a steady call (:func:`mesh_no_reads`); the wall of
     ``collect`` in turns with the same call on the first card alone,
     kept in ``walls``."""
@@ -3070,7 +3111,7 @@ def run_ranks(label: str, backend: str, cards: list, shards_each: int,
 
     for r, run in zip(res, runs):
         k3 = int(r["k3"]) + run["reruns"]["database"]["group"]
-        one_pssm = {"score_u8": shards_each, "scan_compact": shards_each}
+        one_pssm = {"scan_segment": shards_each}
         want = {"collect": one_pssm, "max": one_pssm,
                 "argmax": {"score_f32": shards_each},
                 "database": {"prefilter_any8": k3, "phase_c_bits": k3,
@@ -3353,7 +3394,9 @@ def phase_times(pssm, seq) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     log("times", op="Scanner(...).collect() wall, p=1e-5",
         ms=f"{statistics.median(walls[1:]):.4f}")
-    out["scan_compact"] = time_scan_compact(pssm, dseq, t)
+    shapes = segment_shapes(pssm, seq, chromosome())
+    out["scan_segment"] = time_scan_segment(shapes)["genome"]
+    del shapes
     scanner = Scanner(pssm, dseq, threshold=t, device=DEVICE)
     log("times", op="Scanner.collect() wall, steady, resident sequence, p=1e-5",
         **wall_stats(wall_ms(scanner.collect)))
@@ -3365,41 +3408,39 @@ def phase_times(pssm, seq) -> dict:
     return out
 
 
-def time_scan_compact(pssm, dseq, t) -> dict:
-    """C3 at the main path's shape (the genome's one segment, p = 1e-5,
-    the default capacity) beside its plain version, device time per launch
-    in turns (plain, kernel, kernel, plain), and its bound on this run's
-    data: K2's int32 scores read once, the windows of the candidates it
-    rescores (the first ``cap``, m bytes each) and the table once, the
-    counters and the kept hits written once; or the rescore's f32 adds, m
-    per rescored candidate.  No single PyTorch call computes it (library
-    none).  ``launches`` counts C3 calls (three kernels each)."""
+def time_scan_segment(shapes) -> dict:
+    """The segment kernel at each of :func:`segment_shapes` beside its
+    plain version, device time per launch in turns (plain, kernel, kernel,
+    plain) behind a GPU spin, and its bound on this run's data: the
+    segment's n + m - 1 bytes and the two tables read once, the counters,
+    the best and the kept hits written once; or its operations, m integer
+    adds a window start and m f32 adds a rescored candidate (the first
+    ``cap``), at the CUDA cores' f32 rate.  No single PyTorch call
+    computes it (library none).  A call launches it once (its memset is
+    not counted).  Returns ``{label: row}``."""
     from lightmotif_tpu_torch.ops import kernels, torch_ops
-    from lightmotif_tpu_torch.scanner import DEFAULT_CAPACITY
 
-    m = len(pssm)
-    n = dseq.length - m + 1
-    chunk = dseq.data[: n + m - 1]
-    dm = pssm.to_discrete()
-    w = torch.from_numpy(np.ascontiguousarray(pssm.data, np.float32)).to(DEVICE)
-    scores = kernels.score_u8(chunk, torch.from_numpy(dm.data).to(DEVICE), n)
-    args = (scores, chunk, w, n, dm.scale(t), t, DEFAULT_CAPACITY)
-    counts = kernels.scan_compact(*args)[0].tolist()
-    p1 = time_cuda(lambda: torch_ops.scan_compact(*args), repeat=20)
-    k1 = time_cuda(lambda: kernels.scan_compact(*args), repeat=20)
-    k2 = time_cuda(lambda: kernels.scan_compact(*args), repeat=20)
-    p2 = time_cuda(lambda: torch_ops.scan_compact(*args), repeat=20)
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    call_ms = time_cuda(lambda: kernels.scan_compact(*args))
-    rescored = min(counts[0], DEFAULT_CAPACITY)
-    nbytes = 4 * n + rescored * m + w.nbytes + 12 + 8 * counts[1]
-    bound_ms, bound_by = bound(nbytes, rescored * m, "f32")
-    log("times", kernel="scan_compact", shape=f"genome, one segment of {n} window starts",
-        candidates=counts[0], kept=counts[1], ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        runs=f"k={k1:.4f},{k2:.4f} p={p1:.4f},{p2:.4f}", call_ms=f"{call_ms:.4f}",
-        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, library="none")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    out = {}
+    for label, chunk, n, d, w, t_scaled, t, cap in shapes:
+        args = (chunk, n, d, w, t_scaled, t, cap)
+        counts = kernels.scan_segment(*args)[0].tolist()
+        p1 = time_cuda(lambda: torch_ops.scan_segment(*args), repeat=20)
+        k1 = time_cuda(lambda: kernels.scan_segment(*args), repeat=20)
+        k2 = time_cuda(lambda: kernels.scan_segment(*args), repeat=20)
+        p2 = time_cuda(lambda: torch_ops.scan_segment(*args), repeat=20)
+        ms, plain_ms = min(k1, k2), min(p1, p2)
+        call_ms = time_cuda(lambda: kernels.scan_segment(*args))
+        m = d.shape[0]
+        nbytes = chunk.shape[0] + d.nbytes + w.nbytes + 12 + 8 + 8 * counts[1]
+        bound_ms, bound_by = bound(nbytes, m * n + m * min(counts[0], cap), "f32")
+        log("times", kernel="scan_segment", shape=f"{label}, {n} window starts",
+            candidates=counts[0], kept=counts[1], cap=cap, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", runs=f"k={k1:.4f},{k2:.4f} p={p1:.4f},{p2:.4f}",
+            call_ms=f"{call_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            bound_share=f"{bound_ms / ms:.3f}", launches_a_call=1, library="none")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None}
+    return out
 
 
 def phase_database_times(ms, seq) -> tuple:
@@ -3519,7 +3560,7 @@ class ParentBuild:
 
     SOURCES = ("prefilter", "phase_c", "pairs")
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, sources: tuple = SOURCES):
         import os
         import tempfile
 
@@ -3529,7 +3570,7 @@ class ParentBuild:
         self.dir = tempfile.mkdtemp(prefix="chip-smoke-parent-")
         csrc = os.path.join(self.root, "lightmotif_tpu_torch", "ops", "csrc")
         jobs = []
-        for name in self.SOURCES:
+        for name in sources:
             out = os.path.join(self.dir, f"lib{name}.so")
             jobs.append((name, out, subprocess.Popen(
                 [build._nvcc(), *build.NVCC_FLAGS, "-o", out,
@@ -3542,6 +3583,170 @@ class ParentBuild:
                 raise SystemExit(f"parent: nvcc failed on {out}\n{text[-4000:]}")
             self.log += text
             self.paths[name] = out
+
+
+class ParentScan:
+    """The parent checkout's one-PSSM segment scan as its wrapper launched
+    it: K2 (``lm_score_u8`` of its ``score.cu``) into an int32 buffer of
+    scores, then C3 (``lm_scan_compact`` of its ``scan.cu``, three kernels),
+    built from the checkout at ``root`` (:class:`ParentBuild`) and loaded
+    with ctypes, so that both time in one process beside this tree's
+    kernel."""
+
+    def __init__(self, root: str):
+        import ctypes
+
+        self.build = ParentBuild(root, ("score", "scan"))
+        i64, ptr, i32, f32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.score = ctypes.CDLL(self.build.paths["score"])
+        self.scan = ctypes.CDLL(self.build.paths["scan"])
+        for fn, args, res in (
+                (self.score.lm_score_u8, [ptr, i64, ptr, i32, i32, i64, ptr, ptr], i32),
+                (self.scan.lm_scan_scratch, [i64], i64),
+                (self.scan.lm_scan_compact,
+                 [ptr, ptr, ptr, i32, i32, i64, i32, f32, i64, ptr, ptr, ptr, ptr], i32)):
+            fn.argtypes, fn.restype = args, res
+
+    @staticmethod
+    def _stream(t):
+        return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+    def k2(self, chunk, dm, n: int):
+        m, k = dm.shape
+        out = torch.empty(chunk.shape[0], dtype=torch.int32, device=chunk.device)
+        err = self.score.lm_score_u8(chunk.data_ptr(), chunk.shape[0], dm.data_ptr(), m, k, n,
+                                     out.data_ptr(), self._stream(chunk))
+        if err:
+            raise SystemExit(f"parent K2: CUDA error {err}")
+        return out
+
+    def c3(self, scores, chunk, w, n: int, t_scaled: int, t: float, cap: int):
+        m, k = w.shape
+        counts = torch.empty(3, dtype=torch.int32, device=chunk.device)
+        packed = torch.empty((2, cap), dtype=torch.int32, device=chunk.device)
+        scratch = torch.empty(self.scan.lm_scan_scratch(n), dtype=torch.uint8,
+                              device=chunk.device)
+        err = self.scan.lm_scan_compact(
+            scores.data_ptr(), chunk.data_ptr(), w.data_ptr(), m, k, n, int(t_scaled),
+            float(np.float32(t)), cap, scratch.data_ptr(), counts.data_ptr(), packed.data_ptr(),
+            self._stream(chunk))
+        if err:
+            raise SystemExit(f"parent C3: CUDA error {err}")
+        return counts, packed
+
+    def segment(self, chunk, n, dm, w, t_scaled, t, cap):
+        return self.c3(self.k2(chunk, dm, n), chunk, w, n, t_scaled, t, cap)
+
+
+def segment_shapes(pssm, seq, chrom) -> list:
+    """The one-PSSM segment scan's timed shapes, MX000001 at p = 1e-5 and
+    the seed capacity: the genome as one segment, and the first full
+    segment of ``DEFAULT_SEGMENT`` window starts of the chromosome
+    stand-in ``chrom``.  Each ``(label, chunk, n, dm, w, t_scaled, t,
+    cap)``, the tensors on the card."""
+    from lightmotif_tpu_torch.scanner import DEFAULT_CAPACITY, DEFAULT_SEGMENT
+
+    m = len(pssm)
+    dm = pssm.to_discrete()
+    t = pssm.score_distribution().score(1e-5)
+    d = torch.from_numpy(np.ascontiguousarray(dm.data, np.uint8)).to(DEVICE)
+    w = torch.from_numpy(np.ascontiguousarray(pssm.data, np.float32)).to(DEVICE)
+    out = []
+    for label, data in (("genome", seq.data),
+                        (f"chromosome segment of {DEFAULT_SEGMENT}",
+                         chrom.data[: DEFAULT_SEGMENT + m - 1])):
+        chunk = torch.from_numpy(np.ascontiguousarray(data, np.uint8)).to(DEVICE)
+        out.append((label, chunk, chunk.shape[0] - m + 1, d, w, int(dm.scale(t)), t,
+                    DEFAULT_CAPACITY))
+    return out
+
+
+def time_parent_segment(parent: "ParentScan", shapes) -> None:
+    """The parent's K2 + C3 at each of :func:`segment_shapes` in turns with
+    this tree's segment kernel (parent, change, change, parent), device
+    time per segment behind a GPU spin, their counters and kept hits
+    equal; also the parent's K2 and C3 alone."""
+    from lightmotif_tpu_torch.ops import kernels
+
+    for label, chunk, n, d, w, t_scaled, t, cap in shapes:
+        args = (chunk, n, d, w, t_scaled, t, cap)
+        counts, packed = parent.segment(*args)
+        got = kernels.scan_segment(*args)
+        n_kept = int(counts[1])
+        if not (torch.equal(got[0], counts) and torch.equal(got[1][:, :n_kept],
+                                                            packed[:, :n_kept])):
+            raise SystemExit(f"parent segment {label}: this tree's scan differs from the "
+                             f"parent's ({got[0].tolist()} against {counts.tolist()})")
+        fns = {"parent": lambda: parent.segment(*args),
+               "change": lambda: kernels.scan_segment(*args)}
+        runs = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            runs[who].append(time_cuda(fns[who], repeat=20))
+        scores = parent.k2(chunk, d, n)
+        k2_ms = time_cuda(lambda: parent.k2(chunk, d, n), repeat=20)
+        c3_ms = time_cuda(lambda: parent.c3(scores, chunk, w, n, t_scaled, t, cap), repeat=20)
+        log("parent_segment", shape=label, starts=n, candidates=int(counts[0]), kept=n_kept,
+            parent_k2_c3_ms=f"{min(runs['parent']):.4f}", parent_k2_ms=f"{k2_ms:.4f}",
+            parent_c3_ms=f"{c3_ms:.4f}", ms=f"{min(runs['change']):.4f}", runs=" ".join(
+                f"{who}={','.join(f'{v:.4f}' for v in vs)}" for who, vs in runs.items()))
+
+
+def kernels_by_name(fn) -> dict:
+    """One profiled steady run of ``fn`` (:func:`profiled`): every kernel
+    name's launches and device ms in the recorded run, from the trace's
+    own events, beside the run's wall and busy ms."""
+    wall, prof = profiled(fn)
+    events = trace_events(prof)
+    busy, by_name, n_events, _ = trace_kernels(prof, events)
+    lo = min(float(e["ts"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == TIMED_RANGE)
+    counts = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and float(e["ts"]) >= lo:
+            counts[event_name(e)] = counts.get(event_name(e), 0) + 1
+    return {"wall_ms": round(wall, 4), "device_busy_ms": round(busy, 4),
+            "device_events": n_events, "kernels": json.dumps(
+                {k: [counts.get(k, 0), round(v, 4)] for k, v in by_name})}
+
+
+def segment_times(parent: str | None) -> int:
+    """The one-PSSM segment scan alone: the build, the segment kernel's
+    SASS, its checks against its plain version (:func:`phase_scan_segment`)
+    and the main path on the genome (:func:`phase_main_path`), then at
+    :func:`segment_shapes` this tree's kernel beside its plain version
+    (:func:`time_scan_segment`) and, with ``parent``, beside the parent's
+    K2 + C3 in turns
+    (:func:`time_parent_segment`); then MX000001 on the chromosome
+    (:func:`scale_single`: ``score_max``, ``Scanner.collect()``, the dense
+    thresholds) and the launches and device ms of every kernel name in one
+    profiled steady ``Scanner.collect()`` there (:func:`kernels_by_name`)."""
+    from lightmotif_tpu_torch import Scanner
+    from lightmotif_tpu_torch.ops import build
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+
+    phase_card()
+    build.library()
+    scan_sass()
+    pssm, seq = build_inputs()
+    phase_scan_segment(pssm, seq)
+    phase_main_path(pssm, seq)
+    chrom = chromosome()
+    shapes = segment_shapes(pssm, seq, chrom)
+    time_scan_segment(shapes)
+    if parent is not None:
+        time_parent_segment(ParentScan(parent), shapes)
+    del shapes
+    settle()
+    scale_single(pssm, chrom, sweep=False)
+    dseq = DeviceSequence(chrom, DEVICE)
+    scanner = Scanner(pssm, dseq, threshold=pssm.score_distribution().score(1e-5))
+    scanner.collect()
+    log("segment_times", profile="one steady Scanner.collect() on the chromosome, every "
+        "kernel name: [launches, device ms]", **kernels_by_name(scanner.collect))
+    print(json.dumps({"ok": True, "segment_times": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def ptxas_lines(log: str, names) -> list:
@@ -3632,18 +3837,22 @@ def phase_parent(root: str, one_pssm: bool = False) -> None:
     """This tree beside the parent checkout at ``root``: the tensor-core
     instructions (``IMMA``) of every instantiation of the prefilter and
     of phase C equal, the pairs library's ``FADD`` and ``FFMA`` counts
-    equal, the ``ptxas -v`` lines of both; then the steady walls of both
-    checkouts (:func:`parent_walls`), each in processes of its own, in
-    turns (parent, change, change, parent): the database's
-    ``scan_arrays``, 8 shards on one card, and 1..N cards, and MX000001's
-    one-PSSM walls.  With ``one_pssm``, only the one-PSSM walls (no
-    build of the parent's libraries, no database)."""
+    equal, the ``ptxas -v`` lines of both; the parent's K2 + C3 beside
+    this tree's segment kernel in turns (:func:`time_parent_segment`); then
+    the steady walls of both checkouts (:func:`parent_walls`), each in
+    processes of its own, in turns (parent, change, change, parent): the
+    database's ``scan_arrays``, 8 shards on one card, and 1..N cards, and
+    MX000001's one-PSSM walls.  With ``one_pssm``, only the one-PSSM walls
+    (no build of the parent's libraries, no database)."""
     import os
     import shutil
     import tempfile
 
     if not one_pssm:
         parent_sass(root)
+        pssm, seq = build_inputs()
+        time_parent_segment(ParentScan(root), segment_shapes(pssm, seq, chromosome()))
+        settle()
     caches = {who: tempfile.mkdtemp(prefix=f"chip-smoke-{who}-") for who in ("parent", "change")}
     here_root = os.path.dirname(os.path.abspath(__file__))
     walls = functools.partial(parent_walls, one_pssm=one_pssm)
@@ -4047,18 +4256,25 @@ def phase_score_probes(pssm, seq, ms, times) -> dict:
 def scale_genomes() -> list:
     """``(name, EncodedSequence)`` of the scale phase's two genomes: the
     50 Mbp genome of ``bench_biggenome`` and the chromosome stand-in."""
+    from lightmotif_tpu_torch import EncodedSequence
+
+    genome = np.random.default_rng(SCALE_GENOME_SEED).integers(
+        0, 4, size=SCALE_GENOME_LENGTH, dtype=np.int8).astype(np.uint8)
+    return [("genome_50mbp", EncodedSequence(genome)), ("chromosome", chromosome())]
+
+
+def chromosome():
+    """The chromosome stand-in (:func:`scale_genomes`), an
+    ``EncodedSequence``."""
     from lightmotif_tpu_torch import DNA, EncodedSequence
 
-    def uniform(seed, n):
-        return np.random.default_rng(seed).integers(0, 4, size=n, dtype=np.int8).astype(np.uint8)
-
-    chrom = uniform(CHROM_SEED, CHROM_LENGTH)
+    chrom = np.random.default_rng(CHROM_SEED).integers(
+        0, 4, size=CHROM_LENGTH, dtype=np.int8).astype(np.uint8)
     start, length = CHROM_GAP
     for lo, hi in ((0, CHROM_END_N), (start, start + length),
                    (CHROM_LENGTH - CHROM_END_N, CHROM_LENGTH)):
         chrom[lo:hi] = DNA.default_index
-    return [("genome_50mbp", EncodedSequence(uniform(SCALE_GENOME_SEED, SCALE_GENOME_LENGTH))),
-            ("chromosome", EncodedSequence(chrom))]
+    return EncodedSequence(chrom)
 
 
 def memory_mib() -> dict:
@@ -4198,9 +4414,9 @@ def scale_dense(pssm, dseq, w, n: int, top, last: int) -> None:
     equal to K1's last maximum ``(top, last)``, one read per batch of
     ``READ_AHEAD`` in a steady call, and the memory it holds: the card's
     allocated peak above what was allocated before, against the bound of
-    one segment's K2 scores and four batches' hit buffers (the buffers,
-    their gathered heads or tails, the best's temporaries), and the
-    reader's pinned buffer."""
+    four batches' hit buffers (the buffers, their gathered heads or tails,
+    the merge of the best hits) and 64 MiB, and the reader's pinned
+    buffer."""
     from lightmotif_tpu_torch import Scanner
     from lightmotif_tpu_torch import scanner as scanner_mod
     from lightmotif_tpu_torch.ops import kernels
@@ -4238,11 +4454,11 @@ def scale_dense(pssm, dseq, w, n: int, top, last: int) -> None:
         segments = -(-n // scanner.block_size)
         per = max(1, scanner_mod.READ_AHEAD // (8 * scanner.capacity))
         batch = min(per, segments) * 8 * scanner.capacity
-        bound = 4 * scanner.block_size + 4 * batch + (64 << 20)
+        bound = 4 * batch + (64 << 20)
         mib = 1 << 20
         log("scale", check="Scanner at a dense threshold == K1 + threshold + nonzero; max == "
-            "K1's last maximum; one read a batch; memory inside one segment's K2 scores and "
-            "four batches", threshold=label, t=f"{t:.6f}", hits=len(want_pos),
+            "K1's last maximum; one read a batch; memory inside four batches and 64 MiB",
+            threshold=label, t=f"{t:.6f}", hits=len(want_pos),
             segments=segments, capacity=scanner.capacity, reruns=scanner.reruns,
             segments_a_read=min(per, segments), **row, max_reads=scanner.host_reads,
             peak_mib=round(peak / mib, 2), bound_mib=round(bound / mib, 2),
@@ -4313,7 +4529,7 @@ def scale_single(pssm, seq, sweep: bool) -> dict:
     segments = -(-n // scanner.block_size)
     launches = collect(scanner, "Scanner.collect")
     runs = segments + scanner.reruns
-    if launches["score_u8"] != runs or launches["scan_compact"] != runs:
+    if launches["scan_segment"] != runs or launches["score_u8"]:
         raise SystemExit(f"scale Scanner.collect: launches {launches}, {segments} segments, "
                          f"{scanner.reruns} re-runs")
     for name, v in launches.items():
@@ -4571,10 +4787,12 @@ def main(argv: list) -> int:
         return stages_only(parent)
     if mode == ["--one-pssm-cards"]:
         return one_pssm_cards(parent)
+    if mode == ["--segment-times"]:
+        return segment_times(parent)
     if mode:
         print(f"chip_smoke: unknown arguments {argv} (--mesh-only [--parent DIR], "
               "--scale-only, --parent DIR, --stages-only --parent DIR, "
-              "--one-pssm-cards [--parent DIR], or none)",
+              "--one-pssm-cards [--parent DIR], --segment-times [--parent DIR], or none)",
               file=sys.stderr)
         return 2
     phase_card()
@@ -4583,7 +4801,7 @@ def main(argv: list) -> int:
     phase_sass()
     pssm, seq = build_inputs()
     errs = phase_kernels(pssm, seq)
-    errs["scan_compact"] = phase_scan_compact(pssm, seq)
+    errs["scan_segment"] = phase_scan_segment(pssm, seq)
     cases = list(prefilter_cases())
     errs["prefilter_any8"] = phase_k3(cases)
     errs.update(phase_k4k5(cases, seq))
@@ -4624,7 +4842,7 @@ def main(argv: list) -> int:
                "prefilter_any16": (K3_SOURCE, K5_REPLACES),
                "phase_c_bits": (PHASE_C_SOURCE, PHASE_C_REPLACES),
                "pairs_rescore": (PAIRS_SOURCE, PAIRS_REPLACES),
-               "scan_compact": (C3_SOURCE, C3_REPLACES)}
+               "scan_segment": (SEGMENT_SOURCE, SEGMENT_REPLACES)}
     errs.update(STAGE_ERRS)  # the worst of every check of the two
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -7,7 +7,7 @@ together:
 
 * :class:`BatchScanner` concatenates the records with ``m - 1``
   wildcard separators, runs one two-pass :class:`~.scanner.Scanner`
-  (K2 and C3 per segment, one read) over the concatenation and splits
+  (one launch per segment, one read) over the concatenation and splits
   the hits back per record;
 * :class:`BatchReducer` packs the records into uniform slots, scores
   every window with K1 and reduces each slot to its (max, argmax);

@@ -90,8 +90,9 @@ PRODUCTION_SYMBOLS = {
     "lm_score_f32": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
     "lm_score_u8": ([_P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
     "lm_scan_scratch": ([_I64], _I64),
-    "lm_scan_compact": (
-        [_P, _P, _P, _INT, _INT, _I64, _INT, _F32, _I64, _P, _P, _P, _P], _INT),
+    "lm_scan_smem": ([_INT, _INT], _I64),
+    "lm_scan_segment": (
+        [_P, _I64, _P, _P, _INT, _INT, _I64, _INT, _F32, _I64, _P, _P], _INT),
     "lm_prefilter_lanes": ([], _INT),
     "lm_prefilter_production": ([], _INT),
     "lm_prefilter_smem": ([_INT, _INT, _INT, _INT], _I64),

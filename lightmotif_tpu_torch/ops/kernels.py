@@ -6,11 +6,11 @@ the Pallas kernel ``_gather_kernel``:
 
 * :func:`score_f32` -- exact f32 scores (``Pipeline.score`` and
   ``score_max``);
-* :func:`score_u8` -- discrete scores, the Scanner's first pass.
+* :func:`score_u8` -- discrete scores (``Pipeline.score_u8``).
 
-``csrc/scan.cu`` holds C3, :func:`scan_compact`: the Scanner's
-fixed-capacity compaction, exact rescore and keep after K2 (the XLA code
-of the JAX ``scan_segment``); :func:`scan_segment` is K2 then C3.
+``csrc/scan.cu`` holds :func:`scan_segment`, the Scanner's segment in one
+launch: the discrete pass, the fixed-capacity compaction, exact rescore
+and keep of the JAX ``scan_segment``, and the best kept hit.
 
 A tensor on the CPU goes to the plain version in :mod:`.torch_ops`; a
 tensor on a CUDA device launches the kernel, and anything the kernel
@@ -30,12 +30,12 @@ import torch
 
 from . import torch_ops
 
-__all__ = ["score_f32", "score_u8", "scan_compact", "scan_segment", "LAUNCHES", "count_launch",
-           "recording", "count_replay", "reset_launches", "smem_bytes"]
+__all__ = ["score_f32", "score_u8", "scan_segment", "LAUNCHES", "count_launch", "recording",
+           "count_replay", "reset_launches", "smem_bytes", "scan_smem_bytes"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`
-#: (one :func:`scan_compact` call, C3's three kernels, counts one).
-LAUNCHES = {"score_f32": 0, "score_u8": 0, "scan_compact": 0}
+#: (a :func:`scan_segment` call's memset is not counted).
+LAUNCHES = {"score_f32": 0, "score_u8": 0, "scan_segment": 0}
 
 #: Shared memory a block may use on Hopper (bytes).
 _MAX_SMEM = 232_448
@@ -110,7 +110,21 @@ def smem_bytes(discrete: bool, m: int, k: int) -> int:
     from . import build
 
     lib = build.library()
-    smem = lib.lm_score_smem(lib.lm_score_pick(int(discrete), m, k), m, k)
+    return _fits(lib.lm_score_smem(lib.lm_score_pick(int(discrete), m, k), m, k), m, k)
+
+
+@functools.lru_cache(maxsize=None)
+def scan_smem_bytes(m: int, k: int) -> int:
+    """Dynamic shared memory of :func:`scan_segment`'s kernel for an
+    ``m x k`` table (``csrc/scan.cu``: ``lm_scan_smem``).  Raises, as
+    :func:`smem_bytes`, when it exceeds what a block may use; a table K2
+    takes always fits."""
+    from . import build
+
+    return _fits(build.library().lm_scan_smem(m, k), m, k)
+
+
+def _fits(smem: int, m: int, k: int) -> int:
     if not 0 < smem <= _MAX_SMEM:
         raise ValueError(
             f"a {m}x{k} table needs {smem} bytes of shared memory (max {_MAX_SMEM})")
@@ -167,66 +181,56 @@ def score_u8(seq: torch.Tensor, dm: torch.Tensor, n_scores: int) -> torch.Tensor
     return _launch("score_u8", seq, dm, n_scores, torch.int32)
 
 
-def scan_compact(scores: torch.Tensor, seq: torch.Tensor, pssm: torch.Tensor, n_here: int,
+def scan_segment(chunk: torch.Tensor, n_here: int, dm: torch.Tensor, pssm: torch.Tensor,
                  t_scaled: int, threshold: float, cap: int):
-    """C3: the candidates ``scores >= t_scaled`` among the first
-    ``n_here`` window starts, the first ``cap`` of them rescored exactly
-    and kept where the f32 score is ``>= threshold``, with no read of the
-    device.  Returns ``(counts int32 [3], packed int32 [2, cap])``: the
-    exact candidate count, ``n_kept`` and 1, and the kept hits
-    front-compacted in position order (positions, f32 bits); see
-    :func:`.torch_ops.scan_compact`, its plain version.
+    """One segment of the Scanner at a fixed capacity, with no read of the
+    device: the window starts whose discrete score ``min(sum, 255)`` is at
+    least ``t_scaled`` among the first ``n_here`` are the candidates; the
+    first ``cap`` of them, in position order, are rescored exactly and kept
+    where the f32 score is ``>= threshold``.  ``chunk``: uint8, the
+    segment's ``n_here`` window starts plus the (m-1)-position halo;
+    ``dm``: uint8 ``[m, K]``; ``pssm``: f32 ``[m, K]``.
 
-    ``scores``: int32 ``[>= n_here]`` (:func:`score_u8`'s, 16-byte
-    aligned on a card); ``seq``: uint8 ``[>= n_here + m - 1]``;
-    ``pssm``: f32 ``[m, K]``.
+    Returns ``(counts int32 [3], packed int32 [2, cap], best int32 [2])``:
+    the exact candidate count, ``n_kept`` and 1; the kept hits
+    front-compacted in position order (positions, f32 bits); the f32 bits
+    and position of the best kept hit, ``-inf`` bits and -1 when none
+    (:func:`.torch_ops.scan_segment`, its plain version).  On a card, one
+    memset and one launch, the three views of one buffer.
     """
-    _check(seq, pssm, torch.float32, n_here)
-    m, k = pssm.shape
-    if scores.dtype != torch.int32 or scores.dim() != 1 or scores.shape[0] < n_here:
-        raise TypeError(f"scores must be a 1-D int32 tensor of at least {n_here} entries, "
-                        f"got {scores.dtype} {tuple(scores.shape)}")
-    if n_here and seq.shape[0] < n_here + m - 1:
-        raise ValueError(f"seq holds {seq.shape[0]} symbols, fewer than the {n_here} windows "
-                         f"of {m} need")
+    _check(chunk, dm, torch.uint8, n_here)
+    m, k = dm.shape
+    if pssm.dtype != torch.float32 or tuple(pssm.shape) != (m, k):
+        raise TypeError(f"pssm must be a float32 [{m}, {k}] tensor, got {pssm.dtype} "
+                        f"{tuple(pssm.shape)}")
+    if pssm.device != chunk.device:
+        raise ValueError(f"chunk on {chunk.device} but pssm on {pssm.device}")
+    if n_here and chunk.shape[0] < n_here + m - 1:
+        raise ValueError(f"chunk holds {chunk.shape[0]} symbols, fewer than the {n_here} "
+                         f"windows of {m} need")
     if n_here > 2**31 - 1:
         raise ValueError("a segment holds at most 2**31 - 1 window starts (int32 positions)")
     if cap < 1:
         raise ValueError("cap must be positive")
-    if scores.device != seq.device:
-        raise ValueError(f"seq on {seq.device} but scores on {scores.device}")
-    if seq.device.type == "cpu":
-        return torch_ops.scan_compact(scores, seq, pssm, n_here, t_scaled, threshold, cap)
+    if chunk.device.type == "cpu":
+        return torch_ops.scan_segment(chunk, n_here, dm, pssm, t_scaled, threshold, cap)
     from . import build
 
-    if not (scores.is_contiguous() and seq.is_contiguous() and pssm.is_contiguous()):
-        raise ValueError("scan_compact takes contiguous tensors")
-    if scores.data_ptr() % 16:
-        raise ValueError("scan_compact: scores must be 16-byte aligned")
+    if not (chunk.is_contiguous() and dm.is_contiguous() and pssm.is_contiguous()):
+        raise ValueError("scan_segment takes contiguous tensors")
+    scan_smem_bytes(m, k)
     lib = build.library()
-    device = seq.device
-    counts = torch.empty(3, dtype=torch.int32, device=device)
-    packed = torch.empty((2, cap), dtype=torch.int32, device=device)
-    scratch = torch.empty(lib.lm_scan_scratch(n_here), dtype=torch.uint8, device=device)
-    index = device.index
+    head = 8 + lib.lm_scan_scratch(n_here) // 4
+    out = torch.empty(head + 2 * cap, dtype=torch.int32, device=chunk.device)
+    index = chunk.device.index
+    # the scores cannot pass a threshold outside int32's range either way
+    t_scaled = min(max(int(t_scaled), -2**31), 2**31 - 1)
     with torch.cuda.device(index) if index != torch.cuda.current_device() else _SAME_DEVICE:
-        err = lib.lm_scan_compact(
-            scores.data_ptr(), seq.data_ptr(), pssm.data_ptr(), m, k, n_here, int(t_scaled),
-            float(np.float32(threshold)), cap, scratch.data_ptr(), counts.data_ptr(),
-            packed.data_ptr(), torch._C._cuda_getCurrentRawStream(index))
+        err = lib.lm_scan_segment(
+            chunk.data_ptr(), chunk.shape[0], dm.data_ptr(), pssm.data_ptr(), m, k, n_here,
+            t_scaled, float(np.float32(threshold)), cap, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        raise RuntimeError(f"scan_compact kernel launch failed: CUDA error {err}")
-    count_launch(LAUNCHES, "scan_compact")
-    return counts, packed
-
-
-def scan_segment(chunk: torch.Tensor, n_here: int, dm: torch.Tensor, pssm: torch.Tensor,
-                 t_scaled: int, threshold: float, cap: int):
-    """Two-pass scan of one segment at a fixed capacity: K2
-    (:func:`score_u8`), then C3 (:func:`scan_compact`), with no read of
-    the device.  ``chunk`` holds the segment's ``n_here`` window starts
-    plus the (m-1)-position halo.  Returns ``(counts int32 [3], packed
-    int32 [2, cap])`` (:func:`.torch_ops.scan_segment` is the plain
-    version of the whole)."""
-    return scan_compact(score_u8(chunk, dm, n_here), chunk, pssm, n_here, t_scaled, threshold,
-                        cap)
+        raise RuntimeError(f"scan_segment kernel launch failed: CUDA error {err}")
+    count_launch(LAUNCHES, "scan_segment")
+    return out[:3], out[head:].view(2, cap), out[4:6]

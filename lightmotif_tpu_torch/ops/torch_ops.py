@@ -19,8 +19,10 @@ Sequences are flat ``uint8`` rank tensors.  A window that runs past the
 end of the sequence reads the wildcard (rank ``K - 1``), and so does any
 rank ``>= K``.
 
-:func:`scan_compact` is the plain version of C3 (``csrc/scan.cu``), the
-Scanner's compaction, rescore and keep after K2.
+:func:`scan_segment` is the plain version of the Scanner's segment
+kernel (``csrc/scan.cu``): the discrete pass (:func:`score_u8`), then
+:func:`scan_compact` (the compaction, rescore and keep) and
+:func:`segment_best`.
 
 :func:`prefilter_any8`, :func:`prefilter_any` and :func:`prefilter_any16`
 are the plain versions of the multi-motif prefilters K3, K4 and K5
@@ -43,6 +45,7 @@ __all__ = [
     "argmax_last",
     "rescore_positions",
     "scan_compact",
+    "segment_best",
     "scan_segment",
 ]
 
@@ -174,9 +177,9 @@ def rescore_positions(seq: torch.Tensor, pssm: torch.Tensor,
 
 def scan_compact(scores: torch.Tensor, seq: torch.Tensor, pssm: torch.Tensor, n_here: int,
                  t_scaled: int, threshold: float, cap: int):
-    """C3's plain version: the fixed-capacity compaction, exact rescore and
-    keep of one segment, given its discrete scores, with no read of the
-    device.
+    """The fixed-capacity compaction, exact rescore and keep of one
+    segment, given its discrete scores, with no read of the device: the
+    second half of :func:`scan_segment`.
 
     ``scores``: int32 ``[>= n_here]`` (K2's; only the first ``n_here``
     are read); ``seq``: uint8, the segment's ``n_here`` window starts and
@@ -211,13 +214,28 @@ def scan_compact(scores: torch.Tensor, seq: torch.Tensor, pssm: torch.Tensor, n_
     return counts.to(torch.int32), packed[:, :cap]
 
 
+def segment_best(counts: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The best of a segment's kept hits ``packed[:, :counts[1]]`` as
+    int32 ``[2]``: its f32 bits and its position, the largest score and,
+    among equal scores, the larger position (the reference's last-max
+    rule, ``pli/mod.rs:146``); ``-inf`` bits and -1 when none is kept.
+    No read of the device."""
+    valid = torch.arange(packed.shape[1], device=packed.device) < counts[1]
+    scores = torch.where(valid, packed[1].view(torch.float32), float("-inf"))
+    top = scores.max()
+    position = torch.where(valid & (scores == top), packed[0], -1).max()
+    return torch.stack([top.reshape(1).view(torch.int32)[0], position.to(torch.int32)])
+
+
 def scan_segment(chunk: torch.Tensor, n_here: int, dm: torch.Tensor, pssm: torch.Tensor,
                  t_scaled: int, threshold: float, cap: int):
     """Two-pass scan of one segment at a fixed capacity, all plain: the
-    discrete scores (:func:`score_u8`), then :func:`scan_compact`.  The
-    counterpart of the JAX ``xla_ops.scan_segment`` (``dense=True``);
-    ``chunk`` holds the segment's ``n_here`` window starts plus the
-    (m-1)-position halo.  Returns ``(counts int32 [3], packed int32 [2,
-    cap])``, with no read of the device."""
-    return scan_compact(score_u8(chunk, dm, n_here), chunk, pssm, n_here, t_scaled,
-                        threshold, cap)
+    discrete scores (:func:`score_u8`), :func:`scan_compact`, then
+    :func:`segment_best`.  The counterpart of the JAX
+    ``xla_ops.scan_segment`` (``dense=True``); ``chunk`` holds the
+    segment's ``n_here`` window starts plus the (m-1)-position halo.
+    Returns ``(counts int32 [3], packed int32 [2, cap], best int32 [2])``,
+    with no read of the device."""
+    counts, packed = scan_compact(score_u8(chunk, dm, n_here), chunk, pssm, n_here, t_scaled,
+                                  threshold, cap)
+    return counts, packed, segment_best(counts, packed)

@@ -15,9 +15,8 @@ device a fixed number of times per call, whatever the number of shards:
 
 * :func:`sharded_scan` and :meth:`ShardedScanner.collect` issue every
   shard's two-pass scan at a fixed capacity
-  (:func:`~.ops.kernels.scan_segment`: the scoring kernel in discrete
-  mode, K2, then C3's compaction, exact rescore and keep), from one
-  thread, with no read;
+  (:func:`~.ops.kernels.scan_segment`: the discrete pass, compaction,
+  exact rescore and keep in one launch), from one thread, with no read;
   then each device lays its shards' counters and hit heads end to end,
   the first device gathers every device's, and the host reads once
   (:func:`~.scanner.kept_hits`).  Only when a shard's candidates
@@ -306,7 +305,7 @@ def _counted(reader: multi.HostReader):
 
 def _issue_shards(tables: dict, prepared, t_scaled: int, threshold: float, m: int,
                   cap: int) -> list:
-    """K2 and C3 (:func:`~.ops.kernels.scan_segment`) on every shard that
+    """The segment kernel (:func:`~.ops.kernels.scan_segment`) on every shard that
     owns windows, at ``cap``, from this thread, with no read of any
     device: their :class:`~.scanner.Segment` s in shard order, each
     offset its shard's first window start, keyed by its global shard

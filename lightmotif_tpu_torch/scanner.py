@@ -3,15 +3,14 @@
 Counterpart of :mod:`lightmotif_tpu.scanner`: ``Scanner`` for one PSSM
 and ``MultiScanner`` for a motif database.  Each segment of the
 sequence runs :func:`~.ops.kernels.scan_segment` in the ``Scanner``, at a
-fixed capacity, as the JAX package's ``scan_segment``:
+fixed capacity, as the JAX package's ``scan_segment``, in one launch:
 
-1. discrete scores of every window start (K2, the scoring kernel in
-   discrete mode), an over-estimate of the f32 score, like the
-   reference's u8 matrix;
-2. C3: the candidates at or above the scaled threshold, the first
+1. discrete scores of every window start, an over-estimate of the f32
+   score, like the reference's u8 matrix, kept in registers;
+2. the candidates at or above the scaled threshold, the first
    ``capacity`` of them in position order with their exact count, their
-   exact f32 rescore (sequential-order adds), the final f32 threshold
-   and the front compaction of the kept hits.
+   exact f32 rescore (sequential-order adds), the final f32 threshold,
+   the front compaction of the kept hits and the best of them.
 
 The segments are issued before the host reads anything, as many at a
 time as :data:`READ_AHEAD` bytes of hit buffers hold (every segment of a
@@ -43,15 +42,14 @@ from .ops.pipeline import DeviceSequence, as_device_seq, resolve_device
 
 __all__ = ["Hit", "Scanner", "MultiHit", "MultiScanner"]
 
-#: Window starts per segment of the ``Scanner``.  It bounds the scratch
-#: of one segment's scan, K2's int32 scores (4 bytes a window start,
-#: which C3 reads; the next segment reuses them), while
+#: Window starts per segment of the ``Scanner``, while
 #: :data:`READ_AHEAD` bounds the hit buffers that wait for a read.  Each
-#: segment launches K2 and C3 once: on an NVIDIA H100 a 248,956,422 bp
-#: chromosome scanned in 4 segments of 2**26 in half the time of 15 of
-#: 2**24, and in one of 2**28 only a fifth faster with four times the
-#: memory (``chip_smoke.py --scale-only``, measured while each segment
-#: was read on its own).  A bacterial genome is one segment.
+#: segment is one launch: on an NVIDIA H100 a 248,956,422 bp chromosome
+#: scanned in 4 segments of 2**26 in half the time of 15 of 2**24, and in
+#: one of 2**28 only a fifth faster with four times the memory
+#: (``chip_smoke.py --scale-only``, measured while each segment was read
+#: on its own and wrote an int32 score a window start).  A bacterial
+#: genome is one segment.
 DEFAULT_SEGMENT = 1 << 26
 
 #: Seed capacity of the fixed-size buffers: the ``Scanner``'s candidates
@@ -59,7 +57,7 @@ DEFAULT_SEGMENT = 1 << 26
 #: motif group, hits per dense motif), the JAX package's.  Each ratchets.
 DEFAULT_CAPACITY = multi.DEFAULT_CAPACITY
 
-#: Bytes of hit buffers (C3's ``packed``, 8 bytes a slot of the
+#: Bytes of hit buffers (``packed``, 8 bytes a slot of the
 #: capacity) that the ``Scanner`` issues before it reads them: 512
 #: segments at the seed capacity.  A capacity ratcheted by a dense
 #: threshold issues fewer segments a read (one, once a segment's buffer
@@ -186,21 +184,23 @@ def _reference_max(pssm, dm, seq, threshold: float,
 
 
 class Segment(NamedTuple):
-    """One issued segment (or shard) of a one-PSSM scan: C3's ``counts``
-    (int32 ``[3]``) and ``packed`` (int32 ``[2, cap]``) on its device,
-    the ``offset`` added to its positions, the ``key`` of its head hint,
-    and ``run(cap)``, which issues it again at another capacity and
-    returns ``(counts, packed)``."""
+    """One issued segment (or shard) of a one-PSSM scan: its ``counts``
+    (int32 ``[3]``), ``packed`` (int32 ``[2, cap]``) and ``best`` (int32
+    ``[2]``) on its device (:func:`~.ops.kernels.scan_segment`), the
+    ``offset`` added to its positions, the ``key`` of its head hint, and
+    ``run(cap)``, which issues it again at another capacity and returns
+    ``(counts, packed, best)``."""
 
     counts: torch.Tensor
     packed: torch.Tensor
+    best: torch.Tensor
     offset: int
     key: object
     run: Callable
 
 
 def issue_segment(run: Callable, offset: int, key, cap: int) -> Segment:
-    """``run(cap)`` issued (K2 and C3, no read), as a :class:`Segment`."""
+    """``run(cap)`` issued (no read), as a :class:`Segment`."""
     return Segment(*run(cap), offset, key, run)
 
 
@@ -308,14 +308,11 @@ def best_of(scores: torch.Tensor, positions: torch.Tensor) -> tuple:
 
 
 def _segment_best(s: Segment) -> tuple:
-    """A segment's best kept hit on its device: ``(score, position)``,
-    ``(-inf, -1)`` when it keeps none."""
-    slots = torch.arange(s.packed.shape[1], dtype=torch.int32, device=s.packed.device)
-    valid = slots < s.counts[1]
-    top, position = best_of(torch.where(valid, s.packed[1].view(torch.float32), float("-inf")),
-                            torch.where(valid, s.packed[0], -1))
-    # int32 over the slots, the offset added to the one position
-    return top, torch.where(position < 0, -1, position.to(torch.int64) + s.offset)
+    """A segment's best kept hit on its device, from the kernel's
+    ``best``: ``(score, position)``, ``(-inf, -1)`` when it keeps none."""
+    position = s.best[1]
+    return (s.best[:1].view(torch.float32)[0],
+            torch.where(position < 0, -1, position.to(torch.int64) + s.offset))
 
 
 def merge_best(pairs: list) -> tuple:
@@ -417,8 +414,8 @@ class Scanner:
 
     def _runs(self, t_scaled: int, threshold: float) -> list:
         """``(offset, run)`` of every segment, in position order;
-        ``run(cap)`` issues the segment's K2 and C3 (no read) and returns
-        C3's ``(counts, packed)``."""
+        ``run(cap)`` issues the segment (no read) and returns its
+        ``(counts, packed, best)``."""
         m = len(self.pssm)
         n_total = max(self._dseq.length - m + 1, 0)
         if n_total == 0:

@@ -17,6 +17,9 @@ from lightmotif_tpu_torch.probes import prefilter as probes
 from lightmotif_tpu_torch.probes import scoring
 from lightmotif_tpu_torch.scanner import MultiScanner
 
+from .torch_segments import CASES as SEGMENT_CASES
+from .torch_segments import best_of_hits, segment_inputs
+
 pytestmark = pytest.mark.cuda
 
 
@@ -323,7 +326,7 @@ def test_k1_k2_launch_reads_nothing_back_from_the_card(cuda):
                 for t in tables]
     finally:
         torch.cuda.set_sync_debug_mode(saved)
-    assert kernels.LAUNCHES == {"score_f32": 2, "score_u8": 1, "scan_compact": 0}
+    assert kernels.LAUNCHES == {"score_f32": 2, "score_u8": 1, "scan_segment": 0}
     for t, o in zip(tables, outs):
         plain = (torch_ops.score_u8 if t.dtype == torch.uint8 else torch_ops.score_f32)
         assert torch.equal(o, plain(seq, t, 99_000))
@@ -724,72 +727,49 @@ def test_a_failing_capture_raises(cuda):
     torch.cuda.synchronize()
 
 
-#: C3's cases: (name, k, m, length, ranks, threshold kind, cap kind)
-SCAN_COMPACT_CASES = [
-    ("dna-below", 5, 15, 200_003, 4, "dense", "below"),
-    ("dna-at", 5, 15, 200_003, 4, "dense", "at"),
-    ("dna-above", 5, 15, 200_003, 4, "sparse", "above"),
-    ("dna-neginf", 5, 12, 100_001, 5, "neginf", "above"),
-    ("protein", 21, 10, 50_000, 21, "dense", "above"),
-    ("k7-ragged", 7, 7, 4_097, 9, "dense", "below"),
-    ("k256", 256, 5, 30_000, 256, "dense", "at"),
-    ("zeros", 5, 6, 20_000, 5, "zeros", "above"),
-    ("one-window", 5, 15, 15, 4, "neginf", "above"),
-]
-
-
-def _scan_compact_case(cuda, k, m, length, ranks, kind, cap_kind, seed):
-    rng = np.random.default_rng(seed)
-    seq = rng.integers(0, ranks, size=length).astype(np.uint8)
-    for start in rng.integers(0, length, size=5):  # wildcard runs
-        seq[start : start + 30] = k - 1
-    if kind == "zeros":  # +x and -x, and -0.0: exact zero sums
-        table = np.zeros((m, k), np.float32)
-        table[:, 0], table[:, 1], table[:, 2] = 1.5, -1.5, -0.0
-    else:
-        table = rng.normal(size=(m, k)).astype(np.float32)
-    dm = rng.integers(0, 256 // m, size=(m, k)).astype(np.uint8)
-    n = length - m + 1
-    seq_t, table_t, dm_t = (torch.from_numpy(a).to(cuda) for a in (seq, table, dm))
-    scores = kernels.score_u8(seq_t, dm_t, n)
-    t_scaled = int(torch.quantile(scores[:n].float(), 0.5 if kind != "sparse" else 0.999))
-    threshold = {"neginf": -np.inf, "zeros": 0.0}.get(kind, -0.5)
-    count = int((scores[:n] >= t_scaled).sum())
-    cap = {"below": max(count // 3, 1), "at": max(count, 1), "above": 2 * count + 7}[cap_kind]
-    return scores, seq_t, table_t, n, t_scaled, threshold, cap, count
-
-
-@pytest.mark.parametrize("name,k,m,length,ranks,kind,cap_kind", SCAN_COMPACT_CASES,
-                         ids=[c[0] for c in SCAN_COMPACT_CASES])
+@pytest.mark.parametrize("name,k,m,length,ranks,kind,cap_kind", SEGMENT_CASES,
+                         ids=[c[0] for c in SEGMENT_CASES])
 def test_scan_compact_kernel_matches_plain(cuda, name, k, m, length, ranks, kind, cap_kind):
-    """C3 against its plain version, bit for bit: the counters and the
-    kept hits (positions, f32 bits); at a capacity below, at and above
-    the candidate count; ragged lengths, ranks >= K, -inf and exact
-    zero sums.  Its launch reads nothing back (sync debug mode)."""
-    args = _scan_compact_case(cuda, k, m, length, ranks, kind, cap_kind, seed=len(name) + m)
-    scores, seq_t, table_t, n, t_scaled, threshold, cap, count = args
+    """The segment kernel (``kernels.scan_segment``: the discrete pass,
+    compaction, rescore and keep in one launch) against its plain version,
+    bit for bit: the counters, the kept hits (positions, f32 bits) and the
+    best of them; at capacities below, at and above the candidate count,
+    1, and on and inside a tile's candidates; DNA and protein, m = 1 and m
+    = 300, ragged lengths, ranks >= K, no candidate, -inf and exact zero
+    sums.  Its launch reads nothing back (sync debug mode)."""
+    seq, dm, table, n, t_scaled, threshold, cap, count = segment_inputs(
+        k, m, length, ranks, kind, cap_kind, seed=len(name) + m)
+    args = [torch.from_numpy(a).to(cuda) for a in (seq, dm, table)]
+    chunk, dm_t, table_t = args
     kernels.reset_launches()
     saved = torch.cuda.get_sync_debug_mode()
     try:
         torch.cuda.set_sync_debug_mode("error")
-        counts, packed = kernels.scan_compact(scores, seq_t, table_t, n, t_scaled, threshold, cap)
+        counts, packed, best = kernels.scan_segment(chunk, n, dm_t, table_t, t_scaled,
+                                                    threshold, cap)
     finally:
         torch.cuda.set_sync_debug_mode(saved)
-    assert kernels.LAUNCHES["scan_compact"] == 1
-    want_counts, want_packed = torch_ops.scan_compact(scores, seq_t, table_t, n, t_scaled,
-                                                      threshold, cap)
+    assert kernels.LAUNCHES == {"score_f32": 0, "score_u8": 0, "scan_segment": 1}
+    want_counts, want_packed, want_best = torch_ops.scan_segment(chunk, n, dm_t, table_t,
+                                                                 t_scaled, threshold, cap)
     torch.cuda.synchronize()
     assert torch.equal(counts, want_counts) and counts[0] == count
     n_kept = int(counts[1])
     assert torch.equal(packed[:, :n_kept], want_packed[:, :n_kept])
+    assert torch.equal(best, want_best)
+    assert best.tolist() == list(best_of_hits(packed[0, :n_kept].cpu().numpy(),
+                                              packed[1, :n_kept].cpu().numpy()))
     if kind == "zeros":
         assert n_kept and bool((packed[1, :n_kept] == 0).any())  # +0.0 bits
+    if kind == "none":
+        assert counts.tolist() == [0, 0, 1]
 
 
 def test_scanner_reads_the_card_once(cuda):
     """A steady ``Scanner.collect()`` and ``max()`` read the card once
     (the seeded capacity of 4 ratchets at the first), the issue never,
-    and the hits equal the CPU's; K2 and C3 launch once a segment."""
+    and the hits equal the CPU's; the segment kernel launches once a
+    segment, K2 never."""
     from lightmotif_tpu_torch.scanner import Scanner
 
     rng = np.random.default_rng(13)
@@ -803,7 +783,7 @@ def test_scanner_reads_the_card_once(cuda):
     assert [(h.position, h.score) for h in sc.collect()] == want
     assert sc.host_reads == 1
     segments = -(-(300_000 - 8) // 65_536)
-    assert kernels.LAUNCHES == {"score_f32": 0, "score_u8": segments, "scan_compact": segments}
+    assert kernels.LAUNCHES == {"score_f32": 0, "score_u8": 0, "scan_segment": segments}
     best = Scanner(pssm, seq, 2.0, device="cpu").max()
     sc.host_reads = 0
     got = sc.max()

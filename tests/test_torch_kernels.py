@@ -50,12 +50,11 @@ def test_cpu_wrappers_run_the_plain_versions():
                        torch_ops.score_f32(seq, torch.from_numpy(w), n))
     assert torch.equal(kernels.score_u8(seq, torch.from_numpy(dm), n),
                        torch_ops.score_u8(seq, torch.from_numpy(dm), n))
-    scores = torch_ops.score_u8(seq, torch.from_numpy(dm), n)
-    for got, want in zip(kernels.scan_compact(scores, seq, torch.from_numpy(w), n, 40, -20.0, 64),
-                         torch_ops.scan_compact(scores, seq, torch.from_numpy(w), n, 40, -20.0,
-                                                64)):
+    tables = (torch.from_numpy(dm), torch.from_numpy(w))
+    for got, want in zip(kernels.scan_segment(seq, n, *tables, 40, -20.0, 64),
+                         torch_ops.scan_segment(seq, n, *tables, 40, -20.0, 64)):
         assert torch.equal(got, want)
-    assert kernels.LAUNCHES == {"score_f32": 0, "score_u8": 0, "scan_compact": 0}
+    assert kernels.LAUNCHES == {"score_f32": 0, "score_u8": 0, "scan_segment": 0}
 
 
 @pytest.mark.parametrize("bad", ["seq_dtype", "table_dtype", "device"])
@@ -70,6 +69,6 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(bad):
         seq, table = seq.to("meta"), table.to("meta")
     with pytest.raises((TypeError, ValueError)):
         kernels.score_f32(seq, table, 10)
-    scores = torch.zeros(64, dtype=torch.int32, device=seq.device)
+    dm = torch.zeros((3, 5), dtype=torch.uint8, device=table.device)
     with pytest.raises((TypeError, ValueError)):
-        kernels.scan_compact(scores, seq, table, 10, 0, 0.0, 16)
+        kernels.scan_segment(seq, 10, dm, table, 0, 0.0, 16)

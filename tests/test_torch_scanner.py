@@ -19,6 +19,8 @@ from lightmotif_tpu_torch.ops import torch_ops
 from .data import PATTERNS, SEQUENCE
 from .torch_parity import (  # noqa: F401  (cpu_choice is a fixture)
     bits, cpu_choice, hit_keys, pssms, random_counts, random_ranks, sequences)
+from .torch_segments import CASES as SEGMENT_CASES
+from .torch_segments import best_of_hits, segment_inputs
 
 
 def _golden_pssms(pseudo=0.1):
@@ -122,20 +124,65 @@ def _segment_parity(port, jax_args, cap):
     """``torch_ops.scan_segment`` and ``kernels.scan_segment`` against
     ``xla_ops.scan_segment`` (``dense=True``) at ``cap``, bit for bit: the
     candidate count, the kept count and the kept hits (positions and f32
-    bits) in position order.  Returns the JAX counters."""
+    bits) in position order, and the best of the JAX package's kept hits
+    (the largest score, the larger position among equal ones).  Returns
+    the JAX counters."""
     counts, packed = xla_ops.scan_segment(*jax_args, cap, True)
     want = np.asarray(counts)
     n_kept = int(want[1])
     want_hits = np.asarray(packed)[:, :n_kept]
     for fn in (torch_ops.scan_segment, tkernels.scan_segment):
-        got_counts, got_packed = fn(*port, cap)
-        assert got_counts.dtype == got_packed.dtype == torch.int32
-        assert got_packed.shape == (2, cap)
+        got_counts, got_packed, got_best = fn(*port, cap)
+        assert got_counts.dtype == got_packed.dtype == got_best.dtype == torch.int32
+        assert got_packed.shape == (2, cap) and got_best.shape == (2,)
         assert got_counts.tolist() == [int(want[0]), n_kept, 1]
         assert np.array_equal(got_packed[:, :n_kept].numpy(), want_hits)
+        assert tuple(got_best.tolist()) == best_of_hits(*want_hits)
     hits = want_hits[0]
     assert np.array_equal(hits, np.sort(hits))
     return want
+
+
+def _jax_segment_args(data, dm, table, n_here, t_scaled, threshold):
+    """``xla_ops.scan_segment``'s inputs for the whole of ``data`` as one
+    segment (ranks as int8, padded with the wildcard)."""
+    k = dm.shape[1]
+    unit = jax_kernels.preferred_pad()
+    chunk_len = xla_ops.pad_length(n_here, unit) + unit
+    padded = np.full(max(chunk_len, data.shape[0]), k - 1, np.int8)
+    padded[: data.shape[0]] = data
+    return (padded, np.int32(0), np.int32(n_here), dm, table, np.int32(t_scaled),
+            np.float32(threshold), chunk_len)
+
+
+#: The segment cases the JAX package's int8 ranks hold, at most 60,000
+#: window starts each on the CPU, with ranks inside the alphabet (an
+#: encoded sequence holds no other; the card tests hold the kernel to its
+#: plain version on ranks >= K too).  Not "zeros": XLA on the CPU folds
+#: the JAX rescore's ``0.0 + x`` into ``x``, so a window of -0.0 cells
+#: scores -0.0 there, where the JAX source, the reference and the port
+#: add from +0.0 (the card tests hold the kernel's +0.0 to the plain one).
+JAX_SEGMENT_CASES = [c for c in SEGMENT_CASES if c[1] < 128 and c[5] != "zeros"]
+
+
+@pytest.mark.parametrize("name,k,m,length,ranks,kind,cap_kind", JAX_SEGMENT_CASES,
+                         ids=[c[0] for c in JAX_SEGMENT_CASES])
+def test_scan_segment_edges_match_jax(name, k, m, length, ranks, kind, cap_kind):
+    """The plain segment scan (and the wrapper on the CPU) against
+    ``xla_ops.scan_segment`` at the edges of the kernel's tiles and
+    capacity (``tests/torch_segments.py``): DNA and protein tables, m = 1
+    and m = 300, ragged lengths, no candidate, capacities of
+    1, below, at and above the count, on and inside a tile's candidates,
+    threshold -inf, wildcard runs; the best kept hit too."""
+    seq, dm, table, n, t_scaled, threshold, cap, count = segment_inputs(
+        k, m, min(length, 60_000), min(ranks, k), kind, cap_kind, seed=len(name) + m)
+    port = (torch.from_numpy(seq), n, torch.from_numpy(dm), torch.from_numpy(table), t_scaled,
+            threshold)
+    want = _segment_parity(port, _jax_segment_args(seq, dm, table, n, t_scaled, threshold),
+                           cap)
+    assert want[0] == count
+    if kind == "none":
+        assert want.tolist() == [0, 0, 1]
 
 
 @pytest.mark.parametrize(
@@ -184,6 +231,52 @@ def test_max_matches_jax(threshold, mode):
     if want is None:
         assert got is None
     else:
+        assert hit_keys([got]) == hit_keys([want])
+
+
+@pytest.mark.parametrize("cap_kind", ["above", "below"])
+@pytest.mark.parametrize("threshold", [-np.inf, -10.0, -5.0, "tie"])
+def test_segment_best_matches_jax_max(threshold, cap_kind):
+    """The segment scan's best kept hit (``torch_ops.scan_segment``'s
+    third output, at the f32 threshold -inf that ``max()`` keeps with)
+    against the JAX ``Scanner.max()``: ties go to the larger position
+    (``tie``: the best window planted twice).  At a capacity below the
+    candidate count, the best of the first ``cap`` candidates is the best
+    of the JAX segment scan's kept hits at that capacity, and the port's
+    ``Scanner.max()`` seeded at that capacity equals the JAX one's."""
+    jp, tp = _golden_pssms()
+    data = random_ranks(np.random.default_rng(9), 3000, 5, 5)
+    tie = threshold == "tie"
+    if tie:
+        site = np.argmax(tp.data[:, :4], axis=1).astype(np.uint8)
+        for start in (700, 2100):
+            data[start : start + len(site)] = site
+        threshold = 0.0
+    js, ts = sequences(data)
+    m = len(tp)
+    n = len(data) - m + 1
+    dm = np.asarray(tp.to_discrete().data, np.uint8)
+    table = np.asarray(tp.data, np.float32)
+    t_scaled = int(tp.to_discrete().scale(threshold))
+    count = int((torch_ops.score_u8(torch.from_numpy(data), torch.from_numpy(dm), n)[:n]
+                 >= t_scaled).sum())
+    assert count > 3
+    cap = 2 * count if cap_kind == "above" else max(count // 3, 1)
+    counts, _, best = torch_ops.scan_segment(torch.from_numpy(data), n, torch.from_numpy(dm),
+                                             torch.from_numpy(table), t_scaled, -np.inf, cap)
+    bits_pos = tuple(best.tolist())
+    if cap_kind == "above":
+        want = jlm.Scanner(jp, js, threshold=threshold).max()
+        assert bits_pos == (int(bits([want.score])[0].view(np.int32)), want.position)
+        assert want.position == 2100 or not tie
+    else:
+        jcounts, jpacked = xla_ops.scan_segment(
+            *_jax_segment_args(data, dm, table, n, t_scaled, -np.inf), cap, True)
+        n_kept = int(np.asarray(jcounts)[1])
+        assert int(counts[1]) == n_kept == cap
+        assert bits_pos == best_of_hits(*np.asarray(jpacked)[:, :n_kept])
+        got = tlm.Scanner(tp, ts, threshold=threshold, capacity=cap, device="cpu").max()
+        want = jlm.Scanner(jp, js, threshold=threshold, capacity=cap).max()
         assert hit_keys([got]) == hit_keys([want])
 
 
