@@ -21,7 +21,8 @@ Phases, one line of output each (any failure exits non-zero):
 2. build: ``nvcc`` compiles ``lightmotif_tpu_torch/ops/csrc/*.cu`` for
    ``sm_90a``, one process per source, all at once: first the production
    build (``score.cu``, ``scan.cu``, ``prefilter.cu``, ``phase_c.cu``, ``pairs.cu``),
-   then the probe build (``probes.cu``), each with its own seconds;
+   then the probe build (``probes.cu``, ``probe_gmma.cu``), each with its
+   own seconds;
 3. SASS: ``cuobjdump -sass`` of the prefilter library, the tensor-core
    instructions (``IMMA``) of every instantiation of the tensor-core
    prefilter, the production one and P9's bits form included (each must
@@ -31,7 +32,9 @@ Phases, one line of output each (any failure exits non-zero):
    contraction), K2's looks up with ``PRMT``; the pairs library and both
    forms of the segment kernel (``scan.cu``) add with ``FADD`` and have
    no ``FFMA``; the ``ptxas -v`` registers and spills of phase C's, the
-   pairs library's and the segment kernel's kernels;
+   pairs library's and the segment kernel's kernels; probe P6's kernels
+   (``probe_gmma.cu``) hold ``IGMMA`` (int8) or ``HGMMA`` (bf16) and no
+   ``IMMA`` or ``HMMA``, with their ``ptxas -v`` lines and warnings;
 4. K1 and K2 against their plain PyTorch versions on the card
    (``torch.equal``): DNA (through the production instantiations, and the
    generic one past K2's m = 257), protein, k = 7 and k = 256 tables,
@@ -189,9 +192,14 @@ Phases, one line of output each (any failure exits non-zero):
     kernel's device time;
 20. the prefilter probes (``lightmotif_tpu_torch.probes.prefilter``),
     each checked once against its plain version with its launches
-    counted from 0, then timed: P6, the tensor cores' u8 and bf16 rates
-    at the prefilter's operand shapes (2,048 lanes x depth 128 x 262,144
-    positions) as a share of the card's peak; P7, the lookup kernel the
+    counted from 0, then timed: P6, the tensor cores' int8 and bf16
+    rates on ``wgmma`` at the JAX probe's operand shapes (2,048 lanes x
+    3 x 128 deep x 262,144 positions, signed int8 cells) and at depth 128
+    as a share of the card's peak, with the plain version's and the
+    library's times (each form also held to the plain version on counts
+    of positions that are no multiple of the tile, launched again and
+    again);
+    P7, the lookup kernel the
     tensor-core prefilter replaced, at database group 0; P8 and P10, the
     tensor-core instantiations in each orientation at the bench shape
     (and at group 0);
@@ -286,14 +294,21 @@ PAIRS_REPLACES = "lightmotif_tpu/ops/multi.py:975"
 SEGMENT_SOURCE = "lightmotif_tpu_torch/ops/csrc/scan.cu"
 SEGMENT_REPLACES = "lightmotif_tpu/ops/xla_ops.py:291"
 PROBE_SOURCE = "lightmotif_tpu_torch/ops/csrc/probes.cu"
+P6_SOURCE = "lightmotif_tpu_torch/ops/csrc/probe_gmma.cu"
 P6_REPLACES = "experiments/int8_probe.py:54"
 P7_REPLACES = "experiments/int8_probe2.py:98"
 P8_REPLACES = "experiments/multi_opt.py:106"
 P10_REPLACES = "experiments/multi_opt2.py:95"
 P9_REPLACES = "experiments/multi_opt.py:193"
 
-#: P6's positions: 256 tiles of 1,024 (the JAX probe's tile)
+#: P6's positions: 256 tiles of 1,024 (the JAX probe's tile); counts that
+#: are no multiple of the kernel's 128-position tile (fewer tiles than SMs,
+#: and more), each launched P6_REPEATS times: a race between the TMA ring
+#: and its consumers once gave wrong sums at a few positions in some
+#: launches only
 P6_POSITIONS = 1024 * 256
+P6_RAGGED = (130, 5000, 1000 * 128 + 77)
+P6_REPEATS = 20
 
 DB_MOTIFS = 2346  # JASPAR2024 CORE, as tests/test_io.py pins it
 DB_SEED = 0x1A5BA2
@@ -435,8 +450,8 @@ def phase_card() -> None:
 
 def phase_build() -> None:
     """The production build (``score.cu``, ``prefilter.cu``: what a scan
-    waits for), then the probe build (``probes.cu`` added), each with its
-    own nvcc seconds."""
+    waits for), then the probe build (``probes.cu`` and ``probe_gmma.cu``
+    added), each with its own nvcc seconds."""
     from lightmotif_tpu_torch.ops import build
 
     for what, probes, load in (("production", False, build.library),
@@ -545,6 +560,39 @@ def scan_sass() -> None:
         ptxas=" | ".join(ptxas_lines(build.build_info()["log"], ("scan_kernel",))))
 
 
+def p6_sass() -> None:
+    """Probe P6's kernels (``probe_gmma.cu``, one per form and depth): the
+    int8 ones hold ``IGMMA``, the bf16 ones ``HGMMA``, none
+    ``IMMA`` or ``HMMA``; their ``ptxas -v`` lines (registers, spills) and
+    whatever ptxas says of ``wgmma`` or ``setmaxnreg`` (a serialised MMA, an
+    ignored register count)."""
+    import re
+
+    from lightmotif_tpu_torch.ops import build
+
+    info = build.build_info(probes=True)
+    lib = next(p for p in info["paths"] if p.name.startswith("liblm-probe_gmma-"))
+    counts = {}
+    for name, ops in sass_opcodes(lib).items():
+        form = re.search(r"gmma_kernelILb(\d)ELi(\d)E", name)
+        if not form:
+            continue
+        bf16, slabs = (int(g) for g in form.groups())
+        what = f"{'bf16' if bf16 else 'int8'}_blocks{slabs // (1 + bf16)}"
+        n = {op: ops.count(op) for op in ("IGMMA", "HGMMA", "IMMA", "HMMA")}
+        want, other = ("HGMMA", "IGMMA") if bf16 else ("IGMMA", "HGMMA")
+        if n[want] < 1 or n[other] or n["IMMA"] or n["HMMA"]:
+            raise SystemExit(f"sass: P6's kernel {what} holds {n}")
+        counts[what] = f"{want} {n[want]}"
+    if len(counts) != 2 * 2:
+        raise SystemExit(f"sass: P6's kernels {sorted(counts)}, want 2 forms x 2 depths")
+    notes = sorted({line.strip() for line in info["log"].splitlines()
+                    if ("wgmma" in line or "setmaxnreg" in line) and "ptxas" in line})
+    log("sass", library=lib.name, p6=counts, imma_hmma=0,
+        ptxas=" | ".join(ptxas_lines(info["log"], ("gmma_kernel",))),
+        ptxas_notes=" | ".join(notes) or "none")
+
+
 def phase_sass() -> int:
     """The prefilter library's SASS: every tensor-core instantiation, the
     production one and P9's bits form included, must hold tensor-core
@@ -605,6 +653,7 @@ def phase_sass() -> int:
         ptxas=" | ".join(ptxas_lines(log_text, ("row_offsets", "keep_pairs"))))
 
     scan_sass()
+    p6_sass()
 
     lib = next(p for p in build.build_info()["paths"] if "score" in p.name)
     ops = sass_opcodes(lib)
@@ -1876,7 +1925,7 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
     p = 1e-5, equal to the main path's Scanner hits through K2.  Then
     ``python -m lightmotif_tpu_torch.cli`` in subprocesses, database x
     genome, cold (a fresh build directory: nvcc and the packing) and warm
-    (the same directory): the cold build must not compile ``probes.cu``,
+    (the same directory): the cold build must not compile a probe source,
     neither process may import JAX, and each TSV equals the in-process one."""
     import os
     import shutil
@@ -2008,8 +2057,8 @@ def phase_cli(pssm, seq, ms, counts, records, batch_hits, scanner_hits, brute) -
             run = cli_subprocess(["-m", db_file, "--format", "jaspar16", "-s", genome_fa,
                                   "-o", out, "-P", str(DB_PVALUE), "--reverse"], cache, what)
             built = sorted(os.listdir(cache))
-            if any(name.startswith("liblm-probes") for name in built):
-                raise SystemExit(f"cli {what}: the build compiled probes.cu: {built}")
+            if any(name.startswith("liblm-probe") for name in built):
+                raise SystemExit(f"cli {what}: the build compiled a probe source: {built}")
             if open(out).read() != genome_tsv:
                 raise SystemExit(f"cli {what}: TSV != the in-process run's")
             log("cli", run=f"python -m lightmotif_tpu_torch.cli, database x genome, {what}",
@@ -3838,7 +3887,9 @@ def phase_parent(root: str, one_pssm: bool = False) -> None:
     instructions (``IMMA``) of every instantiation of the prefilter and
     of phase C equal, the pairs library's ``FADD`` and ``FFMA`` counts
     equal, the ``ptxas -v`` lines of both; the parent's K2 + C3 beside
-    this tree's segment kernel in turns (:func:`time_parent_segment`); then
+    this tree's segment kernel in turns (:func:`time_parent_segment`), and
+    its ``mma.sync`` P6 beside this tree's (:func:`time_parent_p6`), each
+    where the parent still has it; then
     the steady walls of both checkouts (:func:`parent_walls`), each in
     processes of its own, in turns (parent, change, change, parent): the
     database's ``scan_arrays``, 8 shards on one card, and 1..N cards, and
@@ -3850,9 +3901,16 @@ def phase_parent(root: str, one_pssm: bool = False) -> None:
 
     if not one_pssm:
         parent_sass(root)
-        pssm, seq = build_inputs()
-        time_parent_segment(ParentScan(root), segment_shapes(pssm, seq, chromosome()))
-        settle()
+        if parent_defines(root, "probes.cu", "lm_probe_mma_u8"):
+            time_parent_p6(root)
+        else:
+            log("parent", probe="P6", skipped="the parent's probes.cu has no mma.sync P6")
+        if parent_defines(root, "scan.cu", "lm_scan_compact"):
+            pssm, seq = build_inputs()
+            time_parent_segment(ParentScan(root), segment_shapes(pssm, seq, chromosome()))
+            settle()
+        else:
+            log("parent_segment", skipped="the parent's scan.cu has no K2 + C3 scan")
     caches = {who: tempfile.mkdtemp(prefix=f"chip-smoke-{who}-") for who in ("parent", "change")}
     here_root = os.path.dirname(os.path.abspath(__file__))
     walls = functools.partial(parent_walls, one_pssm=one_pssm)
@@ -4025,7 +4083,8 @@ def phase_batch_times(pssm, records, br, mbs) -> None:
 def phase_probes(ms, seq, times) -> dict:
     """P6, P7, P8 and P10 (``lightmotif_tpu_torch.probes.prefilter``): each
     probe kernel checked once against its plain version (``torch.equal``)
-    with its launches counted from 0 around that check, then timed.  P7
+    with its launches counted from 0 around that check, then timed
+    (P6: :func:`phase_p6`, its entries at the JAX probe's shape).  P7
     runs at database group 0 (K3's shape), P8 and P10 at K4's bench shape,
     whose bound, plain and library times (measured earlier in this run on
     the same inputs) they share; P8 and P10 also sweep group 0.  Returns
@@ -4036,7 +4095,6 @@ def phase_probes(ms, seq, times) -> dict:
     n_valid = np.maximum(ms._dseq.length - ms.lengths + 1, 0)
     chunk = ms._dseq.data[: int(n_valid[group["ids"]].max()) + group["m_max"] - 1]
     data, table, m = bench_k4_inputs(seq)
-    filt, x = (torch.from_numpy(a).to(DEVICE) for a in probes.mma_inputs(P6_POSITIONS))
 
     def checked(what, fn, want):
         probes.reset_launches()
@@ -4049,11 +4107,7 @@ def phase_probes(ms, seq, times) -> dict:
 
     from lightmotif_tpu_torch.ops import torch_ops
 
-    launches = {}
-    want = probes.mma_max_plain(filt, x)
-    for kind in ("u8", "bf16"):
-        launches[f"probe_mma_{kind}"] = checked(
-            f"P6 {kind}", lambda: probes.mma_max(filt, x, kind), want)[f"probe_mma_{kind}"]
+    launches, p6 = phase_p6()
     table7 = probes.lookup_table(group["k3"][0])
     launches["prefilter_lookup"] = checked(
         "P7", lambda: probes.prefilter_lookup(chunk, table7, *group["k3"][1:]),
@@ -4068,9 +4122,6 @@ def phase_probes(ms, seq, times) -> dict:
                                       want)["prefilter_variant"]
         launches[f"prefilter_variant_{orient}"] = n_launched
 
-    p6 = probes.run_p6(filt, x)
-    for row in p6:
-        log("probes", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in row.items()})
     p7 = probes.run_p7(chunk, *group["k3"])
     log("probes", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in p7.items()})
     sweeps = {}
@@ -4087,7 +4138,7 @@ def phase_probes(ms, seq, times) -> dict:
     k4, k3 = times["prefilter_any"], times["prefilter_any8"]
     out = {}
     for row in p6:
-        out[row["name"]] = {"source": PROBE_SOURCE, "replaces": P6_REPLACES,
+        out[row["name"]] = {"source": P6_SOURCE, "replaces": P6_REPLACES,
                             "launches": launches[row["name"]], "max_abs_err": 0.0,
                             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                                          "bound_by", "library_ms")}}
@@ -4103,6 +4154,121 @@ def phase_probes(ms, seq, times) -> dict:
         best_m=f"variant {sweeps['m']['variant']} {sweeps['m']['ms']:.4f} ms",
         best_n=f"variant {sweeps['n']['variant']} {sweeps['n']['ms']:.4f} ms")
     return out
+
+
+def phase_p6() -> tuple:
+    """P6 (``probes.prefilter.mma_max``, ``probe_gmma.cu``) at the JAX
+    probe's shape (2,048 lanes x 3 x 128 deep x 262,144 positions, its
+    signed draw) and at depth 1 (one block of 128): each form held to the
+    plain version (``torch.equal``) at the full count of positions, with
+    its launches counted from 0 around that check, then on each count of
+    :data:`P6_RAGGED`, :data:`P6_REPEATS` launches each (it fails on any
+    wrong position and logs how many launches and positions were wrong);
+    then timed (``run_p6``: rate and share of the peak, the L2 rate it
+    asks, bound, plain and library times).  Returns the launches of each
+    form's check at the JAX shape and its ``run_p6`` row there."""
+    from lightmotif_tpu_torch.probes import prefilter as probes
+
+    launches, rows = {}, {}
+    for blocks in (probes.P6_BLOCKS, 1):
+        filt, x = (torch.from_numpy(a).to(DEVICE)
+                   for a in probes.mma_inputs(P6_POSITIONS, blocks=blocks))
+        want = probes.mma_max_plain(filt, x)
+        for kind in probes.P6_DTYPES:
+            f, xk = probes.mma_operands(filt, x, kind)
+            probes.reset_launches()
+            got = probes.mma_max(f, xk, kind)
+            torch.cuda.synchronize()
+            name = f"probe_mma_{kind}"
+            if blocks == probes.P6_BLOCKS:
+                launches[name] = probes.LAUNCHES[name]
+            bad_launches = bad_positions = int(not torch.equal(got, want))
+            bad_positions *= int((got != want).sum())
+            for n in P6_RAGGED:
+                for _ in range(P6_REPEATS):
+                    wrong = int((probes.mma_max(f, xk[:n], kind) != want[:n]).sum())
+                    bad_launches += wrong > 0
+                    bad_positions += wrong
+            log("probes", probe="P6", name=name, blocks=blocks, positions=P6_POSITIONS,
+                ragged=list(P6_RAGGED), repeats=P6_REPEATS,
+                launches_checked=1 + len(P6_RAGGED) * P6_REPEATS, bad_launches=bad_launches,
+                bad_positions=bad_positions, maximum=int(want.max()), minimum=int(want.min()))
+            if bad_launches:
+                raise SystemExit(f"P6 {kind} at {blocks} blocks: kernel != plain at "
+                                 f"{bad_positions} positions in {bad_launches} launches")
+        for row in probes.run_p6(filt, x):
+            log("probes", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                             for k, v in row.items()})
+            if blocks == probes.P6_BLOCKS:
+                rows[row["name"]] = row
+        del filt, x, want
+    return launches, list(rows.values())
+
+
+def parent_defines(root: str, source: str, symbol: str) -> bool:
+    """Whether the parent checkout at ``root`` has ``symbol`` in its
+    ``lightmotif_tpu_torch/ops/csrc/<source>``: an entry point that a
+    comparison in turns calls and that a later tree may have removed."""
+    import pathlib
+
+    path = pathlib.Path(root, "lightmotif_tpu_torch", "ops", "csrc", source)
+    return path.is_file() and symbol in path.read_text()
+
+
+def time_parent_p6(root: str) -> None:
+    """P6 at depth 128 beside the parent checkout's ``mma.sync`` forms
+    (``lm_probe_mma_u8`` and ``lm_probe_mma_bf16`` of its ``probes.cu``,
+    built from ``root`` and loaded with ctypes), on the parent's own
+    inputs (filter cells 0-127, which int8 holds too, 0/1 windows; 2,048 x
+    128 x 262,144): both held to the plain version, then timed in turns
+    (parent, change, change, parent)."""
+    import ctypes
+    import shutil
+
+    from lightmotif_tpu_torch.probes import prefilter as probes
+
+    parent = ParentBuild(root, ("probes",))
+    lib = ctypes.CDLL(parent.paths["probes"])
+    rng = np.random.default_rng(0)
+    filt = torch.from_numpy(rng.integers(0, 128, (2048, 128)).astype(np.uint8)).to(DEVICE)
+    x = torch.from_numpy(rng.integers(0, 2, (P6_POSITIONS, 128)).astype(np.uint8)).to(DEVICE)
+    want = probes.mma_max_plain(filt, x)
+    out = torch.empty(P6_POSITIONS, dtype=torch.int32, device=DEVICE)
+    for kind, old in (("int8", "u8"), ("bf16", "bf16")):
+        fn = getattr(lib, f"lm_probe_mma_{old}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        pf, px = (filt, x) if kind == "int8" else (filt.to(torch.bfloat16),
+                                                   x.to(torch.bfloat16))
+        cf, cx = (pf.view(torch.int8), px.view(torch.int8)) if kind == "int8" else (pf, px)
+
+        def run_parent():
+            err = fn(pf.data_ptr(), px.data_ptr(), P6_POSITIONS, out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"parent: lm_probe_mma_{old} failed: CUDA error {err}")
+            return out
+
+        def run_change():
+            return probes.mma_max(cf, cx, kind)
+
+        for who, fn_ in (("parent", run_parent), ("change", run_change)):
+            got = fn_()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"parent: P6 {kind} of the {who} != plain")
+        runs = [probes.time_cuda(f_, repeat=5)
+                for f_ in (run_parent, run_change, run_change, run_parent)]
+        ops = 2.0 * 2048 * 128 * P6_POSITIONS
+        parent_ms, ms = min(runs[0], runs[3]), min(runs[1], runs[2])
+        log("parent", probe="P6", form=kind, parent_form=f"{old} mma.sync", depth=128,
+            positions=P6_POSITIONS, equal=True, parent_ms=f"{parent_ms:.4f}", ms=f"{ms:.4f}",
+            speedup=f"{parent_ms / ms:.3f}",
+            tops=f"{ops / ms / 1e9:.2f}", parent_tops=f"{ops / parent_ms / 1e9:.2f}",
+            runs="p:{:.4f},{:.4f}/c:{:.4f},{:.4f}".format(runs[0], runs[3], runs[1], runs[2]))
+    del filt, x, want, out
+    shutil.rmtree(parent.dir, ignore_errors=True)
 
 
 def checked_launches(checks) -> int:

@@ -12,9 +12,9 @@ so a changed source is rebuilt and an unchanged one is loaded as it is.
 Production and probes are built apart.  :func:`library` builds and loads
 ``score.cu``, ``scan.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu`` and asks
 only for the entry points the production wrappers call
-(:data:`PRODUCTION_SYMBOLS`); :func:`probe_library`
-adds ``probes.cu`` and the probes' entry points (:data:`PROBE_SYMBOLS`).  A
-scan never waits for, or depends on, the probe code.
+(:data:`PRODUCTION_SYMBOLS`); :func:`probe_library` adds ``probes.cu``,
+``probe_gmma.cu`` and the probes' entry points (:data:`PROBE_SYMBOLS`).
+A scan never waits for, or depends on, the probe code.
 
 The build directory is resolved once per process (:func:`build_dir`) from
 ``LIGHTMOTIF_TPU_COMPILE_CACHE``, the variable of the JAX package's
@@ -69,7 +69,7 @@ ENV = "LIGHTMOTIF_TPU_COMPILE_CACHE"
 
 #: The sources of the production entry points, and those of the probes.
 PRODUCTION_SOURCES = ("score.cu", "scan.cu", "prefilter.cu", "phase_c.cu", "pairs.cu")
-PROBE_SOURCES = ("probes.cu",)
+PROBE_SOURCES = ("probes.cu", "probe_gmma.cu")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -115,7 +115,7 @@ PRODUCTION_SYMBOLS = {
 
 #: ``name: (argtypes, restype)`` of the probes' C functions: the
 #: instantiation tables and variant entry points of ``score.cu`` and
-#: ``prefilter.cu``, and everything of ``probes.cu``.
+#: ``prefilter.cu``, and everything of ``probes.cu`` and ``probe_gmma.cu``.
 PROBE_SYMBOLS = {
     "lm_score_variants": ([], _INT),
     "lm_score_production": ([_INT], _INT),
@@ -131,10 +131,8 @@ PROBE_SYMBOLS = {
         [_P, _I64, _P, _P, _P, _INT, _INT, _INT, _P, _P], _INT),
     "lm_prefilter_bits": (
         [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P, _P], _INT),
-    "lm_probe_lanes": ([], _INT),
-    "lm_probe_depth": ([], _INT),
-    "lm_probe_mma_u8": ([_P, _P, _INT, _P, _P], _INT),
-    "lm_probe_mma_bf16": ([_P, _P, _INT, _P, _P], _INT),
+    "lm_probe_gmma_shape": ([_INT], _INT),
+    "lm_probe_gmma": ([_INT, _P, _P, _INT, _INT, _P, _P], _INT),
     "lm_probe_diag_modes": ([], _INT),
     "lm_probe_diag_smem": ([_INT, _INT], _I64),
     "lm_probe_score_diag": ([_INT, _P, _I64, _P, _INT, _INT, _I64, _P, _P], _INT),
@@ -284,7 +282,8 @@ def _build(names) -> dict:
 def build_info(probes: bool = False) -> dict:
     """Compile the libraries that are not up to date, all at once:
     ``score.cu``, ``scan.cu``, ``prefilter.cu``, ``phase_c.cu`` and ``pairs.cu``, and
-    ``probes.cu`` with ``probes``.  Returns ``paths`` (one library per source), ``compiled`` (the ones
+    ``probes.cu`` and ``probe_gmma.cu`` with ``probes``.  Returns ``paths``
+    (one library per source), ``compiled`` (the ones
     this call built), ``seconds`` (wall time of the build, 0.0 when
     every library was found) and the compilers' ``log`` (``ptxas -v``
     lines included).  Each form is built once per process."""
@@ -327,6 +326,6 @@ def library() -> SimpleNamespace:
 
 def probe_library() -> SimpleNamespace:
     """The production and the probes' entry points (:data:`PROBE_SYMBOLS`),
-    ``probes.cu`` included."""
+    ``probes.cu`` and ``probe_gmma.cu`` included."""
     lib = _LIBS.get(True)
     return lib if lib is not None else _load(True)

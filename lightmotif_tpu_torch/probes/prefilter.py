@@ -6,11 +6,13 @@ Counterparts of the JAX package's Pallas probes of its prefilter, each a
 kernel in ``ops/csrc/`` with a plain version, checked with
 ``torch.equal`` and timed with CUDA events:
 
-* **P6** (``experiments/int8_probe.py:54``): the tensor cores' u8 and
+* **P6** (``experiments/int8_probe.py:54``): the tensor cores' int8 and
   bf16 rates at the prefilter's operand shapes, ``max over 2,048 lanes
-  of filt[l] . x[p]`` at depth 128 (``csrc/probes.cu``), each as a share
-  of the card's int8 or bf16 peak.  Plain version: an f32 matmul of the
-  same small integers, which is exact.
+  of filt[l] . x[p]`` over the JAX probe's three contraction blocks of
+  128 (signed int8 cells, 0/1 windows), on ``wgmma`` fed by TMA
+  (``csrc/probe_gmma.cu``), each as a share of the card's int8 or bf16
+  peak; one block is the earlier ``mma.sync`` probe's depth.  Plain
+  version: an f32 matmul of the same small integers, which is exact.
 * **P7** (``experiments/int8_probe2.py:98``): the tensor-core prefilter
   against the lookup kernel it replaced (``lookup_kernel`` in
   ``csrc/prefilter.cu``), parity and time, at a database group's shape.
@@ -53,6 +55,7 @@ __all__ = [
     "VARIANTS",
     "reset_launches",
     "mma_inputs",
+    "mma_operands",
     "mma_max",
     "mma_max_plain",
     "lookup_table",
@@ -68,7 +71,7 @@ __all__ = [
 ]
 
 #: Kernel launches of each probe wrapper since :func:`reset_launches`.
-LAUNCHES = {"probe_mma_u8": 0, "probe_mma_bf16": 0, "prefilter_lookup": 0,
+LAUNCHES = {"probe_mma_int8": 0, "probe_mma_bf16": 0, "prefilter_lookup": 0,
             "prefilter_variant": 0, "prefilter_bits": 0}
 
 #: The tensor-core kernel's instantiations, in the order of ``LM_VARIANTS``
@@ -79,14 +82,18 @@ VARIANTS = [("m", 1, 32, 8), ("m", 1, 64, 8), ("m", 1, 128, 8), ("m", 1, 64, 16)
             ("m", 2, 64, 8), ("n", 1, 32, 8), ("n", 1, 64, 8), ("n", 1, 128, 8),
             ("n", 1, 64, 16), ("n", 2, 64, 8)]
 
-#: P6's operand shapes: filters of 2,048 lanes at depth 128 (the JAX probe's
-#: ``M`` and one contraction block), by 1,024-position tiles.
+#: P6's operand shapes, the JAX probe's: filters of 2,048 lanes (``M``),
+#: contraction blocks of 128, ``BLOCKS = 3`` of them, 1,024-position tiles.
 P6_LANES = 2048
-P6_DEPTH = 128
+P6_BLOCK = 128
+P6_BLOCKS = 3
 P6_TILE = 1024
 
+#: P6's forms and their operands' dtype.
+P6_DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16}
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
-PEAK_OPS_PER_S = {"u8": 1979e12, "bf16": 989e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
 
 
 def reset_launches() -> None:
@@ -111,20 +118,33 @@ def _stream(t):
 # -- P6 -----------------------------------------------------------------------
 
 
-def mma_inputs(n_pos: int, seed: int = 0):
-    """P6's operands, numpy: ``filt`` uint8 ``[2048, 128]`` (cells 0-127,
-    which int8 holds too) and ``x`` uint8 ``[n_pos, 128]`` (random 0/1, as
-    the JAX probe draws them)."""
+def mma_inputs(n_pos: int, seed: int = 0, blocks: int = P6_BLOCKS):
+    """P6's operands, numpy, drawn as ``experiments/int8_probe.py`` draws
+    them (``main``, with its tile of ``n_pos`` positions and ``blocks``
+    blocks of 128): ``filt`` int8 ``[2048, 128 * blocks]`` from
+    ``integers(-100, 100)`` and ``x`` int8 ``[n_pos, 128 * blocks]`` from
+    {0, 1}, K-major: the transposes of the JAX probe's ``[depth, M]`` and
+    ``[depth, tile]``."""
     rng = np.random.default_rng(seed)
-    filt = rng.integers(0, 128, size=(P6_LANES, P6_DEPTH)).astype(np.uint8)
-    x = rng.integers(0, 2, size=(n_pos, P6_DEPTH)).astype(np.uint8)
-    return filt, x
+    depth = P6_BLOCK * blocks
+    fb = rng.integers(-100, 100, (depth, P6_LANES))
+    xb = rng.integers(0, 2, (depth, n_pos))
+    return (np.ascontiguousarray(fb.T.astype(np.int8)),
+            np.ascontiguousarray(xb.T.astype(np.int8)))
+
+
+def mma_operands(filt: torch.Tensor, x: torch.Tensor, kind: str):
+    """``filt`` and ``x`` (int8) in the dtype of P6's form ``kind``: int8
+    as they are, or the same integers as bf16 (exact)."""
+    if kind not in P6_DTYPES:
+        raise ValueError(f"kind must be one of {tuple(P6_DTYPES)}, got {kind!r}")
+    return filt.to(P6_DTYPES[kind]), x.to(P6_DTYPES[kind])
 
 
 def mma_max_plain(filt: torch.Tensor, x: torch.Tensor, block: int = 1 << 16) -> torch.Tensor:
     """``max_l sum_d filt[l, d] * x[p, d]`` as int32 ``[n_pos]``: an f32
-    matmul (TF32 off), exact because every sum is an integer below
-    ``2**24``."""
+    matmul (TF32 off) of the int8 or bf16 cells, exact because every sum
+    is an integer of magnitude below ``2**24``."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -138,35 +158,44 @@ def mma_max_plain(filt: torch.Tensor, x: torch.Tensor, block: int = 1 << 16) -> 
     return out
 
 
-def mma_max(filt: torch.Tensor, x: torch.Tensor, kind: str = "u8") -> torch.Tensor:
+def mma_max(filt: torch.Tensor, x: torch.Tensor, kind: str = "int8") -> torch.Tensor:
     """P6: ``max_l sum_d filt[l, d] * x[p, d]`` as int32 ``[n_pos]`` on the
-    tensor cores, u8 x u8 -> s32 (``kind="u8"``) or bf16 x bf16 -> f32
-    (``"bf16"``, the same integers as bf16).  ``filt``: uint8 ``[2048,
-    128]``; ``x``: uint8 ``[n_pos, 128]``."""
+    tensor cores' ``wgmma`` (``csrc/probe_gmma.cu``), s8 x s8 -> s32
+    (``kind="int8"``) or bf16 x bf16 -> f32 (``"bf16"``, its max converted
+    to int32).  ``filt``: ``[lanes, 128 * blocks]`` and ``x``: ``[n_pos,
+    128 * blocks]``, both int8 or both bf16 as ``kind`` says (see
+    :func:`mma_operands`), ``blocks`` 3 (the JAX probe's depth) or 1 (the
+    earlier ``mma.sync`` probe's).  The plain version takes any number of
+    lanes; the kernel takes P6's 2,048 and raises on others."""
     from ..ops import build
 
-    if kind not in ("u8", "bf16"):
-        raise ValueError(f"kind must be 'u8' or 'bf16', got {kind!r}")
-    if filt.dtype != torch.uint8 or tuple(filt.shape) != (P6_LANES, P6_DEPTH):
-        raise TypeError(f"filt must be uint8 [{P6_LANES}, {P6_DEPTH}], got "
-                        f"{filt.dtype} {tuple(filt.shape)}")
-    if x.dtype != torch.uint8 or x.dim() != 2 or x.shape[1] != P6_DEPTH:
-        raise TypeError(f"x must be uint8 [n, {P6_DEPTH}], got {x.dtype} {tuple(x.shape)}")
+    if kind not in P6_DTYPES:
+        raise ValueError(f"kind must be one of {tuple(P6_DTYPES)}, got {kind!r}")
+    dtype = P6_DTYPES[kind]
+    depth = filt.shape[1] if filt.dim() == 2 else -1
+    if (filt.dtype != dtype or filt.dim() != 2 or filt.shape[0] < 1 or depth % P6_BLOCK
+            or depth // P6_BLOCK not in (1, P6_BLOCKS)):
+        raise TypeError(f"filt must be {dtype} [lanes, 128 * blocks] with 1 or "
+                        f"{P6_BLOCKS} blocks, got {filt.dtype} {tuple(filt.shape)}")
+    if x.dtype != dtype or x.dim() != 2 or x.shape[1] != depth:
+        raise TypeError(f"x must be {dtype} [n, {depth}], got {x.dtype} {tuple(x.shape)}")
     if _device_kind(filt, x) == "cpu":
         return mma_max_plain(filt, x)
-    if not (filt.is_contiguous() and x.is_contiguous()):
-        raise ValueError("mma_max takes contiguous tensors")
+    if filt.shape[0] != P6_LANES:
+        raise ValueError(f"the P6 kernel takes {P6_LANES} lanes, got {filt.shape[0]}")
+    if not (filt.is_contiguous() and x.is_contiguous()) or (filt.data_ptr() | x.data_ptr()) % 16:
+        raise ValueError("mma_max takes contiguous tensors on 16-byte boundaries")
     lib = build.probe_library()
-    if (lib.lm_probe_lanes(), lib.lm_probe_depth()) != (P6_LANES, P6_DEPTH):
-        raise RuntimeError("csrc/probes.cu and the P6 shapes disagree")
-    if kind == "bf16":
-        filt, x = filt.to(torch.bfloat16), x.to(torch.bfloat16)
+    if [lib.lm_probe_gmma_shape(f) for f in range(3)] != [P6_LANES, P6_BLOCK, P6_BLOCKS]:
+        raise RuntimeError("csrc/probe_gmma.cu and the P6 shapes disagree")
     out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    if x.shape[0] == 0:
+        return out
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"lm_probe_mma_{kind}")(
-            filt.data_ptr(), x.data_ptr(), x.shape[0], out.data_ptr(), _stream(x))
+        err = lib.lm_probe_gmma(int(kind == "bf16"), filt.data_ptr(), x.data_ptr(), x.shape[0],
+                                depth // P6_BLOCK, out.data_ptr(), _stream(x))
     if err != 0:
-        raise RuntimeError(f"probe_mma_{kind} launch failed: CUDA error {err}")
+        raise RuntimeError(f"probe_mma_{kind} launch failed: error {err}")
     LAUNCHES[f"probe_mma_{kind}"] += 1
     return out
 
@@ -346,42 +375,71 @@ def _equal(got, want, what: str) -> None:
                              f"{got[bad].item()} vs {want[bad].item()}")
 
 
-def run_p6(filt: torch.Tensor, x: torch.Tensor) -> list:
-    """P6 on the card: each form equal to the plain version, its time,
-    rate and share of its peak, the plain version's time and a bf16
-    ``torch.matmul`` + ``amax`` as the library yardstick."""
-    n_pos = x.shape[0]
-    ops = 2.0 * P6_LANES * P6_DEPTH * n_pos
-    nbytes = filt.numel() + x.numel() + 4 * n_pos
-    want = mma_max_plain(filt, x)
-    plain_ms = time_cuda(lambda: mma_max_plain(filt, x), runs=3)
-    # the library yardstick: cuBLASLt's int8 product (torch._int_mm, cells
-    # below 128) and amax; None where this torch has no such call
-    fs, xs = filt.view(torch.int8), x.view(torch.int8)
+def _p6_library(f: torch.Tensor, x: torch.Tensor, kind: str, want: torch.Tensor):
+    """The library yardstick of P6's form ``kind``: one PyTorch product of
+    the same operands with exact sums, then ``amax`` -- int8
+    ``torch._int_mm`` (cuBLASLt, s32 sums), bf16 ``torch.mm(...,
+    out_dtype=torch.float32)`` (f32 sums) -- in blocks of 65,536 positions.
+    Returns ``(ms, what)``, or ``(None, why)`` where this torch has no such
+    call or its result is not P6's."""
+    block = 1 << 16
+    if kind == "int8":
+        what = "torch._int_mm + amax"
+
+        def product(xb):
+            return torch._int_mm(xb, f.T)
+    else:
+        what = "torch.mm(out_dtype=torch.float32) + amax"
+
+        def product(xb):
+            return torch.mm(xb, f.T, out_dtype=torch.float32)
 
     def library():
-        block = 1 << 16
-        return torch.cat([torch._int_mm(xs[p0:p0 + block], fs.T).amax(dim=1)
-                          for p0 in range(0, n_pos, block)]).to(torch.int32)
+        return torch.cat([product(x[p0:p0 + block]).amax(dim=1)
+                          for p0 in range(0, x.shape[0], block)]).to(torch.int32)
 
     try:
-        _equal(library(), want, "P6 library (torch._int_mm + amax)")
-        library_ms = time_cuda(library, runs=3)
-    except (RuntimeError, AttributeError):
-        library_ms = None
+        got = library()
+        torch.cuda.synchronize()
+        _equal(got, want, f"P6 library ({what})")
+    except (RuntimeError, TypeError, AttributeError, AssertionError) as e:
+        return None, f"{what}: {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return time_cuda(library, runs=3), what
+
+
+def run_p6(filt: torch.Tensor, x: torch.Tensor) -> list:
+    """P6 on the card at the depth of its int8 operands (``filt``
+    ``[2048, 128 * blocks]``, ``x`` ``[n_pos, 128 * blocks]``, as
+    :func:`mma_inputs` draws them), one row per form: equal to the plain
+    version; its time, rate and share of the form's peak; ``l2_tb_per_s``,
+    the rate that asks of L2 (every tile of 128 positions streams all of
+    ``filt``); its bound (operations over the peak, or each operand read
+    once and the output written once over 3.35 TB/s), the plain version's
+    time and the library yardstick (:func:`_p6_library`).  The bf16
+    operands are made before any timing."""
+    n_pos, depth = x.shape
+    ops = 2.0 * filt.shape[0] * depth * n_pos
+    tiles = -(-n_pos // 128)
+    want = mma_max_plain(filt, x)
+    plain_ms = time_cuda(lambda: mma_max_plain(filt, x), runs=3)
     out = []
-    for kind in ("u8", "bf16"):
-        got = mma_max(filt, x, kind)
+    for kind in P6_DTYPES:
+        f, xk = mma_operands(filt, x, kind)
+        nbytes = (f.numel() + xk.numel()) * f.element_size() + 4 * n_pos
+        got = mma_max(f, xk, kind)
         torch.cuda.synchronize()
         _equal(got, want, f"P6 {kind}")
-        ms = time_cuda(lambda: mma_max(filt, x, kind), repeat=5)
+        ms = time_cuda(lambda: mma_max(f, xk, kind), repeat=5)
+        library_ms, library = _p6_library(f, xk, kind, want)
         peak = PEAK_OPS_PER_S[kind]
         out.append({"probe": "P6", "name": f"probe_mma_{kind}", "equal": True,
-                    "positions": n_pos, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "tops": ops / ms / 1e9,
+                    "positions": n_pos, "blocks": depth // P6_BLOCK,
+                    "ms": ms, "tops": ops / ms / 1e9,
                     "share_of_peak": ops / (ms * 1e-3) / peak,
+                    "l2_tb_per_s": f.numel() * f.element_size() * tiles / (ms * 1e-3) / 1e12,
                     "bound_ms": max(ops / peak, nbytes / 3.35e12) * 1e3,
-                    "bound_by": "operations" if ops / peak >= nbytes / 3.35e12 else "bytes"})
+                    "bound_by": "operations" if ops / peak >= nbytes / 3.35e12 else "bytes",
+                    "plain_ms": plain_ms, "library_ms": library_ms, "library": library})
     return out
 
 
@@ -492,9 +550,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
-    filt, x = (torch.from_numpy(a).to(device) for a in mma_inputs(P6_TILE * 256))
-    for row in run_p6(filt, x):
-        print(json.dumps(row), flush=True)
+    for blocks in (P6_BLOCKS, 1):
+        filt, x = (torch.from_numpy(a).to(device)
+                   for a in mma_inputs(P6_TILE * 256, blocks=blocks))
+        for row in run_p6(filt, x):
+            print(json.dumps(row), flush=True)
     seq, group, bench = _genome_planes(device)
     print(json.dumps(run_p7(seq, *group)), flush=True)
     for orientation in ("m", "n"):

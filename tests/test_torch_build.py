@@ -147,8 +147,8 @@ def test_production_build_leaves_the_probes_out(fresh, fake_nvcc, monkeypatch):
     assert build.build_info() is info  # built once per process
     probes = build.build_info(probes=True)
     built = [pathlib.Path(line).name for line in fake_nvcc.read_text().split()]
-    assert built[len(build.PRODUCTION_SOURCES):] == ["probes.cu"]
-    assert [p.name.split("-")[1] for p in probes["compiled"]] == ["probes"]
+    assert sorted(built[len(build.PRODUCTION_SOURCES):]) == ["probe_gmma.cu", "probes.cu"]
+    assert [p.name.split("-")[1] for p in probes["compiled"]] == ["probes", "probe_gmma"]
     assert probes["paths"][:len(build.PRODUCTION_SOURCES)] == info["paths"]
     # a second process finds every library and compiles nothing
     monkeypatch.setattr(build, "_INFO", {})

@@ -246,13 +246,32 @@ def test_prefilter_launch_reads_nothing_back_from_the_card(cuda):
 
 
 def test_probe_kernels_match_plain_on_the_card(cuda):
-    filt, x = (torch.from_numpy(a).to(cuda) for a in probes.mma_inputs(5000, seed=3))
-    want = probes.mma_max_plain(filt, x)
+    # P6 at the JAX probe's depth (3 blocks) and at one block, on a count
+    # of positions that is no multiple of the 128-position tile, launched
+    # eight times each (a race between the TMA ring and its consumers once
+    # gave wrong sums in some launches only); then the s8 extremes (sums of
+    # +-384 * 128)
     probes.reset_launches()
-    for kind in ("u8", "bf16"):
-        got = probes.mma_max(filt, x, kind)
+    for blocks in (3, 1):
+        filt, x = (torch.from_numpy(a).to(cuda)
+                   for a in probes.mma_inputs(5000, seed=3, blocks=blocks))
+        want = probes.mma_max_plain(filt, x)
+        for kind in ("int8", "bf16"):
+            f, xk = probes.mma_operands(filt, x, kind)
+            for run in range(8):
+                got = probes.mma_max(f, xk, kind)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (blocks, kind, run)
+    rng = np.random.default_rng(5)
+    filt = torch.from_numpy(np.where(rng.random((2048, 384)) < 0.5, -128, 127).astype(np.int8))
+    filt[7] = -128
+    x = torch.from_numpy((rng.random((700, 384)) < 0.98).astype(np.int8))
+    x[:5] = 1
+    want = probes.mma_max_plain(filt, x)
+    for kind in ("int8", "bf16"):
+        got = probes.mma_max(*probes.mma_operands(filt.to(cuda), x.to(cuda), kind), kind)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), kind
+        assert torch.equal(got.cpu(), want), kind
     rng = np.random.default_rng(4)
     packed = [torch.from_numpy(a).to(cuda) for a in _extreme_planes(rng, 5, 20, 2)]
     s = torch.from_numpy(rng.integers(0, 5, 40_000).astype(np.uint8)).to(cuda)
@@ -260,7 +279,7 @@ def test_probe_kernels_match_plain_on_the_card(cuda):
     torch.cuda.synchronize()
     want = torch_ops.prefilter_any8(s, *packed)
     assert torch.equal(got[: 40_000 - 19], want[: 40_000 - 19])
-    assert probes.LAUNCHES == {"probe_mma_u8": 1, "probe_mma_bf16": 1,
+    assert probes.LAUNCHES == {"probe_mma_int8": 17, "probe_mma_bf16": 17,
                                "prefilter_lookup": 1, "prefilter_variant": 0,
                                "prefilter_bits": 0}
 

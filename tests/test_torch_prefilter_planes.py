@@ -12,12 +12,14 @@ the CPU, and to the JAX package's Pallas kernels in interpret mode, on
 every window ``p < Lp - m + 1``: K3, K5 and K4 filters packed by the JAX
 package, filters written by hand with negative cells and cells past 255
 (1 to 4 planes), DNA and protein, never-pass and padded lanes, wildcard
-runs.  The packing reads nothing back from a device, and the probes'
-plain versions (P6, P7, P8, P10) compute the same functions.
+runs.  The packing reads nothing back from a device, the probes' plain
+versions (P7, P8, P10) compute the same functions, and P6 equals the JAX
+probe's int8 and bf16 kernels in interpret mode.
 """
 
 import math
 import re
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -292,15 +294,108 @@ def test_packing_reads_nothing_back_from_the_device(prefilter):
 # -- the probes' plain versions ---------------------------------------------------
 
 
-@pytest.mark.parametrize("kind", ["u8", "bf16"])
-def test_p6_plain_version_is_the_exact_integer_product(kind):
-    filt, x = probes.mma_inputs(3000, seed=4)
-    got = probes.mma_max(torch.from_numpy(filt), torch.from_numpy(x), kind).numpy()
-    want = (x.astype(np.int64) @ filt.astype(np.int64).T).max(axis=1)
+#: P6's CPU shape: lanes and positions cut from the JAX probe's 2,048 and
+#: 1,024 (its kernel bodies take any); the depth stays its 3 x 128.
+P6_LANES, P6_TILE = 256, 256
+
+
+def int8_probe():
+    """``experiments/int8_probe.py``, imported from this checkout.  The
+    module puts a fixed directory at the front of ``sys.path`` and imports
+    ``tools.perf`` through it, so ``tools.perf`` is imported first from the
+    checkout and ``sys.path`` is put back right after: neither ``tools`` nor
+    any later import resolves through that directory."""
+    import tools.perf
+
+    assert Path(tools.perf.__file__).resolve().parents[1] == Path(__file__).resolve().parents[1]
+    saved = list(sys.path)
+    try:
+        from experiments import int8_probe as module
+    finally:
+        sys.path[:] = saved
+    return module
+
+
+def p6_draw(case: str, seed: int = 6):
+    """The JAX probe's operands, float32 ``[depth, lanes]`` and ``[depth,
+    tile]``: its own draw (``experiments/int8_probe.py::main``: filters
+    from ``integers(-100, 100)``, windows from {0, 1}), or the s8 extremes:
+    cells -128 (nine in ten) and 127, lane 0 all -128, all-ones windows,
+    so every sum is at most ``384 * 127`` and every maximum negative."""
+    depth = int8_probe().BLOCKS * 128
+    rng = np.random.default_rng(seed)
+    if case == "draw":
+        return (rng.integers(-100, 100, (depth, P6_LANES)).astype(np.float32),
+                rng.integers(0, 2, (depth, P6_TILE)).astype(np.float32))
+    fb = np.where(rng.random((depth, P6_LANES)) < 0.9, -128, 127).astype(np.float32)
+    fb[:, 0] = -128
+    return fb, np.ones((depth, P6_TILE), np.float32)
+
+
+def jax_p6(kind: str, fb: np.ndarray, xb: np.ndarray) -> np.ndarray:
+    """The JAX probe's kernel of ``kind`` (``_kernel_int8`` on the int8
+    operands, ``_kernel_bf16`` on the float32 ones, as its ``main`` calls
+    them) in interpret mode: int32 ``[tile]``."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    module = int8_probe()
+    body = module._kernel_int8 if kind == "int8" else module._kernel_bf16
+    f, x = (fb.astype(np.int8), xb.astype(np.int8)) if kind == "int8" else (fb, xb)
+    out = pl.pallas_call(body, out_shape=jax.ShapeDtypeStruct((1, x.shape[1]), jnp.int32),
+                         interpret=True)(f, x)
+    return np.asarray(out)[0]
+
+
+@pytest.mark.parametrize("case", ["draw", "extremes"])
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_p6_plain_version_is_the_exact_integer_product(kind, case):
+    # the port's P6 (the wrapper on CPU tensors, K-major: the JAX operands
+    # transposed) bit for bit to the JAX probe's kernels at depth 3 x 128
+    fb, xb = p6_draw(case)
+    want = jax_p6(kind, fb, xb)
+    filt = torch.from_numpy(np.ascontiguousarray(fb.T.astype(np.int8)))
+    x = torch.from_numpy(np.ascontiguousarray(xb.T.astype(np.int8)))
+    got = probes.mma_max(*probes.mma_operands(filt, x, kind), kind).numpy()
     assert got.dtype == np.int32 and np.array_equal(got, want)
-    assert filt.max() < 128  # int8 holds the cells too (the library yardstick's form)
+    exact = (xb.T.astype(np.int64) @ fb.astype(np.int64)).max(axis=1)
+    assert np.array_equal(got, exact)
+    if case == "extremes":
+        assert got.max() < 0 and np.abs(xb.T @ fb).max() == 384 * 128
+
+
+def test_p6_inputs_are_the_jax_probes_draw():
+    # mma_inputs is experiments/int8_probe.py::main's draw at a tile of
+    # n_pos positions, transposed to the port's K-major layout
+    filt, x = probes.mma_inputs(40, seed=0)
+    rng = np.random.default_rng(0)
+    fb = rng.integers(-100, 100, (3 * 128, 2048)).astype(np.float32)
+    xb = rng.integers(0, 2, (3 * 128, 40)).astype(np.float32)
+    assert filt.dtype == x.dtype == np.int8 and filt.flags.c_contiguous and x.flags.c_contiguous
+    assert np.array_equal(filt, fb.T.astype(np.int8)) and np.array_equal(x, xb.T.astype(np.int8))
+    one, _ = probes.mma_inputs(40, seed=0, blocks=1)
+    assert one.shape == (2048, 128) and one.min() < 0
+
+
+def test_p6_wrapper_refuses_other_inputs():
+    filt, x = (torch.from_numpy(a) for a in probes.mma_inputs(20, seed=1, blocks=1))
     with pytest.raises(ValueError):
-        probes.mma_max(torch.from_numpy(filt), torch.from_numpy(x), "f32")
+        probes.mma_max(filt, x, "f32")
+    with pytest.raises(ValueError):
+        probes.mma_operands(filt, x, "u8")
+    bad = [(filt.view(torch.uint8), x.view(torch.uint8), "int8"),  # the earlier unsigned cells
+           (filt, x, "bf16"),  # int8 operands for the bf16 form
+           (filt.to(torch.bfloat16), x, "bf16"),
+           (filt[:0], x, "int8"),  # no lane
+           (filt[:, :64], x[:, :64], "int8"),  # not whole blocks
+           (filt.repeat(1, 2), x.repeat(1, 2), "int8"),  # two blocks
+           (filt.repeat(1, 4), x.repeat(1, 4), "int8"),  # four blocks
+           (filt, x[:, :64], "int8"),
+           (filt, x[0], "int8")]
+    for f, xx, kind in bad:
+        with pytest.raises(TypeError):
+            probes.mma_max(f, xx, kind)
+    assert probes.mma_max(filt, x[:0], "int8").shape == (0,)
 
 
 def test_p7_lookup_table_and_baseline_compute_the_prefilter():
