@@ -182,10 +182,10 @@ Phases, one line of output each (any failure exits non-zero):
     K4 and K5 at their shapes, the database scan's steady-state wall
     beside the plain stages' (K3, then the plain versions of phase C and
     the pairs kernel) in the same call, in the K3 and u16 modes and, from
-    one more run through the scanner's timing hook and ``torch.profiler``
-    after a warm-up run, its split by stage, device-busy time (the trace's
+    one more eager run under ``torch.profiler`` after a warm-up run, its
+    split by the program's stage spans, device-busy time (the trace's
     device events) and host time, then the same of the steady path (graph
-    replays, no hook); the batch classes' walls (``BatchScanner`` with its
+    replays); the batch classes' walls (``BatchScanner`` with its
     reads);
 19. the host's part of one ``kernels.score_f32`` call (median enqueue
     time of 400 calls) beside the earlier wrapper's per-call work and the
@@ -1414,7 +1414,7 @@ def graph_pools(before=()) -> dict:
 
 def graph_row(ms, seq, want, what: str) -> dict:
     """What the CUDA graphs of a steady scan of ``seq`` keep, beside one
-    eager scan's peak (the issue before graphs; the timing hook keeps a
+    eager scan's peak (the issue before graphs; ``use_graphs`` off keeps a
     scan eager), for a ``MultiScanner`` that has scanned ``seq`` once
     (its capacities settled, nothing captured): ``memory_reserved`` after
     four steady scans beside before them, with the caching allocator's
@@ -1424,13 +1424,13 @@ def graph_row(ms, seq, want, what: str) -> dict:
     (``steady_peak``), so that ``kept`` less it is the rounding of the
     graphs' pool; and each pool.  Every scan's hits must equal ``want``."""
     mib = 1 << 20
-    ms.mark = lambda stage, count: None
+    ms.use_graphs = False
     settle()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     check_scan(f"{what}, eager", ms.scan_arrays(seq), want)
     peak = torch.cuda.max_memory_allocated() - base
-    ms.mark = None
+    ms.use_graphs = True
     settle()
     reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
     before = set(graph_pools())
@@ -2662,45 +2662,108 @@ def device_split(fn) -> tuple:
     return wall, trace_kernels(prof)[0]
 
 
+#: The program's span of each row of :func:`stage_rows`.
+STAGE_SPANS = {"k3": "prefilter", "candidates": "exact.compact", "phase_c": "exact.phase_c",
+               "pairs_rescore": "exact.pairs", "dense": "dense", "fetch": "fetch"}
+
+
 def stage_split(scanners, fn) -> dict:
-    """One profiled run of ``fn`` (:func:`profiled`) with the timing hook
-    of every ``MultiScanner`` in ``scanners`` on (all on the current
-    card): the ms of each stage by CUDA events (an interval counts to the
-    stage that ends it, host gaps inside it included; "end" is what
-    follows the last stage: reads, re-runs, the host's sorting), the
-    counts each stage gave (read after the run), the run's wall, the
-    card's busy time from the trace's device events (:func:`trace_kernels`)
-    with the time of each kernel and the number of events, and the rest,
-    the host's."""
-    marks = []
+    """One profiled run of ``fn`` (:func:`profiled`) with every
+    ``MultiScanner`` in ``scanners`` (all on the current card) issuing
+    eagerly (``use_graphs`` off, so that each stage runs its Python and
+    records its span), split by the program's spans (:func:`stage_rows`)."""
+    from lightmotif_tpu_torch.utils import profiling
 
-    def mark(stage, n):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((stage, ev, n))
-
-    def timed():
+    for scanner in scanners:
+        scanner.use_graphs = False
+    try:
+        wall, prof = profiled(fn)
+    finally:
         for scanner in scanners:
-            scanner.mark = mark
-        try:
-            mark("start", 0)
-            fn()
-            mark("end", 0)
-        finally:
-            for scanner in scanners:
-                scanner.mark = None
+            scanner.use_graphs = True
+    events = trace_events(prof)
+    return stage_rows(events, wall, trace_kernels(prof, events), profiling.spans())
 
-    wall, prof = profiled(fn, timed)
-    stages, counts = {}, {}
-    for (_, a, _), (stage, b, _) in zip(marks, marks[1:]):
-        stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b)
-    for stage, _, n in marks[1:-1]:
-        value = n.cpu().numpy() if torch.is_tensor(n) else np.asarray(n)
-        counts[stage] = counts.get(stage, 0) + value.astype(np.int64)
-    busy, kernels, n_events, n_warm = trace_kernels(prof)
-    out = {f"{k}_ms": round(v, 4) for k, v in stages.items()}
+
+def stage_rows(events: list, wall: float, traced: tuple, records: list) -> dict:
+    """The recorded run of :func:`profiled` (its trace's ``events``, its
+    ``wall`` ms, :func:`trace_kernels`' ``traced``) split by the
+    program's spans (``records``, ``profiling.spans()``).
+
+    Each stage of :data:`STAGE_SPANS` with a range inside
+    :data:`TIMED_RANGE` gives ``<stage>_ms``: ``host``, the ms of its
+    ranges, and ``device``, the ms of the device operations launched
+    inside them (on the launching thread); ``end_ms`` the same of what
+    lies outside every stage: the wall outside the scans' ``scanner.scan``
+    ranges, and the operations launched outside every stage's range.
+    The counts come from the spans of the run's scans (as many of the
+    newest as the range holds ``scanner.scan`` ranges): ``n_k3`` the
+    window starts the prefilters tested; from the ``fetch`` spans
+    ``n_candidates`` and ``n_phase_c`` (phase C tests the candidates),
+    ``n_pairs_rescore`` ``[candidates, pairs, kept, entries]``,
+    ``n_dense`` the dense motifs' hits and ``n_fetch`` every hit.  Then
+    the top kernels, the wall, the card's busy time from the trace's
+    device events and the rest, the host's."""
+    import bisect
+
+    timed = next(e for e in events
+                 if e.get("cat") == "user_annotation" and e.get("name") == TIMED_RANGE)
+    lo, hi = float(timed["ts"]), float(timed["ts"]) + float(timed["dur"])
+    by_span = {}  # (span name, thread) -> sorted (start, end)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation" and lo <= e["ts"] <= hi:
+            t0 = float(e["ts"])
+            by_span.setdefault((e["name"], e.get("tid")), []).append((t0, t0 + float(e["dur"])))
+    for spans in by_span.values():
+        spans.sort()
+    launch = {e["args"]["correlation"]: (float(e["ts"]), e.get("tid")) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ops = [(launch.get(e.get("args", {}).get("correlation")), float(e.get("dur", 0.0)))
+           for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and lo <= float(e["ts"]) <= hi]
+
+    def inside(name, at) -> bool:
+        ts, tid = at
+        spans = by_span.get((name, tid), [])
+        i = bisect.bisect_right(spans, (ts, float("inf"))) - 1
+        return i >= 0 and spans[i][0] <= ts <= spans[i][1]
+
+    def host_ms(name) -> float:
+        return sum(t1 - t0 for (n, _), spans in by_span.items() if n == name
+                   for t0, t1 in spans) / 1e3
+
+    out, staged = {}, set()
+    for row, name in STAGE_SPANS.items():
+        if not any(n == name for n, _ in by_span):
+            continue
+        mine = {i for i, (at, _) in enumerate(ops) if at is not None and inside(name, at)}
+        staged |= mine
+        out[f"{row}_ms"] = {"host": round(host_ms(name), 4),
+                            "device": round(sum(ops[i][1] for i in mine) / 1e3, 4)}
+    out["end_ms"] = {"host": round(wall - host_ms("scanner.scan"), 4),
+                     "device": round(sum(d for i, (_, d) in enumerate(ops)
+                                         if i not in staged) / 1e3, 4)}
+    n_scans = sum(len(spans) for (n, _), spans in by_span.items() if n == "scanner.scan")
+    roots = sorted(r.scan for r in records if r.parent is None and r.name == "scanner.scan")
+    timed_scans = set(roots[len(roots) - n_scans:]) if n_scans else set()
+    mine = [r for r in records if r.scan in timed_scans]
+    windows = [r.counts["windows"] for r in mine if r.name == "prefilter"]
+    if windows:
+        out["n_k3"] = sum(windows)
+    fetched = [r.counts for r in mine if r.name == "fetch" and "kept" in r.counts]
+    if fetched:
+        total = {k: sum(c[k] for c in fetched) for k in ("candidates", "pairs", "kept",
+                                                         "entries")}
+        out.update(n_candidates=total["candidates"], n_phase_c=total["candidates"],
+                   n_pairs_rescore=list(total.values()))
+        dense = [c["by_group"]["dense"]["kept"] for c in fetched if "dense" in c["by_group"]]
+        if dense:
+            out["n_dense"] = sum(dense)
+        out["n_fetch"] = total["kept"]
+    busy, kernels, n_events, n_warm = traced
     out["top_kernels_ms"] = {name: round(ms, 4) for name, ms in kernels[:10]}
-    out.update({f"n_{k}": v.tolist() for k, v in counts.items()})
     out.update(wall_ms=round(wall, 4), device_events=n_events, warmup_events=n_warm,
                device_busy_ms=round(busy, 4) if busy else None,
                host_ms=round(wall - busy, 4) if busy else None,
@@ -3544,12 +3607,10 @@ def phase_database_times(ms, seq) -> tuple:
         plain_stages="K3, then phase_c_bits_plain and pairs_rescore_plain at room for "
         "every pair")
 
-    # split by stage (the scanner's timing hook records a CUDA event as
-    # each stage's work is queued, so the stages run eagerly) in one
-    # profiled run
-    log("times", op="database scan by stage (one profiled run, CUDA events)",
+    # split by the program's stage spans in one profiled eager run
+    log("times", op="database scan by stage (one profiled eager run, the program's spans)",
         **stage_split([ms], lambda: ms.scan_arrays(seq)))
-    # the steady path itself (graph replays, no hook): busy, host, idle
+    # the steady path itself (graph replays): busy, host, idle
     before = (ms.replays.captured, ms.replays.replayed)
     wall, prof = profiled(lambda: ms.scan_arrays(seq))
     busy, kernels, n_events, _ = trace_kernels(prof)

@@ -43,6 +43,7 @@ from typing import Callable
 
 import torch
 
+from ..utils import profiling
 from . import kernels
 
 __all__ = ["Replays"]
@@ -107,8 +108,9 @@ class Replays:
         """``(fn(), replayed)`` for the work ``name`` of (``owner``,
         ``tag``) at ``key``: eagerly at its first issue, else from its
         graph (captured at its second), replayed on ``stream`` (default:
-        the device's current stream).  When it replays, the tensors of
-        what it returns are the graph's outputs."""
+        the device's current stream; span ``scanner.replay``).  When it
+        replays, the tensors of what it returns are the graph's
+        outputs."""
         if not self.seen(owner, tag, key, name):
             return fn(), False
         work = self._work(owner, tag, key)
@@ -117,7 +119,8 @@ class Replays:
             if _POOL not in work:
                 work[_POOL] = torch.cuda.graph_pool_handle()
             step = work[name] = self._capture(fn, work[_POOL])
-        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+        with (profiling.span("scanner.replay"), torch.cuda.device(self.device),
+              torch.cuda.stream(stream)):
             step.graph.replay()
         kernels.count_replay(step.tally)
         self.replayed += 1

@@ -54,6 +54,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import kernels, multi_kernel, multi_stages
 from .multi_stages import phase_c, rescore_multi
 
@@ -104,6 +105,7 @@ __all__ = [
     "settle_entries",
     "fits",
     "collect_device",
+    "entry_counts",
     "merge_hits",
     "collect_entries",
     "sorted_hits",
@@ -606,10 +608,6 @@ def compact_candidates(maxv: torch.Tensor, cap: int):
     return torch.nonzero_static(mask, size=cap, fill_value=0).flatten(), mask.sum()
 
 
-def _no_mark(stage: str, n) -> None:
-    pass
-
-
 #: The prefilter of each group key, in the JAX package's selection
 #: order: ``filters_i8`` (K3), else ``filters_fine`` (K5), else
 #: ``filters_t`` (K4).
@@ -629,7 +627,7 @@ def _check_capacities(cap: int, cap_hits: int, m_pad: int) -> None:
 
 
 def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict, k: int,
-                    cap: int, cap_hits: int | None = None, mark=None):
+                    cap: int, cap_hits: int | None = None):
     """One motif group in one segment, at fixed capacities, with no read
     of the device: ``(counts int32 [4], packed int32 [3, cap_hits])``.
 
@@ -645,28 +643,26 @@ def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict, k: 
     core's (re-run with a larger ``cap`` while ``candidates > cap``, a
     larger ``cap_hits`` while ``hit_need > cap_hits``).
 
-    ``mark``, a timing hook, is called once each stage's work is queued
-    with the stage's name and its count, an int or a tensor on the device
-    that the hook must not read until the work is done: (the prefilter's
-    key, window starts), ``("candidates", count)``, ``("phase_c", count)``
-    (it tests the first ``cap`` of them), ``("pairs_rescore", counts)``.
+    Each stage's issue is a span (:func:`~..utils.profiling.span`):
+    ``prefilter`` (its count ``windows``, the window starts it tests),
+    ``exact.compact``, ``exact.phase_c`` and ``exact.pairs``.
     """
-    mark = mark or _no_mark
     cap = int(cap)
     cap_hits = cap if cap_hits is None else int(cap_hits)
     _check_capacities(cap, cap_hits, lanes(group))
     mode = next(name for name in PREFILTERS if name in group)
-    maxv = getattr(multi_kernel, PREFILTERS[mode])(chunk, *group[mode])
-    mark(mode, maxv.shape[0])
-    cand, count = compact_candidates(maxv, cap)
-    mark("candidates", count)
-    bits, pcnt = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
-                                           n_valid.to(torch.int32))
-    mark("phase_c", count)
-    counts, packed = multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk, group["pssm"],
-                                                group["th"], cap_hits)
-    mark("pairs_rescore", counts)
-    return counts, packed
+    with profiling.span("prefilter") as span:
+        maxv = getattr(multi_kernel, PREFILTERS[mode])(chunk, *group[mode])
+        if span:
+            span.add(windows=maxv.shape[0])
+    with profiling.span("exact.compact"):
+        cand, count = compact_candidates(maxv, cap)
+    with profiling.span("exact.phase_c"):
+        bits, pcnt = multi_stages.phase_c_bits(chunk, cand, count, *group["phase_c"],
+                                               n_valid.to(torch.int32))
+    with profiling.span("exact.pairs"):
+        return multi_stages.pairs_rescore(bits, pcnt, cand, count, chunk, group["pssm"],
+                                          group["th"], cap_hits)
 
 
 def dense_core(data: torch.Tensor, pssm: torch.Tensor, threshold: torch.Tensor,
@@ -814,8 +810,8 @@ class Entry(NamedTuple):
     rerun: Callable
 
 
-def _core_entry(chunk, n_valid, group, k, offset, key, cap, cap_hits, mark=None) -> Entry:
-    counts, packed = scan_multi_core(chunk, n_valid, group, k, cap, cap_hits, mark)
+def _core_entry(chunk, n_valid, group, k, offset, key, cap, cap_hits) -> Entry:
+    counts, packed = scan_multi_core(chunk, n_valid, group, k, cap, cap_hits)
     return Entry(counts, packed, group, offset, key, cap, cap_hits,
                  functools.partial(_core_entry, chunk, n_valid, group, k, offset, key))
 
@@ -836,7 +832,7 @@ def _group_tables(group: dict, lengths) -> torch.Tensor:
 
 
 def group_steps(data: torch.Tensor, length: int, lengths, groups, k: int, segment: int,
-                owned: int | None = None, mark=None) -> list:
+                owned: int | None = None) -> list:
     """The (group, segment) steps of a scan of a device sequence, in that
     order: ``(group index, segment offset, run)`` for each with a window
     to scan, ``run(cap, cap_hits)`` dispatching it (:func:`scan_multi_core`
@@ -862,20 +858,19 @@ def group_steps(data: torch.Tensor, length: int, lengths, groups, k: int, segmen
             chunk = data[off : off + n_max + group["m_max"] - 1]
             top = segment if owned is None else min(segment, int(owned) - off)
             steps.append((gi, off, functools.partial(
-                _segment_entry, chunk, length - off + 1, top, lens, group, k, off, gi,
-                mark=mark)))
+                _segment_entry, chunk, length - off + 1, top, lens, group, k, off, gi)))
     return steps
 
 
-def _segment_entry(chunk, window_end, top, lens, group, k, offset, key, cap, cap_hits,
-                   mark=None) -> Entry:
+def _segment_entry(chunk, window_end, top, lens, group, k, offset, key, cap,
+                   cap_hits) -> Entry:
     # each lane's window starts in the segment, from its motif length
     lanes = (window_end - lens).clamp_(0, top)
-    return _core_entry(chunk, lanes, group, k, offset, key, cap, cap_hits, mark)
+    return _core_entry(chunk, lanes, group, k, offset, key, cap, cap_hits)
 
 
 def scan_groups(data: torch.Tensor, length: int, lengths, groups, k: int,
-                segment: int, mark=None, state=None,
+                segment: int, state=None,
                 capacity: int = DEFAULT_CAPACITY, owned: int | None = None) -> list:
     """Dispatch motif groups over a device sequence, segment by segment,
     with no read of the device.
@@ -895,8 +890,7 @@ def scan_groups(data: torch.Tensor, length: int, lengths, groups, k: int,
     """
     state = {} if state is None else state
     return [run(*(state.get(gi) or seed_capacities(groups[gi], capacity)))
-            for gi, _, run in group_steps(data, length, lengths, groups, k, segment, owned,
-                                          mark)]
+            for gi, _, run in group_steps(data, length, lengths, groups, k, segment, owned)]
 
 
 def dense_entry(data: torch.Tensor, pssm: torch.Tensor, threshold: torch.Tensor,
@@ -928,31 +922,39 @@ class HostReader:
     and reuses, grown to the largest read, in place of an allocation per
     read.  :meth:`queue` queues a read, the copy into the buffer on the
     device's current stream, and returns its ``wait``: an event waited on
-    and the buffer's view as numpy, valid until the next :meth:`queue`
-    (a caller keeps copies of what it keeps).  So several devices' reads
-    can be queued before any is waited on.  A tensor on the CPU is
-    returned as it is."""
+    (span ``fetch.wait``: the host blocked on the device) and the
+    buffer's view as numpy, valid until the next :meth:`queue` (a caller
+    keeps copies of what it keeps).  So several devices' reads can be
+    queued before any is waited on.  A tensor on the CPU is returned as
+    it is.  :attr:`nbytes` counts the bytes queued."""
 
     def __init__(self):
         self._buffer = None
+        #: bytes of every read queued since the reader was made
+        self.nbytes = 0
 
     def queue(self, tensor: torch.Tensor) -> Callable[[], np.ndarray]:
-        if tensor.device.type != "cuda":
-            host = tensor.cpu().numpy()
-            return lambda: host
         nbytes = tensor.numel() * tensor.element_size()
-        if self._buffer is None or self._buffer.numel() < nbytes:
-            size = max(nbytes, 2 * (0 if self._buffer is None else self._buffer.numel()))
-            self._buffer = torch.empty(-(-size // 8) * 8, dtype=torch.uint8, pin_memory=True)
-        out = self._buffer[:nbytes].view(tensor.dtype).view(tensor.shape)
-        with torch.cuda.device(tensor.device):
-            out.copy_(tensor, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+        self.nbytes += nbytes
+        if tensor.device.type != "cuda":
+            host, done = tensor.cpu().numpy(), None
+        else:
+            if self._buffer is None or self._buffer.numel() < nbytes:
+                size = max(nbytes, 2 * (0 if self._buffer is None else self._buffer.numel()))
+                self._buffer = torch.empty(-(-size // 8) * 8, dtype=torch.uint8,
+                                           pin_memory=True)
+            out = self._buffer[:nbytes].view(tensor.dtype).view(tensor.shape)
+            with torch.cuda.device(tensor.device):
+                out.copy_(tensor, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            host = out.numpy()
 
         def wait() -> np.ndarray:
-            done.synchronize()
-            return out.numpy()
+            with profiling.span("fetch.wait"):
+                if done is not None:
+                    done.synchronize()
+            return host
 
         return wait
 
@@ -977,15 +979,18 @@ def heads_info(entries: list, widths: list) -> torch.Tensor:
     """:func:`sorted_heads`' table of the entries, uploaded to their
     device: per entry, its chunk's offset, its group's first row in the
     entries' table of database indices, its last lane and its head's
-    width, int64 ``[entries, 4]``."""
+    width, int64 ``[entries, 4]``.  The upload is from pageable memory,
+    so it waits for the work queued before it on the stream: a span
+    ``fetch.wait``, the host blocked on the device."""
     base, first = {}, 0
     for e in entries:
         if id(e.group) not in base:
             base[id(e.group)] = first
             first += len(e.group["ids"])
-    return torch.tensor([[e.offset, base[id(e.group)], len(e.group["ids"]) - 1, w]
-                         for e, w in zip(entries, widths)], dtype=torch.int64,
-                        device=entries[0].counts.device)
+    rows = [[e.offset, base[id(e.group)], len(e.group["ids"]) - 1, w]
+            for e, w in zip(entries, widths)]
+    with profiling.span("fetch.wait"):
+        return torch.tensor(rows, dtype=torch.int64, device=entries[0].counts.device)
 
 
 def sorted_heads(entries: list, widths: list, info: torch.Tensor) -> torch.Tensor:
@@ -1066,20 +1071,23 @@ def settle_entries(entries: list, counts, widths, read=read_host, state=None, hi
     state = {} if state is None else state
     hints = {} if hints is None else hints
     settled, kept, complete = [], {}, True
-    for e, c, w in zip(entries, counts, widths):
-        while _overflowed(e, c):
-            e = e.rerun(ratchet(e.cap, int(c[0])),
-                        ratchet(e.cap_hits, int(c[1])))._replace(offset=e.offset)
-            kernels.count_launch(RERUNS, "dense" if isinstance(e.key, tuple) else "group")
-            c = read(e.counts)
-            complete = False
-        old = state.get(e.key, (0, 0))
-        state[e.key] = (max(old[0], e.cap), max(old[1], e.cap_hits))
-        kept[e.key] = max(kept.get(e.key, 0), int(c[2]))
-        complete = complete and int(c[2]) <= w
-        settled.append(e)
-    for key, n in kept.items():
-        hints[key] = max(hints.get(key, 0) >> 1, n)
+    with profiling.span("fetch.settle"):
+        for e, c, w in zip(entries, counts, widths):
+            while _overflowed(e, c):
+                with profiling.span("fetch.rerun"):
+                    e = e.rerun(ratchet(e.cap, int(c[0])),
+                                ratchet(e.cap_hits, int(c[1])))._replace(offset=e.offset)
+                    kernels.count_launch(RERUNS,
+                                         "dense" if isinstance(e.key, tuple) else "group")
+                    c = read(e.counts)
+                complete = False
+            old = state.get(e.key, (0, 0))
+            state[e.key] = (max(old[0], e.cap), max(old[1], e.cap_hits))
+            kept[e.key] = max(kept.get(e.key, 0), int(c[2]))
+            complete = complete and int(c[2]) <= w
+            settled.append(e)
+        for key, n in kept.items():
+            hints[key] = max(hints.get(key, 0) >> 1, n)
     return settled, complete
 
 
@@ -1090,23 +1098,45 @@ def fits(entries: list, counts, widths) -> bool:
                    for e, c, w in zip(entries, counts, widths))
 
 
-def collect_device(entries: list, read=read_host, state=None, hints=None, first=None):
+def collect_device(entries: list, read=read_host, state=None, hints=None, first=None,
+                   span=None):
     """Hit arrays ``(motif_ids int32, positions int64, scores float32)``,
     ordered by (motif, position), of dispatched entries on one device:
     one read (:func:`read_sorted`, or ``first``, its result) when every
     entry fits its capacities and its head; else the re-runs and one more
-    read."""
+    read.  ``span``, a recording span, takes :func:`entry_counts` of the
+    settled entries."""
     hints = {} if hints is None else hints
     counts, hits, widths = first or read_sorted(entries, read, hints)
     entries, complete = settle_entries(entries, counts, widths, read, state, hints)
     if not complete:
         counts, hits, _ = read_sorted(entries, read, hints)
+    if span:
+        span.add(**entry_counts(entries, counts))
     return _hit_arrays(hits[:, : int(counts[:, 2].sum())])
+
+
+def entry_counts(entries: list, counts) -> dict:
+    """The fetch's counts of settled entries, from their counters read on
+    the host (``[candidates, pairs, kept, valid]`` rows): ``entries``,
+    ``candidates``, ``pairs`` and ``kept``, and ``by_group``, the same
+    per capacity key (a group's index; ``"dense"`` for every dense
+    motif)."""
+    names = ("entries", "candidates", "pairs", "kept")
+    by_group = {}
+    for e, c in zip(entries, counts):
+        row = by_group.setdefault("dense" if isinstance(e.key, tuple) else e.key,
+                                  dict.fromkeys(names, 0))
+        for name, value in zip(names, (1, *c[:3])):
+            row[name] += int(value)
+    return {**{name: sum(row[name] for row in by_group.values()) for name in names},
+            "by_group": by_group}
 
 
 def _hit_arrays(hits):
     # copies: ``hits`` may be a view of a reader's buffer
-    return hits[1].copy(), hits[0].astype(np.int64), hits[2].view(np.float32).copy()
+    with profiling.span("fetch.hit_arrays"):
+        return hits[1].copy(), hits[0].astype(np.int64), hits[2].view(np.float32).copy()
 
 
 def merge_hits(parts: list):

@@ -18,6 +18,7 @@ import torch
 
 from ..scores import StripedScores
 from ..sequence import EncodedSequence, StripedSequence
+from ..utils import profiling
 from . import kernels, torch_ops
 
 __all__ = [
@@ -78,10 +79,12 @@ class DeviceSequence:
     def __init__(self, encoded: EncodedSequence, device: torch.device):
         self.alphabet = encoded.alphabet
         self.length = len(encoded)
-        host = np.full(pad_length(self.length), encoded.alphabet.default_index,
-                       dtype=np.uint8)
-        host[: self.length] = encoded.data
-        self.data = torch.from_numpy(host).to(device)
+        n = pad_length(self.length)
+        with profiling.span("upload.pad", bytes=n):
+            host = np.full(n, encoded.alphabet.default_index, dtype=np.uint8)
+            host[: self.length] = encoded.data
+        with profiling.span("upload.copy"):
+            self.data = torch.from_numpy(host).to(device)
 
     @property
     def device(self) -> torch.device:

@@ -78,6 +78,7 @@ from ..ops import kernels, multi, torch_ops
 from ..ops.pipeline import PAD_MULTIPLE, DeviceSequence, resolve_device
 from ..scanner import DEFAULT_CAPACITY, best_hit, issue_segment, kept_hits, merge_best
 from ..sequence import EncodedSequence
+from ..utils import profiling
 
 __all__ = [
     "make_genome_mesh",
@@ -757,7 +758,8 @@ class ShardedMultiScanner:
         return self.fetch(self.dispatch())
 
     def collect_arrays(self):
-        return self.fetch_arrays(self.dispatch())
+        with profiling.root_span("scanner.scan"):
+            return self.fetch_arrays(self.dispatch())
 
     def scan(self, encoded) -> list:
         """``bind(encoded).collect()`` -- one call per genome."""
@@ -765,7 +767,8 @@ class ShardedMultiScanner:
 
     def scan_arrays(self, encoded):
         """``bind(encoded).collect_arrays()``."""
-        return self.bind(encoded).collect_arrays()
+        with profiling.root_span("scanner.scan"):
+            return self.bind(encoded).collect_arrays()
 
 
 def sharded_multi_scan(

@@ -39,6 +39,7 @@ import torch
 from .matrix import ScoringMatrix
 from .ops import graphs, kernels, multi, multi_kernel
 from .ops.pipeline import DeviceSequence, as_device_seq, resolve_device
+from .utils import profiling
 
 __all__ = ["Hit", "Scanner", "MultiHit", "MultiScanner"]
 
@@ -584,9 +585,22 @@ class MultiScanner:
     (:mod:`~.ops.graphs`): the dispatch's steps (every (group, segment)
     step and every dense motif) and the merge and sort of the fetch's
     read are each captured at their second issue for the bound sequence
-    and its capacities, then replayed; a re-run, a scan with the timing
-    hook :attr:`mark` on, and the CPU run eagerly.  :attr:`replays`
+    and its capacities, then replayed; a re-run, a scanner with
+    :attr:`use_graphs` off, and the CPU run eagerly.  :attr:`replays`
     counts the captures and replays.
+
+    Under ``torch.profiler`` a scan records its stages as spans
+    (:func:`~.utils.profiling.span`): ``scanner.scan`` around the
+    outermost of :meth:`scan`, :meth:`scan_arrays` and
+    :meth:`collect_arrays`; inside it ``upload.pad`` and ``upload.copy``
+    (a new sequence bound), ``scanner.dispatch`` (``scanner.route`` and
+    ``scanner.pack`` at the first scan, then each step's ``prefilter``,
+    ``exact.compact``, ``exact.phase_c`` and ``exact.pairs``, each dense
+    motif's ``dense``, or ``scanner.replay`` where a graph replays them)
+    and ``fetch`` (``fetch.sort``, ``fetch.wait``, ``fetch.settle`` with
+    a ``fetch.rerun`` per re-run, ``fetch.hit_arrays``), whose counts are
+    :func:`~.ops.multi.entry_counts`, the reads (``reads``) and the bytes
+    read (``d2h_bytes``).
     """
 
     #: Motifs per prefilter group (the JAX package's value; hits do not
@@ -641,13 +655,9 @@ class MultiScanner:
         self._reader = multi.HostReader()  # every read of the device
         #: reads of the device by :meth:`fetch` since the scanner was made
         self.host_reads = 0
-        #: timing hook, ``mark(stage, count)``: called as each stage's
-        #: device work is queued, with its count, an int or a tensor on
-        #: the device that the hook must not read (the stages of
-        #: :func:`~.ops.multi.scan_multi_core`, then ``"dense"`` with the
-        #: dense motifs' hits and ``"fetch"`` with all hits); ``None`` =
-        #: off
-        self.mark = None
+        #: whether a steady scan on a CUDA device replays CUDA graphs
+        #: (``False``: every scan issues eagerly)
+        self.use_graphs = True
         if seq is not None:
             self.bind(seq)
 
@@ -673,11 +683,13 @@ class MultiScanner:
 
     def scan(self, seq) -> list:
         """``bind(seq).collect()``."""
-        return self.bind(seq).collect()
+        with profiling.root_span("scanner.scan"):
+            return self.bind(seq).collect()
 
     def scan_arrays(self, seq):
         """``bind(seq).collect_arrays()``."""
-        return self.bind(seq).collect_arrays()
+        with profiling.root_span("scanner.scan"):
+            return self.bind(seq).collect_arrays()
 
     @classmethod
     def dense_m_limit(cls, k: int) -> int:
@@ -688,11 +700,12 @@ class MultiScanner:
 
     def _route(self) -> dict:
         if self._routing is None:
-            k = self.pssms[0].alphabet.size
-            short_idx, dense_idx = multi.route_motifs(
-                self.pssm_stack, self.lengths, self.thresholds, k,
-                self.dense_m_limit(k))
-            self._routing = {"short_idx": short_idx, "dense_idx": dense_idx}
+            with profiling.span("scanner.route"):
+                k = self.pssms[0].alphabet.size
+                short_idx, dense_idx = multi.route_motifs(
+                    self.pssm_stack, self.lengths, self.thresholds, k,
+                    self.dense_m_limit(k))
+                self._routing = {"short_idx": short_idx, "dense_idx": dense_idx}
         return self._routing
 
     def _pack(self) -> list:
@@ -700,15 +713,17 @@ class MultiScanner:
         padded PSSMs and f32 thresholds, once per scanner, so that a scan
         uploads nothing."""
         if self._groups is None:
-            k = self.pssms[0].alphabet.size
-            self._groups = multi.database_groups(
-                self.pssm_stack, self.lengths, self.thresholds,
-                self._route()["short_idx"], k, self.device, self.GROUP_MOTIFS,
-                single_bucket=self.single_bucket)
-            for i in self._route()["dense_idx"].tolist():
-                pssm_pad, _ = multi.pack_dense_motif(self.pssms[i].data, k)
-                self._dense_dev[i] = (torch.as_tensor(pssm_pad, device=self.device),
-                                      torch.tensor(self.thresholds[i], device=self.device))
+            with profiling.span("scanner.pack"):
+                k = self.pssms[0].alphabet.size
+                self._groups = multi.database_groups(
+                    self.pssm_stack, self.lengths, self.thresholds,
+                    self._route()["short_idx"], k, self.device, self.GROUP_MOTIFS,
+                    single_bucket=self.single_bucket)
+                for i in self._route()["dense_idx"].tolist():
+                    pssm_pad, _ = multi.pack_dense_motif(self.pssms[i].data, k)
+                    self._dense_dev[i] = (
+                        torch.as_tensor(pssm_pad, device=self.device),
+                        torch.tensor(self.thresholds[i], device=self.device))
         return self._groups
 
     def _pack_from(self, other: "MultiScanner") -> None:
@@ -747,7 +762,7 @@ class MultiScanner:
         k = self.pssms[0].alphabet.size
         groups = self._pack()
         steps = [((gi, off), gi, run) for gi, off, run in multi.group_steps(
-            dseq.data, dseq.length, self.lengths, groups, k, seg, owned, self.mark)]
+            dseq.data, dseq.length, self.lengths, groups, k, seg, owned)]
         for i in self._route()["dense_idx"].tolist():
             if n_valid[i]:
                 steps.append(((len(groups), i), ("dense", i), functools.partial(
@@ -755,7 +770,8 @@ class MultiScanner:
         return steps
 
     def _dense_run(self, data, i, n_valid, cap, cap_hits):
-        return multi.dense_entry(data, *self._dense_dev[i], n_valid, cap, i)
+        with profiling.span("dense"):
+            return multi.dense_entry(data, *self._dense_dev[i], n_valid, cap, i)
 
     def _caps(self, key) -> tuple:
         """The ``(cap, cap_hits)`` a step of the capacity key ``key`` runs
@@ -778,8 +794,8 @@ class MultiScanner:
 
     def graphed(self) -> bool:
         """Whether the steady work replays CUDA graphs: on a CUDA device
-        with the timing hook off."""
-        return self.mark is None and self.device.type == "cuda"
+        with :attr:`use_graphs` on."""
+        return self.use_graphs and self.device.type == "cuda"
 
     def dispatch(self) -> dict:
         """Issue the scan of the bound sequence, every motif group and
@@ -790,22 +806,20 @@ class MultiScanner:
         dseq = self._dseq
         if dseq is None:
             raise ValueError("no sequence bound; use scan(seq)/bind(seq)")
-        steps = self._steps(dseq, self._owned)
-        if not steps:
-            return {"entries": []}
+        with profiling.span("scanner.dispatch"):
+            steps = self._steps(dseq, self._owned)
+            if not steps:
+                return {"entries": []}
 
-        def run():
-            return [self._issue(step) for step in steps]
+            def run():
+                return [self._issue(step) for step in steps]
 
-        graphs = None
-        if self.graphed():
-            graphs = (dseq, self._owned, self._graph_key(steps))
-            entries, replayed = self.replays.issue(*graphs, "steps", run)
-        else:
-            entries, replayed = run(), False
-        if self.mark is not None and self._route()["dense_idx"].size:
-            dense = [e.counts[2] for e in entries if isinstance(e.key, tuple)]
-            self.mark("dense", torch.stack(dense).sum() if dense else 0)
+            graphs = None
+            if self.graphed():
+                graphs = (dseq, self._owned, self._graph_key(steps))
+                entries, replayed = self.replays.issue(*graphs, "steps", run)
+            else:
+                entries, replayed = run(), False
         return {"entries": entries, "replayed": replayed, "graphs": graphs if replayed else None}
 
     def _read(self, tensor: torch.Tensor) -> np.ndarray:
@@ -836,18 +850,22 @@ class MultiScanner:
         entries = token["entries"]
         if not entries:
             return multi.merge_hits([])
-        flat, widths = self._sorted_heads(entries, token["graphs"])
-        first = (*multi.unpack_heads(self._read(flat), len(entries)), widths)
-        out = multi.collect_device(entries, self._read, self._group_state, self._head_hint,
-                                   first)
-        if self.mark is not None:
-            self.mark("fetch", len(out[0]))
+        with profiling.span("fetch") as span:
+            reads, nbytes = self.host_reads, self._reader.nbytes
+            with profiling.span("fetch.sort"):
+                flat, widths = self._sorted_heads(entries, token["graphs"])
+            first = (*multi.unpack_heads(self._read(flat), len(entries)), widths)
+            out = multi.collect_device(entries, self._read, self._group_state,
+                                       self._head_hint, first, span)
+            if span:
+                span.add(reads=self.host_reads - reads, d2h_bytes=self._reader.nbytes - nbytes)
         return out
 
     def collect_arrays(self):
         """Hits as three arrays ``(motif_ids, positions, scores)``,
         ordered by (motif, position)."""
-        return self.fetch(self.dispatch())
+        with profiling.root_span("scanner.scan"):
+            return self.fetch(self.dispatch())
 
     def collect(self) -> list:
         motif_ids, positions, scores = self.collect_arrays()

@@ -11,19 +11,31 @@ no tracing beyond ``cargo bench`` MB/s counters
   synchronised around every repetition;
 * :class:`ScanStats` -- counters a scanning loop can update to report
   positions and bytes processed per second (the MB/s metric the
-  reference benches print).
+  reference benches print);
+* :func:`span` -- a named stage of the program (``upload.pad``,
+  ``scanner.dispatch``, ``fetch.wait``, ...) with counts attached at its
+  close, recorded only while a ``torch.profiler`` session is on: as a
+  ``record_function`` range on the profiler's timeline, beside the
+  device's kernels and copies, and in memory (:func:`spans`), grouped
+  by scan.  With no profiler on, a span is one check.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["profile_trace", "throughput", "ScanStats"]
+__all__ = ["profile_trace", "throughput", "ScanStats", "SpanRecord", "span", "root_span",
+           "spans", "reset_spans"]
 
 
 @contextlib.contextmanager
@@ -95,3 +107,133 @@ class ScanStats:
             f"{self.hits} hits in {self.elapsed:.2f}s "
             f"({self.positions_per_second / 1e6:.1f} Mpos/s)"
         )
+
+
+#: Scans whose spans :func:`spans` keeps, the newest.
+SCANS_KEPT = 64
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: its name, its start and end (``time.time_ns()``),
+    its id and its parent's (``None`` for the outermost), the id of its
+    scan (the outermost span's id, shared by every span inside it) and
+    the counts attached to it."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    scan: int
+    counts: dict
+
+
+class _Off:
+    """The span of a stage that no profiler records: does nothing, and
+    is false, so that a caller computes its counts only when on."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __bool__(self):
+        return False
+
+    def add(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+_IDS = itertools.count(1)
+_SCANS = collections.deque(maxlen=SCANS_KEPT)  # one list of SpanRecords per scan
+_LOCAL = threading.local()  # .open: this thread's open spans, the outermost first
+
+
+def _open() -> list:
+    stack = getattr(_LOCAL, "open", None)
+    if stack is None:
+        stack = _LOCAL.open = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "counts", "id", "parent", "scan", "records", "start", "range")
+
+    def __init__(self, name: str, counts: dict):
+        self.name, self.counts = name, counts
+
+    def add(self, **counts) -> None:
+        """Attach counts (host values) to the span."""
+        self.counts.update(counts)
+
+    def __enter__(self):
+        stack = _open()
+        self.id = next(_IDS)
+        if stack:
+            top = stack[-1]
+            self.parent, self.scan, self.records = top.id, top.scan, top.records
+        else:
+            self.parent, self.scan, self.records = None, self.id, []
+            _SCANS.append(self.records)
+        stack.append(self)
+        # the ops of torch.profiler.record_function, called here: under the
+        # profiler's stack tracer its Python wrapper puts tens of
+        # microseconds between the clock and the range's own ends
+        self.start = time.time_ns()
+        self.range = torch.ops.profiler._record_function_enter_new(self.name, None)
+        return self
+
+    def __exit__(self, *exc):
+        with torch._C.DisableTorchFunctionSubclass():
+            torch.ops.profiler._record_function_exit._RecordFunction(self.range)
+        end = time.time_ns()
+        _open().pop()
+        self.records.append(SpanRecord(self.name, self.start, end, self.id, self.parent,
+                                       self.scan, self.counts))
+        return False
+
+
+def span(name: str, **counts):
+    """A context manager around a stage of the program named ``name``
+    (layer first: ``upload.pad``, ``fetch.wait``), ``counts`` its first
+    counts; the object it yields takes more at any time before its close
+    (``add(**counts)``) and is true only when the span records.
+
+    A span records only while a ``torch.profiler`` session is on: it
+    opens a ``torch.profiler.record_function`` range named ``name`` (so
+    an exported Chrome trace holds the stage on the clock of the
+    device's kernels)
+    and, at its close, appends a :class:`SpanRecord` to its scan, the
+    spans inside the outermost one open on this thread (:func:`spans`).
+    Otherwise it is one check and a shared object that does nothing: no
+    allocation on a device, no synchronisation, no read.  Counts come
+    from values the host holds; a span never reads the device."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, counts)
+
+
+def root_span(name: str):
+    """:func:`span` where no span is open on this thread, else the span
+    that does nothing: for public calls that nest (``scan_arrays``
+    calling ``collect_arrays``), so that the outermost one opens the
+    scan."""
+    if not _autograd_profiler._is_profiler_enabled or _open():
+        return _OFF
+    return _Span(name, {})
+
+
+def spans() -> list:
+    """The :class:`SpanRecord` s of the newest :data:`SCANS_KEPT` scans, a
+    scan's spans together, the scans and the spans of each in the order
+    they opened."""
+    return [r for records in list(_SCANS) for r in sorted(records, key=lambda r: r.id)]
+
+
+def reset_spans() -> None:
+    """Forget every recorded span."""
+    _SCANS.clear()

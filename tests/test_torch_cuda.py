@@ -617,14 +617,14 @@ def _same(got, want) -> bool:
 def test_graph_replays_equal_the_eager_path_on_two_genomes(cuda):
     # two genomes, uploaded once each, bound in turn: the first scan of
     # each runs eagerly, the second captures, the rest replay; every scan
-    # equals the eager path (the timing hook keeps a scanner eager) bit
+    # equals the eager path (``use_graphs`` off keeps a scanner eager) bit
     # for bit
     from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
 
     motifs, ths, seqs = _graph_scan_inputs(37)
     seqs = [DeviceSequence(s, cuda) for s in seqs]
     eager = MultiScanner(motifs, thresholds=ths, device=cuda)
-    eager.mark = lambda stage, n: None
+    eager.use_graphs = False
     want = [eager.scan_arrays(s) for s in seqs]
     assert eager.replays.captured == eager.replays.replayed == 0
     ms = MultiScanner(motifs, thresholds=ths, device=cuda)
@@ -690,13 +690,13 @@ def test_graph_memory_stays_near_one_eager_scan(cuda):
         ms = MultiScanner(motifs, thresholds=ths, device=cuda)
         ms.SEGMENT = segment
         want = ms.scan_arrays(seq)
-        ms.mark = lambda stage, n: None  # eager
+        ms.use_graphs = False  # eager
         settle()
         torch.cuda.reset_peak_memory_stats(cuda)
         base = torch.cuda.memory_allocated(cuda)
         assert _same(ms.scan_arrays(seq), want) and len(want[0])
         peak = torch.cuda.max_memory_allocated(cuda) - base
-        ms.mark = None
+        ms.use_graphs = True
         settle()
         reserved = torch.cuda.memory_reserved(cuda)
         for _ in range(4):

@@ -162,6 +162,12 @@ def test_wildcard_above_body_max_and_unreachable_fold():
 
 
 def test_timing_hook_sees_every_stage_and_changes_no_hit(monkeypatch):
+    # the stage spans a profiled scan records (the timing hook's
+    # successor), with the fetch's counts from its one read
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightmotif_tpu_torch.utils import profiling
+
     monkeypatch.setattr(MultiScanner, "DENSE_M_LIMIT", 32)
     rng = np.random.default_rng(31)
     motifs = random_motifs(rng, [6, 9, 12, 20, 40, 70])
@@ -171,18 +177,19 @@ def test_timing_hook_sees_every_stage_and_changes_no_hit(monkeypatch):
     ms = MultiScanner(pssms, thresholds=ths, device="cpu")
     ms.SEGMENT = 5000
     want = multi_triples(ms.scan_arrays(tseq))
-    seen = []
-    ms.mark = lambda stage, n: seen.append((stage, n))
-    assert multi_triples(ms.scan_arrays(tseq)) == want
-    stages = [s for s, _ in seen]
-    assert stages == ["k3", "candidates", "phase_c", "pairs_rescore"] * 3 + ["dense", "fetch"]
-    # the counts stay on the device until the fetch: the candidates (which
-    # phase C tests), the core's counters [candidates, pairs, kept, valid]
-    n = dict.fromkeys(stages, 0)
-    for s, c in seen:
-        n[s] += c
-    assert n["phase_c"] == n["candidates"] == n["pairs_rescore"][0]
-    kept = n["pairs_rescore"][2]
-    assert n["k3"] >= 12_000 - 20 + 1 and n["candidates"] >= n["pairs_rescore"][1] >= kept
-    assert kept + n["dense"] == n["fetch"] == len(want)
-    assert n["dense"] == sum(mo in (4, 5) for mo, _, _ in want) > 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert multi_triples(ms.scan_arrays(tseq)) == want
+    records = profiling.spans()
+    root = records[-1].scan
+    mine = [r for r in records if r.scan == root]
+    names = {r.id: r.name for r in mine}
+    stages = [r.name for r in mine if names.get(r.parent) == "scanner.dispatch"]
+    assert stages == ["prefilter", "exact.compact", "exact.phase_c", "exact.pairs"] * 3 + [
+        "dense", "dense"]
+    (fetch,) = [r.counts for r in mine if r.name == "fetch"]
+    windows = sum(r.counts["windows"] for r in mine if r.name == "prefilter")
+    group, dense = fetch["by_group"][0], fetch["by_group"]["dense"]
+    assert windows >= 12_000 - 20 + 1 and group["entries"] == 3 and dense["entries"] == 2
+    assert group["candidates"] >= group["pairs"] >= group["kept"]
+    assert group["kept"] + dense["kept"] == fetch["kept"] == len(want)
+    assert dense["kept"] == sum(mo in (4, 5) for mo, _, _ in want) > 0

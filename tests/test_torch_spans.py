@@ -1,0 +1,264 @@
+"""The port's stage spans (``lightmotif_tpu_torch.utils.profiling.span``)
+on the CPU: recorded only under ``torch.profiler``, one check and no
+work without it, the tree of a database scan with one scan id, the
+fetch's counts from its one read, the spans on the profiler's clock, the
+hits unchanged, and ``chip_smoke.py``'s split by stage built on them."""
+
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from lightmotif_tpu_torch import convert
+from lightmotif_tpu_torch.scanner import MultiScanner
+from lightmotif_tpu_torch.utils import profiling
+
+from .torch_parity import multi_triples, random_motifs, sequences
+
+ROOT = Path(__file__).resolve().parents[1]
+
+#: Each span of a database scan and its parent; ``fetch.wait`` is also
+#: under ``fetch.sort``, whose upload of the sort's table waits for the
+#: stream.
+PARENTS = {
+    "upload.pad": "scanner.scan", "upload.copy": "scanner.scan",
+    "scanner.dispatch": "scanner.scan", "fetch": "scanner.scan",
+    "scanner.pack": "scanner.dispatch", "scanner.route": "scanner.pack",
+    "prefilter": "scanner.dispatch", "exact.compact": "scanner.dispatch",
+    "exact.phase_c": "scanner.dispatch", "exact.pairs": "scanner.dispatch",
+    "dense": "scanner.dispatch",
+    "fetch.sort": "fetch", "fetch.wait": "fetch", "fetch.settle": "fetch",
+    "fetch.hit_arrays": "fetch", "fetch.rerun": "fetch.settle",
+}
+
+
+def database(seed=3, widths=(6, 9, 12, 20, 40), length=12_000):
+    """A scanner's motifs (the last one dense under ``DENSE_M_LIMIT`` 32),
+    thresholds at p = 1e-3, and three sequences of ``length``."""
+    rng = np.random.default_rng(seed)
+    motifs = random_motifs(rng, list(widths))
+    thresholds = [p.score_distribution().score(1e-3) for p in motifs]
+    pssms, ths = convert.motif_set(motifs, thresholds)
+    seqs = [sequences(rng.integers(0, 4, size=length))[1] for _ in range(3)]
+    return pssms, ths, seqs
+
+
+@pytest.fixture
+def dense32(monkeypatch):
+    monkeypatch.setattr(MultiScanner, "DENSE_M_LIMIT", 32)
+
+
+def profiled(fn, stack=False):
+    with profile(activities=[ProfilerActivity.CPU], with_stack=stack) as prof:
+        out = fn()
+    return out, prof
+
+
+def scans_of(records) -> dict:
+    by_scan = {}
+    for r in records:
+        by_scan.setdefault(r.scan, []).append(r)
+    return by_scan
+
+
+def test_spans_off_are_one_shared_object_that_does_nothing():
+    a, b = profiling.span("upload.pad", bytes=3), profiling.span("fetch")
+    assert a is b is profiling.root_span("scanner.scan") and not a
+    with a as s:
+        s.add(kept=1)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = profiling.span("fetch")
+        assert on and on is not a
+        with on:
+            pass
+
+
+def test_unprofiled_scan_records_nothing_and_makes_no_span(dense32, monkeypatch):
+    pssms, ths, seqs = database()
+    ms = MultiScanner(pssms, thresholds=ths, device="cpu")
+    want = multi_triples(ms.scan_arrays(seqs[0]))
+    profiling.reset_spans()
+
+    def refused(*a, **k):
+        raise AssertionError("a span was made, or the device synchronised, with no profiler")
+
+    monkeypatch.setattr(profiling, "_Span", refused)
+    monkeypatch.setattr(torch.cuda, "synchronize", refused)
+    for seq in seqs:
+        ms.scan_arrays(seq)
+    assert multi_triples(ms.scan_arrays(seqs[0])) == want
+    assert profiling.spans() == []
+
+
+def test_spans_record_only_under_the_profiler(dense32):
+    pssms, ths, seqs = database()
+    ms = MultiScanner(pssms, thresholds=ths, device="cpu")
+    ms.scan_arrays(seqs[0])
+    profiling.reset_spans()
+    profiled(lambda: ms.scan_arrays(seqs[1]))
+    recorded = profiling.spans()
+    assert len(scans_of(recorded)) == 1 and len(recorded) > 10
+    ms.scan_arrays(seqs[2])
+    assert profiling.spans() == recorded
+
+
+@pytest.mark.parametrize("first", [True, False], ids=["first-scan", "steady"])
+@pytest.mark.parametrize("entry", ["scan_arrays", "scan", "collect_arrays"])
+def test_scan_records_its_tree_under_one_scan_id(dense32, entry, first):
+    pssms, ths, seqs = database()
+    ms = MultiScanner(pssms, thresholds=ths, device="cpu")
+    ms.SEGMENT = 5000
+    if not first:
+        ms.scan_arrays(seqs[0])
+    if entry == "collect_arrays":
+        ms.bind(seqs[1])
+    profiling.reset_spans()
+    call = {"scan_arrays": lambda: ms.scan_arrays(seqs[1]),
+            "scan": lambda: ms.scan(seqs[1]),
+            "collect_arrays": ms.collect_arrays}[entry]
+    profiled(call)
+    records = profiling.spans()
+    (root,) = [r for r in records if r.parent is None]
+    assert root.name == "scanner.scan" and {r.scan for r in records} == {root.id}
+    names = {r.id: r.name for r in records}
+    for r in records[1:]:
+        want = ("fetch", "fetch.sort") if r.name == "fetch.wait" else (PARENTS[r.name],)
+        assert names[r.parent] in want, r.name
+        parent = next(p for p in records if p.id == r.parent)
+        assert parent.start_ns <= r.start_ns <= r.end_ns <= parent.end_ns
+    seen = {r.name for r in records}
+    assert ({"upload.pad", "upload.copy"} <= seen) == (entry != "collect_arrays")
+    assert ({"scanner.route", "scanner.pack"} <= seen) == first
+    assert [r.name for r in records if r.name in ("prefilter", "dense")] == [
+        "prefilter"] * 3 + ["dense"]
+    assert {"exact.compact", "exact.phase_c", "exact.pairs", "fetch.sort", "fetch.wait",
+            "fetch.settle", "fetch.hit_arrays"} <= seen
+    assert all(r.counts["bytes"] >= 12_000 for r in records if r.name == "upload.pad")
+    assert sorted(names[r.parent] for r in records if r.name == "fetch.wait") == [
+        "fetch", "fetch.sort"]
+
+
+@pytest.mark.parametrize("capacity", [None, 1], ids=["seeded", "overflowing"])
+def test_fetch_counts_come_from_its_read(dense32, capacity):
+    pssms, ths, seqs = database(seed=5)
+    kw = {} if capacity is None else {"capacity": capacity}
+    ms = MultiScanner(pssms, thresholds=ths, device="cpu", **kw)
+    ms.SEGMENT = 5000
+    if capacity is None:
+        ms.scan_arrays(seqs[0])  # the capacities settle
+    profiling.reset_spans()
+    hits, _ = profiled(lambda: ms.scan_arrays(seqs[1]))
+    records = profiling.spans()
+    (fetch,) = [r.counts for r in records if r.name == "fetch"]
+    assert fetch["kept"] == len(hits[0]) > 0
+    assert fetch["candidates"] >= fetch["kept"] and fetch["d2h_bytes"] > 0
+    assert fetch["entries"] == sum(g["entries"] for g in fetch["by_group"].values()) == 4
+    assert fetch["by_group"]["dense"]["kept"] == int(np.sum(hits[0] == 4))
+    reruns = [r for r in records if r.name == "fetch.rerun"]
+    if capacity is None:
+        assert fetch["reads"] == 1 and not reruns
+    else:
+        assert fetch["reads"] == 1 + len(reruns) + 1 and reruns
+
+
+def _clock_errors() -> list:
+    """The gaps (us) between each span of the traced scans but the first
+    and its ``record_function`` range in the exported Chrome trace, after
+    the benchmark's mapping of the spans onto the trace's clock."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        from motifbench import spans as mapping, trace as tracing
+    finally:
+        sys.path.remove(str(ROOT))
+    pssms, ths, seqs = database(length=30_000)
+    ms = MultiScanner(pssms, thresholds=ths, device="cpu")
+    ms.scan_arrays(seqs[0])
+
+    def traced():
+        ms.scan_arrays(seqs[1])  # before the slice, as the benchmark's warm scan
+        with record_function(tracing.RANGE):
+            for seq in seqs[2:] + seqs[:2]:
+                ms.scan_arrays(seq)
+
+    _, prof = profiled(traced, stack=True)
+    events = tracing.events_of(prof)
+    slice_ = tracing.Slice(events, [len(s) for s in seqs[2:] + seqs[:2]])
+    scans = mapping.traced_scans(SimpleNamespace(trace=slice_))
+    off = mapping.offset_ns(slice_, scans)
+    ranges = {}
+    for e in sorted(events, key=lambda e: e.get("ts", 0)):
+        if (e.get("cat") == "user_annotation" and e.get("ph") == "X"
+                and slice_._lo <= e["ts"] <= slice_._hi and e["name"] in PARENTS | {
+                    "scanner.scan": None}):
+            ranges.setdefault(e["name"], []).append(e)
+    mine = {}
+    for r in sorted((r for rs in scans for r in rs), key=lambda r: r.start_ns):
+        mine.setdefault(r.name, []).append(r)
+    errors = []
+    for name, rs in mine.items():
+        assert len(ranges[name]) == len(rs), name
+        for r, e in list(zip(rs, ranges[name]))[len(rs) // len(scans):]:
+            errors += [(r.start_ns + off) / 1e3 - e["ts"],
+                       (r.end_ns + off) / 1e3 - e["ts"] - e["dur"]]
+    return errors
+
+
+def test_spans_lie_on_the_profiler_clock():
+    # a span preempted by the host's scheduler between its clock read and
+    # its range's own can miss by more: the best of three sessions holds
+    worst = []
+    for _ in range(3):
+        worst.append(max(abs(e) for e in _clock_errors()))
+        if worst[-1] <= 50:
+            break
+    assert min(worst) <= 50, worst
+
+
+@pytest.mark.parametrize("widths, segment", [((6, 9, 12, 20, 40), 5000),
+                                             ((5, 15, 30), 1 << 23),
+                                             ((8, 70), 7000)])
+def test_hits_unchanged_with_the_profiler_on(dense32, widths, segment):
+    pssms, ths, seqs = database(seed=9, widths=widths)
+    ms = MultiScanner(pssms, thresholds=ths, device="cpu")
+    ms.SEGMENT = segment
+    want = [multi_triples(ms.scan_arrays(s)) for s in seqs]
+    got, _ = profiled(lambda: [multi_triples(ms.scan_arrays(s)) for s in seqs])
+    assert got == want and all(want)
+    assert [multi_triples(ms.scan_arrays(s)) for s in seqs] == want
+
+
+def test_chip_smoke_stage_rows_keep_their_keys(dense32):
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.remove(str(ROOT))
+    pssms, ths, seqs = database()
+    ms = MultiScanner(pssms, thresholds=ths, device="cpu")
+    ms.SEGMENT = 5000
+    hits = ms.scan_arrays(seqs[0])
+    profiling.reset_spans()
+
+    def run():
+        ms.scan_arrays(seqs[1])
+        with record_function(cs.TIMED_RANGE):
+            t0 = time.perf_counter()
+            ms.scan_arrays(seqs[0])
+            return (time.perf_counter() - t0) * 1e3
+
+    wall, prof = profiled(run)
+    out = cs.stage_rows(cs.trace_events(prof), wall, (0.0, [], 0, 0), profiling.spans())
+    assert set(out) == {
+        "k3_ms", "candidates_ms", "phase_c_ms", "pairs_rescore_ms", "dense_ms", "fetch_ms",
+        "end_ms", "n_k3", "n_candidates", "n_phase_c", "n_pairs_rescore", "n_dense", "n_fetch",
+        "top_kernels_ms", "wall_ms", "device_events", "warmup_events", "device_busy_ms",
+        "host_ms", "idle_share"}
+    assert out["n_fetch"] == len(hits[0]) and out["n_k3"] >= 12_000 - 6 + 1
+    assert out["n_pairs_rescore"][2] == out["n_fetch"] and out["n_dense"] > 0
+    assert out["k3_ms"]["host"] > 0 and out["k3_ms"]["device"] == 0
+    assert 0 <= out["end_ms"]["host"] < wall
