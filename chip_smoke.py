@@ -435,7 +435,8 @@ def group_launches(n: int, prefilter: str = "prefilter_any8") -> dict:
     from lightmotif_tpu_torch.ops import multi, multi_stages
 
     n += multi.RERUNS["group"]
-    return {prefilter: n, "phase_c_bits": n, "pairs_rescore": n * multi_stages.PAIRS_KERNELS}
+    return {prefilter: n, "prefilter_gmma": n, "phase_c_bits": n,
+            "pairs_rescore": n * multi_stages.PAIRS_KERNELS}
 
 
 def phase_card() -> None:
@@ -510,7 +511,8 @@ def sass_opcodes(path) -> dict:
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True).stdout
     ops, name = {}, None
-    instr = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
+    # addresses grow past four hex digits in kernels of over 4,096 instructions
+    instr = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
@@ -593,6 +595,28 @@ def p6_sass() -> None:
         ptxas_notes=" | ".join(notes) or "none")
 
 
+def gmma_sass() -> None:
+    """The prefilter's warpgroup kernel (``gmma_prefilter`` in
+    ``prefilter.cu``, what the entry points launch) holds ``IGMMA`` and no
+    ``IMMA``, and ptxas says nothing of it serialising ``wgmma`` (its
+    warning C7514) or ignoring ``setmaxnreg``; its ``ptxas -v`` lines."""
+    from lightmotif_tpu_torch.ops import build
+
+    info = build.build_info()
+    lib = next(p for p in info["paths"] if "prefilter" in p.name)
+    kernels = {n: o for n, o in sass_opcodes(lib).items() if "gmma_prefilter" in n}
+    n = {op: sum(o.count(op) for o in kernels.values()) for op in ("IGMMA", "IMMA")}
+    notes = sorted({line.strip() for line in info["log"].splitlines()
+                    if "C7514" in line or (("wgmma" in line or "setmaxnreg" in line)
+                                           and "ptxas" in line)})
+    if len(kernels) != 1 or n["IGMMA"] < 1 or n["IMMA"] or notes:
+        raise SystemExit(f"sass: the warpgroup prefilter {sorted(kernels)} holds {n}; "
+                         f"ptxas notes {notes}")
+    log("sass", library=lib.name, gmma_prefilter_igmma=n["IGMMA"], imma=0,
+        ptxas=" | ".join(ptxas_lines(info["log"], ("gmma_prefilter",))),
+        ptxas_notes="none")
+
+
 def phase_sass() -> int:
     """The prefilter library's SASS: every tensor-core instantiation, the
     production one and P9's bits form included, must hold tensor-core
@@ -653,6 +677,7 @@ def phase_sass() -> int:
         ptxas=" | ".join(ptxas_lines(log_text, ("row_offsets", "keep_pairs"))))
 
     scan_sass()
+    gmma_sass()
     p6_sass()
 
     lib = next(p for p in build.build_info()["paths"] if "score" in p.name)
@@ -984,10 +1009,22 @@ def k3_group(pssms, thresholds):
     dm_stack, _ = multi.stack_motifs([d.data.astype(np.float32) for d in dms], k)
     t_scaled = np.asarray([d.scale(t) for d, t in zip(dms, ths)], np.int64)
     t_scaled[ths > 1e5] = 300  # never-pass lanes: past the u8 range
-    k4 = [torch.from_numpy(a).to(DEVICE) for a in multi.pack_filters_k4(
-        multi_kernel.pack_filters_any(dm_stack, t_scaled, k), k)]
-    return ([torch.from_numpy(a).to(DEVICE) for a in g["k3"]], m_max, g["widths"],
+    k4 = gmma_args(multi.pack_filters_k4(multi_kernel.pack_filters_any(dm_stack, t_scaled, k),
+                                         k))
+    return (gmma_args(g["k3"]), m_max, g["widths"],
             {"prefilter_any": k4, "prefilter_any16": list(k5)})
+
+
+def gmma_args(packed) -> list:
+    """Host prefilter filters ``(planes, chunk_m, t_eff)`` on the card with
+    their blocks for the warpgroup kernel and the blocks' k-steps, as a
+    device group holds them."""
+    from lightmotif_tpu_torch.ops import multi_kernel
+
+    planes, chunk_m, _ = packed
+    ksteps = tuple(multi_kernel.tile_ksteps(chunk_m, planes.shape[-1]).tolist())
+    return [*(torch.from_numpy(a).to(DEVICE)
+              for a in (*packed, multi_kernel.gmma_blocks(planes, chunk_m))), ksteps]
 
 
 def prefilter_cases():
@@ -1063,8 +1100,7 @@ def bench_k4_inputs(seq):
     dms[:, :, 4] = 0.0
     filters_t = multi_kernel.pack_filters_any(dms, np.full(count, BENCH_K4_THRESHOLD), k)
     filters_t[multi_kernel._lanes_for(k) - 1, :] = -float(BENCH_K4_THRESHOLD)
-    table = [torch.from_numpy(a).to(DEVICE) for a in multi.pack_filters_k4(filters_t, k)]
-    return DeviceSequence(seq, DEVICE).data, table, m
+    return DeviceSequence(seq, DEVICE).data, gmma_args(multi.pack_filters_k4(filters_t, k)), m
 
 
 def phase_k4k5(cases, seq) -> dict:
@@ -3226,7 +3262,7 @@ def run_ranks(label: str, backend: str, cards: list, shards_each: int,
         one_pssm = {"scan_segment": shards_each}
         want = {"collect": one_pssm, "max": one_pssm,
                 "argmax": {"score_f32": shards_each},
-                "database": {"prefilter_any8": k3, "phase_c_bits": k3,
+                "database": {"prefilter_any8": k3, "prefilter_gmma": k3, "phase_c_bits": k3,
                              "pairs_rescore": k3 * PAIRS_KERNELS}}
         got = {name: {k: v for k, v in counts.items() if v}
                for name, counts in run["launches"].items()}
@@ -3555,11 +3591,42 @@ def time_scan_segment(shapes) -> dict:
     return out
 
 
+#: The repeated check of the warpgroup prefilter: window starts of each
+#: launch (ragged, against whole 128-position tiles) and launches of each.
+GMMA_REPEAT_COUNTS = (130, 5000, 128077)
+GMMA_REPEATS = 20
+
+
+def gmma_repeats(group, chunk) -> None:
+    """The warpgroup prefilter launched GMMA_REPEATS times at each of
+    GMMA_REPEAT_COUNTS window starts of a database group, each launch held
+    to the plain version by ``torch.equal`` (the check P6's wgmma race
+    asked of any production wgmma kernel); fails on any wrong launch."""
+    from lightmotif_tpu_torch.ops import multi_kernel, torch_ops
+
+    wrong, launched = [], 0
+    for n in GMMA_REPEAT_COUNTS:
+        want = torch_ops.prefilter_any8(chunk[:n], *group["k3"])
+        before = multi_kernel.LAUNCHES["prefilter_gmma"]
+        for i in range(GMMA_REPEATS):
+            got = multi_kernel.prefilter_any8(chunk[:n], *group["k3"])
+            if not torch.equal(got, want):
+                bad = torch.nonzero(got != want).flatten()
+                wrong.append((n, i, bad[:4].tolist()))
+        launched += multi_kernel.LAUNCHES["prefilter_gmma"] - before
+    if wrong or launched != GMMA_REPEATS * len(GMMA_REPEAT_COUNTS):
+        raise SystemExit(f"gmma repeats: {launched} warpgroup launches, wrong {wrong[:8]}")
+    log("gmma_repeats", counts=",".join(map(str, GMMA_REPEAT_COUNTS)),
+        launches=launched, wrong_launches=0)
+
+
 def phase_database_times(ms, seq) -> tuple:
     """K3 at a database group's shape beside its plain version, the
     database scan's steady-state wall beside the plain stages' wall on
     the card (in turns), and its split by stage."""
     from lightmotif_tpu_torch.ops import multi_kernel, torch_ops
+
+    from lightmotif_tpu_torch.ops import build
 
     dseq = ms._dseq
     group = ms._groups[0]
@@ -3568,24 +3635,37 @@ def phase_database_times(ms, seq) -> tuple:
     args = group["k3"]
     kernel = lambda: multi_kernel.prefilter_any8(chunk, *args)  # noqa: E731
     plain = lambda: torch_ops.prefilter_any8(chunk, *args)  # noqa: E731
+    # the earlier design, mma_kernel's production instantiation
+    mma = lambda: multi_kernel.launch(  # noqa: E731
+        "prefilter_any8", build.library().lm_prefilter_production(), chunk, *args[:3],
+        lib=build.probe_library())
     n = chunk.shape[0] - group["m_max"] + 1
-    if not torch.equal(kernel()[:n], plain()[:n]):
-        raise SystemExit("prefilter_any8 != plain at the database group's shape")
+    if not (torch.equal(kernel()[:n], plain()[:n]) and torch.equal(kernel(), mma())):
+        raise SystemExit("prefilter_any8 != plain or mma_kernel at the database group's shape")
+    gmma_repeats(group, chunk)
     lanes = group["phase_c"][2].shape[0]
-    # device time per launch, in turns: plain, kernel, kernel, plain
+    # device time per launch, in turns: plain, kernel, kernel, plain; then
+    # mma_kernel, kernel, kernel, mma_kernel
     p1 = time_cuda(plain, runs=3)
     k1 = time_cuda(kernel, repeat=3)
     k2 = time_cuda(kernel, repeat=3)
     p2 = time_cuda(plain, runs=3)
-    ms_k3, plain_k3 = min(k1, k2), min(p1, p2)
-    bound_ms, bound_by = prefilter_bound(chunk, *args)
+    m1 = time_cuda(mma, repeat=3)
+    k3 = time_cuda(kernel, repeat=3)
+    k4 = time_cuda(kernel, repeat=3)
+    m2 = time_cuda(mma, repeat=3)
+    ms_k3, plain_k3, mma_k3 = min(k1, k2, k3, k4), min(p1, p2), min(m1, m2)
+    bound_ms, bound_by = prefilter_bound(chunk, *args[:3])
     lib_ms, lib_equal = library_prefilter(chunk, args[0], args[2], kernel())
+    issued = multi_kernel.issued_ops(chunk.shape[0], args[0], args[3])
     entry = {"ms": ms_k3, "plain_ms": plain_k3, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": lib_ms}
     log("times", kernel="prefilter_any8", shape=f"{chunk.shape[0]}x{lanes} lanes, "
         f"m={group['m_max']}", equal=True, ms=f"{ms_k3:.4f}", plain_ms=f"{plain_k3:.4f}",
-        runs=f"k={k1:.4f},{k2:.4f} p={p1:.4f},{p2:.4f}",
+        mma_kernel_ms=f"{mma_k3:.4f}",
+        runs=f"k={k1:.4f},{k2:.4f},{k3:.4f},{k4:.4f} p={p1:.4f},{p2:.4f} m={m1:.4f},{m2:.4f}",
         gpos_lanes_s=f"{chunk.shape[0] * lanes / ms_k3 / 1e6:.3f}",
+        issued_tops=f"{issued / ms_k3 / 1e9:.1f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, library_ms=f"{lib_ms:.4f}",
         library="conv1d + amax", library_equal=lib_equal)
 
@@ -4053,7 +4133,7 @@ def time_prefilter(name, seq, args, m, what: str) -> dict:
     k2 = time_cuda(kernel, repeat=3)
     p2 = time_cuda(plain, runs=3)
     ms, plain_ms = min(k1, k2), min(p1, p2)
-    bound_ms, bound_by = prefilter_bound(seq, *args)
+    bound_ms, bound_by = prefilter_bound(seq, *args[:3])
     lib_ms, lib_equal = library_prefilter(seq, args[0], args[2], got)
     lanes = args[2].shape[0]
     log("times", kernel=name, shape=what, equal=True, ms=f"{ms:.4f}",
@@ -4171,24 +4251,24 @@ def phase_probes(ms, seq, times) -> dict:
     launches, p6 = phase_p6()
     table7 = probes.lookup_table(group["k3"][0])
     launches["prefilter_lookup"] = checked(
-        "P7", lambda: probes.prefilter_lookup(chunk, table7, *group["k3"][1:]),
-        torch_ops.prefilter_any8(chunk, *group["k3"]))["prefilter_lookup"]
-    want = torch_ops.prefilter_any8(data, *table)
+        "P7", lambda: probes.prefilter_lookup(chunk, table7, *group["k3"][1:3]),
+        torch_ops.prefilter_any8(chunk, *group["k3"][:3]))["prefilter_lookup"]
+    want = torch_ops.prefilter_any8(data, *table[:3])
     for orient in ("m", "n"):
         n_launched = 0
         for v, row in enumerate(probes.VARIANTS):
             if row[0] == orient:
                 n_launched += checked(f"variant {v}",
-                                      lambda: probes.prefilter_variant(v, data, *table),
+                                      lambda: probes.prefilter_variant(v, data, *table[:3]),
                                       want)["prefilter_variant"]
         launches[f"prefilter_variant_{orient}"] = n_launched
 
-    p7 = probes.run_p7(chunk, *group["k3"])
+    p7 = probes.run_p7(chunk, *group["k3"][:3])
     log("probes", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in p7.items()})
     sweeps = {}
     for orient in ("m", "n"):
-        rows = probes.run_sweep(data, *table, orient)
-        rows0 = probes.run_sweep(chunk, *group["k3"], orient)
+        rows = probes.run_sweep(data, *table[:3], orient)
+        rows0 = probes.run_sweep(chunk, *group["k3"][:3], orient)
         for r, r0 in zip(rows, rows0):
             log("probes", probe=r["probe"], variant=r["variant"], orientation=orient,
                 chunks_per_pass=r["chunks_per_pass"], warps=r["warps"],
@@ -4462,7 +4542,7 @@ def phase_score_probes(pssm, seq, ms, times) -> dict:
     lanes = np.zeros(group["phase_c"][2].shape[0], np.int32)
     lanes[: len(group["ids"])] = n_valid[group["ids"]]
     nv = torch.from_numpy(lanes).to(DEVICE)
-    args = group["k3"]
+    args = group["k3"][:3]  # mma_kernel's inputs: the planes
     launches["P9"] = checked_launches([("P9", lambda: pprobes.prefilter_bits(chunk, *args, nv),
                                         pprobes.prefilter_bits_plain(chunk, *args, nv))])
     p9 = pprobes.run_p9(chunk, *args, nv)
@@ -5048,7 +5128,7 @@ def main(argv: list) -> int:
     launches["score_f32"] += phase_sampler()
     phase_batch_sampler()
     for name, n in phase_mesh(pssm, seq, ms, scanner_hits, brute).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     phase_mesh_cards(pssm, seq, ms, scanner_hits, brute, counts)
     phase_mesh_procs(scanner_hits, brute)
     times = phase_times(pssm, seq)
@@ -5060,7 +5140,7 @@ def main(argv: list) -> int:
     probe_entries = phase_probes(ms, seq, times)
     probe_entries.update(phase_score_probes(pssm, seq, ms, times))
     for name, n in phase_scale(pssm, ms.pssms, ms.thresholds, counts, seq).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     if parent is not None:
         phase_parent(parent)
     sources = {"score_f32": (SOURCE, REPLACES), "score_u8": (SOURCE, REPLACES),

@@ -97,11 +97,14 @@ PRODUCTION_SYMBOLS = {
     "lm_prefilter_production": ([], _INT),
     "lm_prefilter_smem": ([_INT, _INT, _INT, _INT], _I64),
     "lm_prefilter_any8": (
-        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
+        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _INT, _P, _P, _P], _INT),
     "lm_prefilter_any": (
-        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
+        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _INT, _P, _P, _P], _INT),
     "lm_prefilter_any16": (
-        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P], _INT),
+        [_P, _I64, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _INT, _P, _P, _P], _INT),
+    "lm_prefilter_gmma_shape": ([_INT], _INT),
+    "lm_prefilter_gmma_takes": ([_INT, _INT, _INT, _INT], _INT),
+    "lm_prefilter_gmma_geom": ([_INT, _INT, _INT, _INT], _I64),
     "lm_phase_c_geom": ([_INT, _INT, _INT, _INT, _INT], _INT),
     "lm_phase_c_smem": ([_INT, _INT, _INT, _INT, _INT], _I64),
     "lm_phase_c_bits": (

@@ -61,8 +61,8 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
-#include <cuda_runtime.h>
 
+#include "gmma.cuh"
 #include "launch_attrs.cuh"
 
 namespace {
@@ -85,37 +85,7 @@ __host__ __device__ constexpr long long smem_bytes(int slabs) {
   return 1024 + static_cast<long long>(slabs + STAGES) * TILE_BYTES + 8 * N_BARRIERS;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
+// a box of a 2-D tensor map at (c0, c1) into shared memory at dst
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int c0, int c1) {
   asm volatile(
@@ -132,19 +102,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
-
-#define LM_D8(c, i) \
-  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
-#define LM_D64(c) \
-  LM_D8(c, 0), LM_D8(c, 8), LM_D8(c, 16), LM_D8(c, 24), LM_D8(c, 32), LM_D8(c, 40), \
-      LM_D8(c, 48), LM_D8(c, 56)
-#define LM_R(x) "+r"(x)
-#define LM_F(x) "+f"(x)
-#define LM_REGS64                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "    \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // one k-step of 32 bytes: d (+)= A[64 x 32 B] . B[128 x 32 B]^T; `accumulate`
 // 0 starts a chunk's sums afresh
@@ -165,26 +122,10 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db, 
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// keep the compiler from moving register uses across the asynchronous MMAs
-__device__ __forceinline__ void fence_regs(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
+// fence_regs(int) is gmma.cuh's
 __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ int max3(int a, int b, int c) { return __vimax3_s32(a, b, c); }

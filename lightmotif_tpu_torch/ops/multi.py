@@ -581,11 +581,22 @@ def _dev(a, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
+def _prefilter_to_device(packed, device) -> tuple:
+    """Host prefilter filters ``(planes, chunk_m, t_eff)`` on the device,
+    with the planes' blocks for the warpgroup kernel
+    (:func:`.multi_kernel.gmma_blocks`) and, as host ints, their k-steps a
+    lane tile (:func:`.multi_kernel.tile_ksteps`) after them."""
+    planes, chunk_m, _ = packed
+    ksteps = tuple(multi_kernel.tile_ksteps(chunk_m, planes.shape[-1]).tolist())
+    return (*(_dev(a, device) for a in packed),
+            _dev(multi_kernel.gmma_blocks(planes, chunk_m), device), ksteps)
+
+
 def group_to_device(g: dict, device: torch.device) -> dict:
-    """The tensors of a packed group that the device stages read: K3, phase
-    C's planes (K3's, shared) and thresholds, and the exact rescore's stack
-    and thresholds."""
-    k3 = tuple(_dev(a, device) for a in g["k3"])
+    """The tensors of a packed group that the device stages read: K3 (with
+    its blocks), phase C's planes (K3's, shared) and thresholds, and the
+    exact rescore's stack and thresholds."""
+    k3 = _prefilter_to_device(g["k3"], device)
     return {
         "k3": k3,
         "phase_c": (k3[0], k3[1], _dev(g["phase_c"][2], device)),
@@ -644,7 +655,8 @@ def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict, k: 
     larger ``cap_hits`` while ``hit_need > cap_hits``).
 
     Each stage's issue is a span (:func:`~..utils.profiling.span`):
-    ``prefilter`` (its count ``windows``, the window starts it tests),
+    ``prefilter`` (its counts ``windows``, the window starts it tests, and
+    :func:`.multi_kernel.issue_counts`' ``gmma`` and ``issued_ops``),
     ``exact.compact``, ``exact.phase_c`` and ``exact.pairs``.
     """
     cap = int(cap)
@@ -654,7 +666,8 @@ def scan_multi_core(chunk: torch.Tensor, n_valid: torch.Tensor, group: dict, k: 
     with profiling.span("prefilter") as span:
         maxv = getattr(multi_kernel, PREFILTERS[mode])(chunk, *group[mode])
         if span:
-            span.add(windows=maxv.shape[0])
+            span.add(windows=maxv.shape[0],
+                     **multi_kernel.issue_counts(chunk, *group[mode]))
     with profiling.span("exact.compact"):
         cand, count = compact_candidates(maxv, cap)
     with profiling.span("exact.phase_c"):
@@ -710,10 +723,16 @@ def group_from_filters(pssms, thresholds, m_max: int, k: int, device,
     else:
         mode, (cells, t_pre) = ("k5", u16) if u16 is not None else ("k4", u8)
     cells_c, t_c = u16 if u16 is not None else u8
+    pre = _plane_table(_trim_rows(cells), t_pre)
+    planes_c, chunk_m_c, t_eff_c = _plane_table(_trim_rows(cells_c[:, :m_max]), t_c)
+    pre_dev = _prefilter_to_device(pre, device)
+    if np.array_equal(pre[0], planes_c) and np.array_equal(pre[1], chunk_m_c):
+        pc_dev = (pre_dev[0], pre_dev[1], _dev(t_eff_c, device))  # one copy of the planes
+    else:
+        pc_dev = tuple(_dev(a, device) for a in (planes_c, chunk_m_c, t_eff_c))
     return {
-        mode: tuple(_dev(a, device) for a in _plane_table(_trim_rows(cells), t_pre)),
-        "phase_c": tuple(_dev(a, device)
-                         for a in _plane_table(_trim_rows(cells_c[:, :m_max]), t_c)),
+        mode: pre_dev,
+        "phase_c": pc_dev,
         "pssm": _dev(np.asarray(pssms, np.float32), device),
         "th": _dev(np.asarray(thresholds, np.float32), device),
         "m_max": int(m_max),

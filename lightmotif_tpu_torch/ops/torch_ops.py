@@ -109,15 +109,16 @@ def plane_cells(planes: torch.Tensor) -> torch.Tensor:
 
 
 def prefilter_any8(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
-                   t_eff: torch.Tensor) -> torch.Tensor:
+                   t_eff: torch.Tensor, blocks=None, ksteps=None) -> torch.Tensor:
     """``max_mo (sum_j cell[mo, j, s[p+j]] - t_eff[mo])`` of every window
     start as int32 ``[Lp]``, with the cells of :func:`plane_cells`.
 
     ``planes``: uint8 ``[P, chunks, lanes, rows, K]``; ``t_eff``: int32
     ``[chunks * lanes]``.  Every row ``j < rows`` is summed: ``chunk_m``
-    is the CUDA kernel's k-step bound, and the rows past it are zero, so
-    it changes no sum and is not read here.  Integer sums are exact in
-    any order.
+    is the CUDA kernels' k-step bound, and the rows past it are zero, so
+    it changes no sum and is not read here; nor are ``blocks`` and
+    ``ksteps``, the same planes packed for the warpgroup kernel and their
+    schedule.  Integer sums are exact in any order.
     """
     cells = plane_cells(planes)
     m_pad, m, k = cells.shape
@@ -136,13 +137,13 @@ def prefilter_any8(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tenso
 
 
 def prefilter_any(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
-                  t_eff: torch.Tensor) -> torch.Tensor:
+                  t_eff: torch.Tensor, blocks=None, ksteps=None) -> torch.Tensor:
     """K4's plain version: :func:`prefilter_any8` of the u8 plane."""
     return prefilter_any8(seq, planes, chunk_m, t_eff)
 
 
 def prefilter_any16(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
-                    t_eff: torch.Tensor) -> torch.Tensor:
+                    t_eff: torch.Tensor, blocks=None, ksteps=None) -> torch.Tensor:
     """K5's plain version: :func:`prefilter_any8` of the K5 planes."""
     return prefilter_any8(seq, planes, chunk_m, t_eff)
 

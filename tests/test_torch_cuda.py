@@ -7,6 +7,8 @@ port is installed::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,25 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernels run only on the card")
     return torch.device("cuda")
+
+
+def _card_args(packed, device) -> list:
+    """Host prefilter filters ``(planes, chunk_m, t_eff)`` on the card with
+    their blocks for the warpgroup kernel and the blocks' k-steps, as a
+    device group holds them."""
+    planes, chunk_m, _ = packed
+    ksteps = tuple(multi_kernel.tile_ksteps(chunk_m, planes.shape[-1]).tolist())
+    return [*(torch.from_numpy(a).to(device)
+              for a in (*packed, multi_kernel.gmma_blocks(planes, chunk_m))), ksteps]
+
+
+def _mma_kernel(name, seq, args):
+    """The earlier design, mma_kernel's production instantiation, on the
+    planes of ``args``."""
+    from lightmotif_tpu_torch.ops import build
+
+    return multi_kernel.launch(name, build.library().lm_prefilter_production(), seq,
+                               *args[:3], lib=build.probe_library())
 
 
 def _motifs(rng, widths, alphabet):
@@ -56,14 +77,16 @@ def test_prefilter_any8_kernel_matches_plain(cuda, alphabet, widths):
                                stack, ths, k)
     seq = rng.integers(0, k, size=100_000).astype(np.uint8)
     seq_dev = torch.from_numpy(seq).to(cuda)
-    args = [torch.from_numpy(a).to(cuda) for a in g["k3"]]
-    before = multi_kernel.LAUNCHES["prefilter_any8"]
+    args = _card_args(g["k3"], cuda)
+    before = dict(multi_kernel.LAUNCHES)
     got = multi_kernel.prefilter_any8(seq_dev, *args)
     want = torch_ops.prefilter_any8(seq_dev, *args)
     torch.cuda.synchronize()
-    assert multi_kernel.LAUNCHES["prefilter_any8"] == before + 1
+    assert multi_kernel.LAUNCHES["prefilter_any8"] == before["prefilter_any8"] + 1
+    assert multi_kernel.LAUNCHES["prefilter_gmma"] == before["prefilter_gmma"] + 1
     n = seq.size - m_max + 1
     assert torch.equal(got[:n], want[:n])
+    assert torch.equal(got, _mma_kernel("prefilter_any8", seq_dev, args))
 
 
 def test_multiscanner_on_the_card_matches_the_cpu(cuda):
@@ -145,12 +168,13 @@ def test_k4_k5_kernels_match_plain_at_the_extremes(cuda, name):
     seq = rng.integers(0, 5, size=100_000).astype(np.uint8)
     seq[::101] = 4  # wildcards in the windows
     seq_dev = torch.from_numpy(seq).to(cuda)
-    args = [torch.from_numpy(a).to(cuda) for a in table]
-    before = multi_kernel.LAUNCHES[name]
+    args = _card_args(table, cuda)
+    before = dict(multi_kernel.LAUNCHES)
     got = getattr(multi_kernel, name)(seq_dev, *args)
     want = getattr(torch_ops, name)(seq_dev, *args)
     torch.cuda.synchronize()
-    assert multi_kernel.LAUNCHES[name] == before + 1
+    assert multi_kernel.LAUNCHES[name] == before[name] + 1
+    assert multi_kernel.LAUNCHES["prefilter_gmma"] == before["prefilter_gmma"] + 1
     n = seq.size - m + 1
     assert torch.equal(got[:n], want[:n])
     assert want[:n].unique().numel() > 100  # not vacuous
@@ -201,10 +225,10 @@ def test_tensor_core_prefilter_matches_plain_at_the_extremes(cuda, name, k, m, n
     seq = rng.integers(0, k, size=30_000).astype(np.uint8)
     seq[1000:1400] = k - 1  # a wildcard run
     s = torch.from_numpy(seq).to(cuda)
-    args = [torch.from_numpy(a).to(cuda) for a in packed]
+    args = _card_args(packed, cuda)
     want = torch_ops.prefilter_any8(s, *args)
     n = seq.size - m + 1
-    # the three entry points (the production instantiation)
+    # the three entry points (the warpgroup kernel)
     for fn in ("prefilter_any8", "prefilter_any", "prefilter_any16"):
         before = multi_kernel.LAUNCHES[fn]
         got = getattr(multi_kernel, fn)(s, *args)
@@ -215,7 +239,7 @@ def test_tensor_core_prefilter_matches_plain_at_the_extremes(cuda, name, k, m, n
     ran = set()
     for v, (orient, *_rest) in enumerate(probes.VARIANTS):
         try:
-            got = probes.prefilter_variant(v, s, *args)
+            got = probes.prefilter_variant(v, s, *args[:3])
         except ValueError as err:  # shared memory past the card's limit
             assert "shared memory" in str(err)
             continue
@@ -232,7 +256,7 @@ def test_prefilter_launch_reads_nothing_back_from_the_card(cuda):
     rng = np.random.default_rng(2)
     packed = _extreme_planes(rng, 5, 16, 2, lanes=300)
     s = torch.from_numpy(rng.integers(0, 5, 50_000).astype(np.uint8)).to(cuda)
-    args = [torch.from_numpy(a).to(cuda) for a in packed]
+    args = _card_args(packed, cuda)
     torch.cuda.synchronize()
     saved = torch.cuda.get_sync_debug_mode()
     try:
@@ -243,6 +267,191 @@ def test_prefilter_launch_reads_nothing_back_from_the_card(cuda):
         torch.cuda.set_sync_debug_mode(saved)
     want = torch_ops.prefilter_any8(s, *args)
     assert all(torch.equal(o[: 50_000 - 15], want[: 50_000 - 15]) for o in outs)
+
+
+def _database_groups(cuda, seed=0x1A5BA2):
+    """The two group shapes of the benchmark's JASPAR-sized database, as
+    ``MultiScanner`` packs it in 2,048-lane groups sorted by length: motifs
+    of 5-16 rows (16 rows) and of 17-35 (48 rows), thresholds at 80% of
+    each motif's best score.  Returns ``[(group on the card, its motif
+    count)]``."""
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([rng.integers(5, 17, 2048), rng.integers(17, 36, 2048)])
+    stack = rng.normal(size=(lengths.size, 35, 5)).astype(np.float32)
+    stack[:, :, 4] = stack[:, :, :4].min(axis=2)  # the wildcard column
+    for i, m in enumerate(lengths):
+        stack[i, m:] = 0.0
+    ths = (0.8 * stack.max(axis=2).sum(axis=1)).astype(np.float32)
+    ids = np.argsort(lengths, kind="stable")
+    return [(multi.group_to_device(g, cuda), len(g_ids))
+            for g_ids, g in multi.pack_database(stack, lengths, ths, ids, 5, 2048)]
+
+
+def _gmma_cases(rng):
+    """(case, wrapper, packed filters, K, rows) of the warpgroup kernel's
+    card checks: K4 (one plane), K5 (never-pass lanes at 262144), protein K,
+    the deepest DNA rows, and 32 lane tiles of 1 to 32 k-steps each (every
+    depth of the deep shapes' loop of commit groups)."""
+    out = []
+    table, m = _extreme_tables(rng, "prefilter_any")
+    out.append(("k4_one_plane", "prefilter_any", table, 5, m))
+    table, m = _extreme_tables(rng, "prefilter_any16")
+    out.append(("k5_never_pass", "prefilter_any16", table, 5, m))
+    out.append(("protein_m32", "prefilter_any8", _extreme_planes(rng, 21, 32, 2, lanes=300), 21, 32))
+    out.append(("dna_m128", "prefilter_any8", _extreme_planes(rng, 5, 128, 2, lanes=200), 5, 128))
+    k, rows, tiles = 4, 256, 32
+    cells = rng.integers(0, 65536, size=(tiles * 128, rows, k))
+    for t in range(tiles):  # tile t: rows up to 8 (t + 1), t + 1 k-steps
+        cells[t * 128:(t + 1) * 128, 8 * (t + 1):] = 0
+    best = cells.max(axis=2).sum(axis=1)
+    packed = multi._plane_table(cells, best - rng.integers(0, best // 16 + 1))
+    assert multi_kernel.tile_ksteps(packed[1], k).tolist() == list(range(1, tiles + 1))
+    out.append(("ksteps_1_to_32", "prefilter_any8", packed, k, rows))
+    return out
+
+
+@pytest.mark.parametrize("case", range(5), ids=["k4_one_plane", "k5_never_pass", "protein_m32",
+                                                "dna_m128", "ksteps_1_to_32"])
+def test_gmma_prefilter_matches_plain_and_mma_kernel(cuda, case):
+    rng = np.random.default_rng(40 + case)
+    _, name, packed, k, m = _gmma_cases(rng)[case]
+    seq = rng.integers(0, k, size=40_000).astype(np.uint8)
+    seq[5000:5300] = k - 1  # a wildcard run
+    s = torch.from_numpy(seq).to(cuda)
+    args = _card_args(packed, cuda)
+    assert multi_kernel.gmma_takes(args[0])
+    before = multi_kernel.LAUNCHES["prefilter_gmma"]
+    got = getattr(multi_kernel, name)(s, *args)
+    want = getattr(torch_ops, name)(s, *args)
+    torch.cuda.synchronize()
+    assert multi_kernel.LAUNCHES["prefilter_gmma"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, _mma_kernel(name, s, args))
+    n = seq.size - m + 1
+    assert want[:n].unique().numel() > 100  # not vacuous
+
+
+def test_gmma_prefilter_matches_at_the_database_groups_shapes(cuda):
+    groups = [g for g, _ in _database_groups(cuda)]
+    assert [g["k3"][0].shape[3] for g in groups] == [16, 48]
+    rng = np.random.default_rng(11)
+    s = torch.from_numpy(rng.integers(0, 4, size=300_000).astype(np.uint8)).to(cuda)
+    for g in groups:
+        got = multi_kernel.prefilter_any8(s, *g["k3"])
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch_ops.prefilter_any8(s, *g["k3"]))
+        assert torch.equal(got, _mma_kernel("prefilter_any8", s, g["k3"]))
+        assert (got >= 0).any() and (got < 0).any()
+
+
+def test_gmma_prefilter_repeated_ragged_launches(cuda):
+    # many launches at counts of window starts that are no multiple of a
+    # 128-position tile, each held to the plain version (the check P6's
+    # unexplained wgmma race asked of any production wgmma kernel)
+    group, _ = _database_groups(cuda)[0]
+    rng = np.random.default_rng(12)
+    s = torch.from_numpy(rng.integers(0, 4, size=128_077 + 15).astype(np.uint8)).to(cuda)
+    before = multi_kernel.LAUNCHES["prefilter_gmma"]
+    wrong = 0
+    for n in (130, 5000, 128_077):
+        want = torch_ops.prefilter_any8(s[:n], *group["k3"])
+        for _ in range(8):
+            wrong += not torch.equal(multi_kernel.prefilter_any8(s[:n], *group["k3"]), want)
+    assert wrong == 0
+    assert multi_kernel.LAUNCHES["prefilter_gmma"] == before + 24
+
+
+def test_scan_multi_core_graph_replay_holds_the_hits(cuda):
+    # scan_multi_core captured in a CUDA graph and replayed: the warpgroup
+    # kernel's launch (its geometry from shapes, its blocks where they lie)
+    # gives the eager path's counters and kept hits
+    group, count = _database_groups(cuda)[1]  # motifs of 17-35 rows: few candidates
+    rng = np.random.default_rng(13)
+    m = group["m_max"]
+    chunk = torch.from_numpy(rng.integers(0, 4, size=200_000).astype(np.uint8)).to(cuda)
+    lanes = multi.lanes(group)
+    n_valid = torch.zeros(lanes, dtype=torch.int32, device=cuda)
+    n_valid[:count] = 200_000 - m + 1
+    cap = 1 << 16
+    want = multi.scan_multi_core(chunk, n_valid, group, 5, cap)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        multi.scan_multi_core(chunk, n_valid, group, 5, cap)  # warm the allocator
+        with torch.cuda.graph(graph, stream=stream):
+            got = multi.scan_multi_core(chunk, n_valid, group, 5, cap)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        counts = got[0].cpu()
+        assert torch.equal(counts, want[0].cpu()) and int(counts[2]) > 0
+        n_kept = int(counts[2])
+        assert torch.equal(got[1][:, :n_kept].cpu(), want[1][:, :n_kept].cpu())
+
+
+def test_gmma_routing_by_shape(cuda):
+    from lightmotif_tpu_torch.ops import build
+
+    lib = build.library()
+    assert [lib.lm_prefilter_gmma_shape(f) for f in range(6)] == [
+        multi_kernel.GMMA_HALF, multi_kernel.GMMA_LANES, multi_kernel.GMMA_KSTEP,
+        multi_kernel.GMMA_MAX_KSTEPS, multi_kernel.GMMA_MAX_LANE_TILES,
+        multi_kernel.GMMA_TWO_KSTEPS]
+    # (planes, chunks, rows, K) -> taken: rows x K up to 1,024 bytes, up to
+    # 8,192 lanes, 1 to 4 planes; K up to 256
+    for shape, taken in [((2, 128, 16, 5), True), ((2, 4, 128, 8), True),
+                         ((2, 4, 64, 16), True), ((2, 4, 66, 16), False),
+                         ((2, 512, 16, 5), True), ((2, 513, 16, 5), False),
+                         ((4, 2, 32, 21), True), ((1, 2, 4, 256), False)]:
+        p, chunks, rows, k = shape
+        planes = torch.zeros(p, chunks, 16, rows, k, dtype=torch.uint8, device=cuda)
+        assert multi_kernel.gmma_takes(planes) == taken, shape
+        geom = lib.lm_prefilter_gmma_geom(p, chunks, rows, k)
+        assert (geom >= 0) == taken
+        if taken:  # the host's positions per tile are the kernel's
+            assert (geom >> 8) & 0xFFF == multi_kernel.gmma_tile_positions(planes.shape)
+            assert geom >> 20 <= 232_448 and geom & 255 >= 16
+    # a shape past the warpgroup kernel's 8,192 lanes goes to mma_kernel,
+    # counted apart, and gives the plain version's values
+    rng = np.random.default_rng(14)
+    packed = _extreme_planes(rng, 5, 6, 2, lanes=8208)
+    s = torch.from_numpy(rng.integers(0, 5, 20_000).astype(np.uint8)).to(cuda)
+    args = _card_args(packed, cuda)
+    assert not multi_kernel.gmma_takes(args[0])
+    before = dict(multi_kernel.LAUNCHES)
+    got = multi_kernel.prefilter_any8(s, *args)
+    torch.cuda.synchronize()
+    assert multi_kernel.LAUNCHES["prefilter_mma"] == before["prefilter_mma"] + 1
+    assert multi_kernel.LAUNCHES["prefilter_gmma"] == before["prefilter_gmma"]
+    assert torch.equal(got, torch_ops.prefilter_any8(s, *args))
+
+
+def test_gmma_prefilter_refuses_missing_or_mismatched_blocks(cuda):
+    # a launch on the card needs the blocks and their k-steps, and blocks
+    # that do not match the k-steps are refused before anything is queued
+    rng = np.random.default_rng(15)
+    packed = _extreme_planes(rng, 5, 16, 2, lanes=300)
+    s = torch.from_numpy(rng.integers(0, 5, 20_000).astype(np.uint8)).to(cuda)
+    planes, chunk_m, t_eff, blocks, ksteps = _card_args(packed, cuda)
+    before = dict(multi_kernel.LAUNCHES)
+    for bad in ((), (blocks[:-1], ksteps), (blocks, (*ksteps[:-1], ksteps[-1] + 1)),
+                (blocks, ksteps[:-1])):
+        with pytest.raises(ValueError, match="blocks|ksteps"):
+            multi_kernel.prefilter_any8(s, planes, chunk_m, t_eff, *bad)
+    assert multi_kernel.LAUNCHES == before
+    # the C entry point refuses a count that is not the k-steps' schedule
+    from lightmotif_tpu_torch.ops import build
+
+    out = torch.empty(s.shape[0], dtype=torch.int32, device=cuda)
+    steps = (ctypes.c_int * len(ksteps))(*ksteps)
+    err = build.library().lm_prefilter_any8(
+        s.data_ptr(), s.shape[0], planes.data_ptr(), *planes.shape[:2], *planes.shape[3:],
+        chunk_m.data_ptr(), t_eff.data_ptr(), blocks.data_ptr(), blocks.shape[0] - 1, steps,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def test_probe_kernels_match_plain_on_the_card(cuda):

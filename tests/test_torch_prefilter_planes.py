@@ -67,11 +67,16 @@ def lookup_form(seq, cells, t) -> np.ndarray:
 
 def check(seq, name, packed, want, n):
     """The packed filters through the plane form, the plain version and the
-    CPU wrapper, each equal to ``want`` on the first ``n`` windows."""
-    planes, chunk_m, t_eff = packed
+    CPU wrapper, each equal to ``want`` on the first ``n`` windows; a device
+    group's fourth and fifth items, the planes' blocks for the warpgroup
+    kernel and their k-steps, are theirs."""
+    planes, chunk_m, t_eff = packed[:3]
+    if len(packed) == 5:
+        assert np.array_equal(packed[3], multi_kernel.gmma_blocks(planes, chunk_m))
+        assert packed[4] == tuple(multi_kernel.tile_ksteps(chunk_m, planes.shape[-1]).tolist())
     got = plane_form(seq, planes, t_eff)
     assert np.array_equal(got[:n], want[:n])
-    tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in packed]
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in packed[:4]] + list(packed[4:])
     for fn in (getattr(torch_ops, name), getattr(multi_kernel, name)):
         out = fn(torch.from_numpy(seq), *tensors).numpy()
         assert np.array_equal(out[:n], want[:n])
@@ -146,7 +151,7 @@ def test_planes_of_jax_filters_give_the_jax_values(name, mode, protein, widths, 
     want = np.asarray(want).reshape(-1)
     n = LP - m_max + 1
     assert np.array_equal(lookup_form(seq, cells, t)[:n], want[:n])
-    packed = tuple(a.numpy() for a in group[mode])
+    packed = (*(a.numpy() for a in group[mode][:4]), group[mode][4])
     assert packed[0].shape[0] == (1 if mode == "k4" else 2)  # u8: one plane, u16: two
     check(seq, name_fn, packed, want, n)
     if mode != "k4":  # the packer's own planes of the same u16 cells
@@ -239,12 +244,12 @@ def test_hand_written_filters_pick_their_planes_and_keep_every_value(
         want = np.asarray(jmk.prefilter_any16(s8, jnp.asarray(f_hi), jnp.asarray(f_lo),
                                               m, k, tile=LP)).reshape(-1)
         zeros = np.zeros((f_hi.shape[1], m, k), np.float32)
-        packed = tuple(a.numpy() for a in multi.group_from_filters(
-            zeros, np.zeros(f_hi.shape[1], np.float32), m, k, "cpu",
-            filters_fine=(f_hi, f_lo))["k5"])
+        dev = multi.group_from_filters(zeros, np.zeros(f_hi.shape[1], np.float32), m, k,
+                                       "cpu", filters_fine=(f_hi, f_lo))["k5"]
+        packed = (*(a.numpy() for a in dev[:4]), dev[4])
         name = "prefilter_any16"
     assert (cells < 0).any() and (np.abs(cells) > 255).any()
-    planes, chunk_m, t_eff = packed
+    planes, chunk_m, t_eff = packed[:3]
     assert planes.dtype == np.uint8 and planes.shape[0] == n_planes
     assert planes.shape[3] * k % multi_kernel.ROW_BYTES == 0
     check(seq, name, packed, want, n)
@@ -285,8 +290,11 @@ def test_packing_reads_nothing_back_from_the_device(prefilter):
                                    prefilter=prefilter, discrete=discrete)
     assert len(groups) == 2
     for group in groups:
-        planes, chunk_m, t_eff = group[prefilter]
-        assert planes.is_meta and chunk_m.is_meta and t_eff.is_meta
+        planes, chunk_m, t_eff, blocks, ksteps = group[prefilter]
+        assert planes.is_meta and chunk_m.is_meta and t_eff.is_meta and blocks.is_meta
+        assert blocks.dtype == torch.uint8 and tuple(blocks.shape[1:]) == (
+            multi_kernel.GMMA_LANES, multi_kernel.GMMA_KSTEP)
+        assert blocks.shape[0] == planes.shape[0] * sum(ksteps)
         assert planes.dtype == torch.uint8 and 1 <= planes.shape[0] <= multi_kernel.MAX_PLANES
         assert planes.shape[2] == multi_kernel.K3_LANES and planes.shape[4] == k
 
