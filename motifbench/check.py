@@ -14,7 +14,8 @@ Numbers compared, each against the limit of the cell's ``limits`` file:
   report;
 * ``extra_hits``: reported hits below the threshold by more than the
   score limit in the reference, outside the motif's windows, or reported
-  twice;
+  twice; in a record set, also a hit whose window is not inside the
+  record it names (:func:`place_hits`);
 * ``count_drift``: scans of the window whose hit count differs from the
   first scan of the same sequence.
 
@@ -35,8 +36,10 @@ NAMES = ("matrix_gap", "threshold_gap", "score_gap", "missed_hits", "extra_hits"
 
 
 def matrix_gap(got: list, want: list) -> float:
+    if len(got) != len(want):
+        return float("inf")
     worst = 0.0
-    for a, b in zip(got, want, strict=True):
+    for a, b in zip(got, want):
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
         if a.shape != b.shape:
             return float("inf")
@@ -50,7 +53,26 @@ def matrix_gap(got: list, want: list) -> float:
 
 
 def threshold_gap(got: np.ndarray, want: np.ndarray) -> float:
-    return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    return float(np.abs(got - want).max())
+
+
+def place_hits(hits: tuple, offsets: np.ndarray, lengths: np.ndarray,
+               motif_lengths: np.ndarray) -> tuple:
+    """A record set's hits ``(records, motif ids, local positions,
+    scores)`` at the reference's own joined positions (``offsets`` and
+    ``lengths`` of :func:`.reference.join_records`): ``(motif ids,
+    positions, scores, misplaced)``, where ``misplaced`` counts the hits
+    that name no record or motif, or whose window is not inside the
+    record's."""
+    rec, ids, local, sc = (np.asarray(hits[0], np.int64), np.asarray(hits[1], np.int64),
+                           np.asarray(hits[2], np.int64), np.asarray(hits[3], np.float32))
+    ok = (rec >= 0) & (rec < len(lengths)) & (ids >= 0) & (ids < len(motif_lengths))
+    ok &= local >= 0
+    ok[ok] &= local[ok] <= lengths[rec[ok]] - motif_lengths[ids[ok]]
+    return ids[ok], offsets[rec[ok]] + local[ok], sc[ok], int((~ok).sum())
 
 
 def judge_hits(windows: reference.Windows, codes: torch.Tensor, hits: tuple,

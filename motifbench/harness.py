@@ -1,11 +1,13 @@
 """One run of one cell of the benchmark of ``lightmotif_tpu_torch``.
 
 A cell (``BENCHMARK.json``'s ``workloads``) names a configuration (a
-deployment: the motif database and the sequences it is scanned over,
-``configs/<name>.json``) and a traffic mix (``traffic/<name>.json``: the
-p-value, how many distinct sequences stream past, the loop, the scans
-checked and traced).  The limits of its comparison are in
-``limits/<workload>.json``; each metric is read by ``metrics/<name>.py``.
+deployment: the motif database, its alphabet (one of the program's,
+named by its symbols), strands and background, and the sequences or
+record sets it is scanned over, ``configs/<name>.json``) and a traffic
+mix (``traffic/<name>.json``: the p-value, how many distinct sequences
+or record sets stream past, the loop, the scans checked and traced).
+The limits of its comparison are in ``limits/<workload>.json``; each
+metric is read by ``metrics/<name>.py``.
 A new cell, mix or metric is a new file.
 
 A run:
@@ -13,11 +15,13 @@ A run:
 1. set-up, from process start: the inputs made from the seed
    (:mod:`.data`); the scoring matrices and thresholds through the
    program's public chain (span ``matrix.thresholds``); a
-   ``MultiScanner``, whose first scan packs the database and ratchets
-   its capacities (span ``scanner.first_scan``), and one scan of every
-   other sequence, so that every shape the window uses has run;
+   ``MultiScanner`` (a ``MultiBatchScanner`` for record sets), whose
+   first scan packs the database and ratchets its capacities (span
+   ``scanner.first_scan``), and one scan of every other sequence or set,
+   so that every shape the window uses has run;
 2. the window: a closed loop of one client scanning the sequences in
-   turn with ``MultiScanner.scan_arrays`` on host sequences, each scan
+   turn with ``MultiScanner.scan_arrays`` on host sequences (record sets
+   with ``MultiBatchScanner.rebind`` then ``collect_arrays``), each scan
    binding a sequence the scanner does not hold (upload, eager issue,
    hits to the host), for ``seconds``; with ``trace`` a slice of it runs
    under ``torch.profiler`` (:mod:`.trace`);
@@ -97,15 +101,43 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def program_chain(counts: list, config: dict, pvalue: float) -> tuple:
-    """The database through the program's public chain: both strands'
-    scoring matrices, and each forward threshold at ``pvalue`` for both
-    strands (as the CLI's ``--reverse``)."""
-    from lightmotif_tpu_torch import DNA, CountMatrix
+def alphabet_of(config: dict):
+    """The program's alphabet whose symbols are ``config["alphabet"]``."""
+    from lightmotif_tpu_torch import DNA, PROTEIN
 
-    pseudo = float(config["database"]["pseudocount"])
-    fwd = [CountMatrix(DNA, c).to_freq(pseudo).to_weight(None).to_scoring() for c in counts]
+    for alphabet in (DNA, PROTEIN):
+        if alphabet.symbols == config["alphabet"]:
+            return alphabet
+    raise NoResult(f"the program has no alphabet {config['alphabet']!r}")
+
+
+def strands_of(config: dict) -> int:
+    """``database.strands``: 1, or 2 for an alphabet with a complement."""
+    strands = int(config["database"]["strands"])
+    if strands not in (1, 2) or (strands == 2 and "complement" not in config):
+        raise NoResult(f"strands {strands} with complement {config.get('complement')!r}")
+    return strands
+
+
+def program_chain(counts: list, config: dict, pvalue: float) -> tuple:
+    """The database through the program's public chain: the scoring
+    matrices against the configuration's background (``None`` where it
+    is uniform), and each threshold at ``pvalue``; for 2 strands the
+    reverse complements after them at the forward thresholds (as the
+    CLI's ``--reverse``)."""
+    from lightmotif_tpu_torch import Background, CountMatrix
+
+    alphabet = alphabet_of(config)
+    db = config["database"]
+    freqs = np.asarray(db["background"], np.float32)
+    background = (None if np.array_equal(freqs, Background.uniform(alphabet).frequencies)
+                  else Background(alphabet, freqs))
+    pseudo = float(db["pseudocount"])
+    fwd = [CountMatrix(alphabet, c).to_freq(pseudo).to_weight(background).to_scoring()
+           for c in counts]
     ths = [p.score_distribution().score(pvalue) for p in fwd]
+    if strands_of(config) == 1:
+        return fwd, np.asarray(ths, np.float32)
     pssms = fwd + [p.reverse_complement() for p in fwd]
     return pssms, np.asarray(ths + ths, np.float32)
 
@@ -136,32 +168,52 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.set_device(device)
     device = torch.device(device)
     imports_s = time.perf_counter() - t_start
-    from lightmotif_tpu_torch import DNA, EncodedSequence
+    from lightmotif_tpu_torch import EncodedSequence
+    from lightmotif_tpu_torch.batch import MultiBatchScanner
     from lightmotif_tpu_torch.ops import multi
     from lightmotif_tpu_torch.scanner import MultiScanner
 
     conf, traffic = c.config, c.traffic
+    alphabet = alphabet_of(conf)
+    k = alphabet.size
     if traffic["loop"] != "closed" or int(traffic["clients"]) != 1:
         raise NoResult("the harness drives a closed loop of one client")
     pvalue = float(traffic["pvalue"])
+    records = "records" in conf["sequence"]
     t0 = time.perf_counter()
-    counts = data.database_counts(conf["database"], DNA.size,
+    counts = data.database_counts(conf["database"], k,
                                   data.generator(conf["database"]["seed"], device))
     g = data.generator(seed, device)
-    codes = data.sequences(conf["sequence"], int(traffic["sequences"]), DNA.default_index, g)
-    seqs = [EncodedSequence(row, DNA) for row in codes]
+    draw = data.record_sets if records else data.sequences
+    codes = draw(conf["sequence"], int(traffic["sequences"]), k,
+                 conf["database"]["background"], g)
+    if records:
+        seqs = [[EncodedSequence(r, alphabet) for r in rs] for rs in codes]
+    else:
+        seqs = [EncodedSequence(row, alphabet) for row in codes]
     inputs_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     pssms, thresholds = program_chain(counts, conf, pvalue)
     spans = {"matrix.thresholds": time.perf_counter() - t0}
-    scanner = MultiScanner(pssms, thresholds=thresholds, device=device)
+    if records:
+        scanner = MultiBatchScanner(pssms, thresholds=thresholds, device=device)
+        replays = scanner._scanner.replays
+
+        def scan(s):
+            return scanner.rebind(seqs[s]).collect_arrays()
+    else:
+        scanner = MultiScanner(pssms, thresholds=thresholds, device=device)
+        replays = scanner.replays
+
+        def scan(s):
+            return scanner.scan_arrays(seqs[s])
     t0 = time.perf_counter()
-    scanner.scan_arrays(seqs[0])
+    scan(0)
     spans["scanner.first_scan"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for s in seqs[1:]:
-        scanner.scan_arrays(s)
+    for s in range(1, len(seqs)):
+        scan(s)
     sync(device)
     warm_s = time.perf_counter() - t0
     cuda = device.type == "cuda"
@@ -169,7 +221,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     multi.reset_reruns()
-    graphs_before = (scanner.replays.captured, scanner.replays.replayed)
+    graphs_before = (replays.captured, replays.replayed)
     checks = draw_checks(traffic, seed)
     kept, last, final = {}, {}, [None]
     scans = []  # (sequence, wall seconds, hits)
@@ -180,9 +232,9 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
     def one(i):
         s = i % len(seqs)
         t = time.perf_counter()
-        out = scanner.scan_arrays(seqs[s])
+        out = scan(s)
         wall = time.perf_counter() - t
-        scans.append((s, wall, len(out[0])))
+        scans.append((s, wall, len(out[-1])))
         final[0] = (s, out)
         if s in checks:
             last[s] = out
@@ -190,6 +242,8 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
                 kept[s] = out
         seen[s] += 1
 
+    # each scan's bases, by record
+    bases = [[len(r) for r in c] if records else [len(c)] for c in codes]
     setup_s = time.perf_counter() - t_start
     w0 = time.perf_counter()
     i = 0
@@ -205,15 +259,14 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
                     one(i)
                     i += 1
             sync(device)
-        traced = [len(seqs[s].data) for s, _, _ in scans[1 : 1 + n_trace]]
+        traced = [bases[s] for s, _, _ in scans[1 : 1 + n_trace]]
     while time.perf_counter() - w0 < seconds:
         one(i)
         i += 1
     window_s = time.perf_counter() - w0
     sync(device)
     window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    graphs = (scanner.replays.captured - graphs_before[0],
-              scanner.replays.replayed - graphs_before[1])
+    graphs = (replays.captured - graphs_before[0], replays.replayed - graphs_before[1])
     if n_trace:
         slice_ = tracing.Slice(tracing.events_of(prof), traced,
                                device.index if cuda else 0)
@@ -223,10 +276,12 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
                        >= t for p, t in zip(pssms, thresholds)])
     record = SimpleNamespace(
         setup_s=setup_s, window_s=window_s, pssms=len(pssms),
-        scans=[{"bp": len(seqs[s].data), "wall_s": w, "hits": h} for s, w, h in scans],
+        scans=[{"bp": sum(bases[s]), "wall_s": w, "hits": h} for s, w, h in scans],
         spans=spans, counters={"reruns": sum(multi.RERUNS.values())},
-        peak_bytes=window_peak, trace=slice_, k=DNA.size,
-        lengths=lengths, live=live)
+        peak_bytes=window_peak, trace=slice_, k=k, lengths=lengths,
+        # the motifs the prefilter scans: those that can reach their
+        # thresholds and that the program does not route to its dense path
+        prefiltered=live & (lengths <= MultiScanner.dense_m_limit(k)))
     wanted = c.per_layer if trace else c.end_to_end
     metrics = {}
     for m in wanted:
@@ -242,7 +297,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
     # the program's state goes before the reference runs
     prog_ths = thresholds
     prog_mats = [np.asarray(p.data, np.float32) for p in pssms]
-    del scanner, pssms
+    del scanner, scan, replays, pssms
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -295,32 +350,50 @@ def compare(conf, traffic, counts, codes, prog_mats, prog_ths, outputs, scans, l
     """The comparison's numbers for the program, and with ``control`` the
     control's (the reference in bfloat16 in the program's place)."""
     k = len(conf["alphabet"])
-    bg = np.asarray(conf["database"]["background"], np.float64)
-    perm = reference.complement_permutation(conf["alphabet"], conf["complement"])
+    # the published chain's background is float32
+    bg = np.asarray(conf["database"]["background"], np.float32).astype(np.float64)
     pvalue = float(traffic["pvalue"])
 
     def chain(dtype):
         fwd = reference.scoring_matrices(counts, conf["database"]["pseudocount"], bg, dtype)
         t = reference.thresholds(fwd, bg, pvalue, device)
+        if strands_of(conf) == 1:
+            return fwd, t
+        perm = reference.complement_permutation(conf["alphabet"], conf["complement"])
         return fwd + reference.reverse_complements(fwd, perm), np.concatenate([t, t])
 
     mats, t_ref = chain(torch.float32)
     windows = reference.Windows(mats, k, k - 1, device)
-    seqs = {s: torch.from_numpy(np.ascontiguousarray(codes[s])).to(device) for s in outputs}
+    seqs, places = {}, {}
+    for s in outputs:
+        if "records" in conf["sequence"]:
+            joined, *places[s] = reference.join_records(
+                codes[s], int(windows.lengths.max()) - 1, k - 1)
+        else:
+            joined = codes[s]
+        seqs[s] = torch.from_numpy(np.ascontiguousarray(joined)).to(device)
+
+    def program_hits(s, seq):
+        if s not in places:
+            return (*outputs[s], 0)
+        return check.place_hits(outputs[s], *places[s], windows.lengths)
 
     def judged(got_mats, got_t, hits_of) -> dict:
         out = {"matrix_gap": check.matrix_gap(got_mats, mats),
                "threshold_gap": check.threshold_gap(got_t, t_ref),
                "score_gap": 0.0, "missed_hits": 0, "extra_hits": 0, "count_drift": 0}
+        if np.shape(got_t) != t_ref.shape:  # other matrices: threshold_gap is inf
+            got_t = t_ref
         for s, seq in sorted(seqs.items()):
-            got = check.judge_hits(windows, seq, hits_of(s, seq), t_ref, got_t,
+            *hits, misplaced = hits_of(s, seq)
+            got = check.judge_hits(windows, seq, hits, t_ref, got_t,
                                    float(limits["score_gap"]))
             out["score_gap"] = max(out["score_gap"], got["score_gap"])
             out["missed_hits"] += got["missed_hits"]
-            out["extra_hits"] += got["extra_hits"]
+            out["extra_hits"] += got["extra_hits"] + misplaced
         return out
 
-    numbers = judged(prog_mats, prog_ths, lambda s, seq: outputs[s])
+    numbers = judged(prog_mats, prog_ths, program_hits)
     first = {}
     for s, _, h in scans:
         numbers["count_drift"] += first.setdefault(s, h) != h
@@ -329,5 +402,5 @@ def compare(conf, traffic, counts, codes, prog_mats, prog_ths, outputs, scans, l
         c_mats, c_t = chain(torch.bfloat16)
         c_t = torch.from_numpy(c_t).bfloat16().float().numpy()
         c_windows = reference.Windows(c_mats, k, k - 1, device, dtype=torch.bfloat16)
-        ctrl = judged(c_mats, c_t, lambda s, seq: reference.scan(c_windows, seq, c_t))
+        ctrl = judged(c_mats, c_t, lambda s, seq: (*reference.scan(c_windows, seq, c_t), 0))
     return numbers, ctrl

@@ -18,7 +18,10 @@ program:
   float32;
 * every window's score as a float64 matrix product of the one-hot
   windows with the matrices, in blocks of window starts; a window that
-  holds the wildcard scores about ``NEG``.
+  holds the wildcard scores about ``NEG``;
+* a record set joined with wildcard separators of its own
+  (:func:`join_records`), so that no window of one record reaches the
+  next.
 
 ``dtype=torch.bfloat16`` computes the chain, the thresholds' matrix and
 the window sums in bfloat16: the control that the comparison has to fail.
@@ -124,6 +127,11 @@ def thresholds(matrices: list, background: np.ndarray, pvalue: float, device) ->
 #: database has few of each such length).
 MERGE_FROM = 21
 
+#: Bytes of a block's one-hot windows and sums together: a group with
+#: wide windows (protein) or many matrices takes fewer window starts a
+#: block than ``block``.
+BLOCK_BYTES = 20 << 30
+
 
 def length_groups(lengths: np.ndarray) -> list:
     """Matrix ids grouped for the window sums: one group per length below
@@ -160,15 +168,29 @@ class Windows:
         m_max = max(m for _, m, _ in self.groups)
         padded = torch.cat([codes, torch.full((m_max,), self.wildcard, dtype=codes.dtype,
                                               device=codes.device)])
+        item = torch.tensor([], dtype=self.dtype).element_size()
         for ids, m_pad, table in self.groups:
             cols = self.k * torch.arange(m_pad, device=self.device)
-            for start in range(0, n, self.block):
-                rows = min(self.block, n - start)
+            block = min(self.block, max(1, BLOCK_BYTES // ((m_pad * self.k + len(ids)) * item)))
+            for start in range(0, n, block):
+                rows = min(block, n - start)
                 win = padded[start : start + rows + m_pad - 1].unfold(0, m_pad, 1)
                 onehot = torch.zeros(rows, m_pad * self.k, dtype=self.dtype, device=self.device)
                 onehot.scatter_(1, win.long() + cols, 1.0)
                 yield ids, start, onehot @ table
                 del onehot
+
+
+def join_records(records: list, gap: int, wildcard: int) -> tuple:
+    """``(codes, offsets, lengths)``: the records (``uint8`` rank
+    arrays) one after another, each followed by ``gap`` wildcards, and
+    where each starts and how long it is."""
+    lengths = np.asarray([len(r) for r in records], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths + gap)[:-1]]).astype(np.int64)
+    codes = np.full(int((lengths + gap).sum()), wildcard, np.uint8)
+    for r, at in zip(records, offsets):
+        codes[at : at + len(r)] = r
+    return codes, offsets, lengths
 
 
 def scan(windows: Windows, codes: torch.Tensor, thresholds: np.ndarray) -> tuple:

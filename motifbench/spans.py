@@ -10,11 +10,15 @@ newest ``len(trace.scan_bp)`` scans are the slice's.  A program without
 spans gives none, and a metric that reads them gives ``None``.
 
 To lay spans on the trace's clock, each root is paired with the
-``scan_arrays`` call the trace holds as a Python event of the main
-thread, and the offset is the median difference of their midpoints: the
-call encloses its root with some Python at either end, which the
-profiler's stack tracer slows (their starts differ by tens of
-microseconds on a slow host, their midpoints by a few).
+outermost ``scan_arrays`` or ``collect_arrays`` call of the scanner that
+the trace holds as a Python event of the main thread (``scan_arrays``
+of a sequence, which calls ``collect_arrays``; ``collect_arrays`` of a
+record set's batch scanner), and the offset is the median difference of
+their midpoints: the call encloses its root with some Python at either
+end, which the profiler's stack tracer slows (their starts differ by
+tens of microseconds on a slow host, their midpoints by a few).  A
+record set's upload runs before its root opens, so its spans are no
+scan's, and the metrics that read them give ``None`` there.
 """
 
 from __future__ import annotations
@@ -23,8 +27,8 @@ import re
 import statistics
 
 ROOT = "scanner.scan"
-#: The Python event of the call that opens a scan's root span.
-CALL = re.compile(r"scanner\.py\(\d+\): scan_arrays$")
+#: The Python events of the calls that open a scan's root span.
+CALL = re.compile(r"scanner\.py\(\d+\): (scan_arrays|collect_arrays)$")
 
 
 def records() -> list:
@@ -92,10 +96,13 @@ def count_total(scans: list, name: str, key: str) -> int | None:
 def offset_ns(trace, scans: list) -> int | None:
     """What to add to a span's ``time_ns`` to get the trace's clock, in
     ns: the median difference of the midpoints of each root and its
-    ``scan_arrays`` call in the trace's slice, the newest paired with the
-    newest; ``None`` where either is missing."""
-    calls = sorted((ts, end) for ts, end, name in trace._host
-                   if CALL.search(name) and trace._lo <= ts <= trace._hi)
+    outermost :data:`CALL` in the trace's slice, the newest paired with
+    the newest; ``None`` where either is missing."""
+    calls = []
+    for ts, end in sorted((ts, end) for ts, end, name in trace._host
+                          if CALL.search(name) and trace._lo <= ts <= trace._hi):
+        if not calls or ts >= calls[-1][1]:
+            calls.append((ts, end))
     roots = sorted((r.start_ns, r.end_ns) for rs in scans for r in rs
                    if r.parent is None and r.name == ROOT)
     n = min(len(calls), len(roots))

@@ -18,6 +18,15 @@ def test_count_by_hand():
     assert work.prefilter_work(10, [5] * 4097, 5)[1] == 10 + 4097 * 25 + 4 * 10 * 3
 
 
+def test_records_count_their_own_window_starts():
+    """A record set's work is each record's window starts, none across
+    its separators, and its records' bases once."""
+    ops, nbytes = work.prefilter_work([3, 40, 7], [5, 10], 21)
+    assert ops == 2 * 21 * (5 * (36 + 3) + 10 * 31)
+    assert nbytes == 50 + 15 * 21 + 4 * 50
+    assert work.prefilter_work([100], [5, 10], 5) == work.prefilter_work(100, [5, 10], 5)
+
+
 def fake_trace(ms, bp):
     ops = [{"name": "mma_kernel<false, 1, 128, 8, false>", "cat": "kernel", "ts": 0.0,
             "dur": ms * 1e3, "callers": []}]
@@ -30,7 +39,7 @@ def fake_trace(ms, bp):
 def test_roofline_reads_the_bound_over_the_traced_time():
     lengths = np.asarray([5, 10, 35])
     run = SimpleNamespace(trace=fake_trace(2.0, [1000, 1000]), lengths=lengths,
-                          live=np.asarray([True, True, False]), k=5)
+                          prefiltered=np.asarray([True, True, False]), k=5)
     ops, nbytes = work.prefilter_work(1000, [5, 10], 5)
     bound = 2 * work.bound_seconds(ops, nbytes, work.PEAKS["int8_ops_per_s"])
     assert harness.reader("prefilter.roofline_pct")(run) == pytest.approx(100 * bound / 2e-3)

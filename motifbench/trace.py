@@ -73,7 +73,8 @@ class Slice:
     """The device operations of the slice: ``ops``, dicts of ``name``,
     ``cat``, ``ts``, ``dur`` (microseconds) and ``callers`` (the Python
     functions that launched it, outermost first); ``window_s`` and
-    ``busy_s``; ``scan_bp``, the lengths of the scans inside it."""
+    ``busy_s``; ``scan_bp``, for each scan inside it the length of its
+    sequence or the lengths of its set's records."""
 
     def __init__(self, events: list, scan_bp: list, device: int = 0):
         marks = [e for e in events if e.get("name") == RANGE and e.get("ph") == "X"

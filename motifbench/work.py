@@ -17,18 +17,22 @@ PEAKS = {"int8_ops_per_s": 1979e12, "bf16_flops_per_s": 989e12,
 GROUP_LANES = 2048
 
 
-def prefilter_work(n: int, lengths, k: int) -> tuple:
+def prefilter_work(n, lengths, k: int) -> tuple:
     """``(operations, bytes)`` of the database prefilter over a sequence
-    of ``n`` bases for live motifs of ``lengths``: the one-hot int8
+    of ``n`` bases, or over the records of a set whose lengths ``n``
+    lists, for the motifs of ``lengths`` that it scans: the one-hot int8
     contraction that the JAX kernel is written as, 2 x k operations per
-    motif column and window start (``n - m + 1`` of them); the sequence
-    read once, one byte per discrete cell of the motifs, and 4 bytes out
-    per window start and group of :data:`GROUP_LANES` motifs."""
-    m = np.asarray(lengths, np.int64)
-    starts = np.maximum(n - m + 1, 0)
-    ops = 2.0 * k * float((m * starts).sum())
-    groups = -(-m.size // GROUP_LANES)
-    nbytes = float(n) + float(m.sum()) * k + 4.0 * n * groups
+    motif column and window start (``n - m + 1`` of them in each record,
+    none across the records' separators); the records read once, one
+    byte per discrete cell of the motifs, and 4 bytes out per window
+    start and group of :data:`GROUP_LANES` motifs."""
+    n = np.atleast_1d(np.asarray(n, np.int64))
+    sizes, counts = np.unique(np.asarray(lengths, np.int64), return_counts=True)
+    starts = np.maximum(n[None, :] - sizes[:, None] + 1, 0).sum(axis=1)
+    ops = 2.0 * k * float((counts * sizes * starts).sum())
+    groups = -(-int(counts.sum()) // GROUP_LANES)
+    bases = float(n.sum())
+    nbytes = bases + float((counts * sizes).sum()) * k + 4.0 * bases * groups
     return ops, nbytes
 
 
