@@ -13,6 +13,8 @@
         # 3's and 4's segment kernel checks, 5, 20's segment kernel at its
         # two shapes (beside the parent's K2 + C3), 23's MX000001 on the
         # chromosome and its profiled kernels
+    python3 chip_smoke.py --gmma-repeats  # 1-2, K3's repeated ragged launches
+        # at a DNA database group and at a deep protein group
 
 Phases, one line of output each (any failure exits non-zero):
 
@@ -3597,14 +3599,16 @@ GMMA_REPEAT_COUNTS = (130, 5000, 128077)
 GMMA_REPEATS = 20
 
 
-def gmma_repeats(group, chunk) -> None:
+def gmma_repeats(group, chunk, shape: str = "dna") -> None:
     """The warpgroup prefilter launched GMMA_REPEATS times at each of
     GMMA_REPEAT_COUNTS window starts of a database group, each launch held
     to the plain version by ``torch.equal`` (the check P6's wgmma race
-    asked of any production wgmma kernel); fails on any wrong launch."""
+    asked of any production wgmma kernel); fails on any wrong launch.
+    ``shape`` names the group in the log line, with whether the kernel
+    takes it by its loop of commit groups (``deep``)."""
     from lightmotif_tpu_torch.ops import multi_kernel, torch_ops
 
-    wrong, launched = [], 0
+    wrong, launched, positions = [], 0, 0
     for n in GMMA_REPEAT_COUNTS:
         want = torch_ops.prefilter_any8(chunk[:n], *group["k3"])
         before = multi_kernel.LAUNCHES["prefilter_gmma"]
@@ -3612,12 +3616,58 @@ def gmma_repeats(group, chunk) -> None:
             got = multi_kernel.prefilter_any8(chunk[:n], *group["k3"])
             if not torch.equal(got, want):
                 bad = torch.nonzero(got != want).flatten()
+                positions += bad.numel()
                 wrong.append((n, i, bad[:4].tolist()))
         launched += multi_kernel.LAUNCHES["prefilter_gmma"] - before
     if wrong or launched != GMMA_REPEATS * len(GMMA_REPEAT_COUNTS):
-        raise SystemExit(f"gmma repeats: {launched} warpgroup launches, wrong {wrong[:8]}")
-    log("gmma_repeats", counts=",".join(map(str, GMMA_REPEAT_COUNTS)),
-        launches=launched, wrong_launches=0)
+        raise SystemExit(f"gmma repeats ({shape}): {launched} warpgroup launches, "
+                         f"{positions} wrong positions, wrong {wrong[:8]}")
+    planes = group["k3"][0]
+    log("gmma_repeats", shape=shape, planes=tuple(planes.shape),
+        deep=multi_kernel.gmma_deep(planes.shape), ksteps=max(group["k3"][4]),
+        counts=",".join(map(str, GMMA_REPEAT_COUNTS)), launches=launched,
+        wrong_launches=0, wrong_positions=0)
+
+
+def deep_protein_group(seed: int = 0x9E1A7) -> tuple:
+    """A 2,048-lane protein group of motifs of 13-20 rows on the card, as
+    ``MultiScanner`` packs a protein database sorted by length (its lane
+    tiles take 9 to 14 k-steps of K = 21: the warpgroup kernel's loop of
+    commit groups), thresholds at 80% of each motif's best score, and a
+    protein chunk of the longest repeat count's window starts."""
+    from lightmotif_tpu_torch.ops import multi
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(13, 21, 2048)
+    stack = rng.normal(size=(lengths.size, 20, 21)).astype(np.float32)
+    stack[:, :, 20] = stack[:, :, :20].min(axis=2)  # the wildcard column
+    for i, m in enumerate(lengths):
+        stack[i, m:] = 0.0
+    ths = (0.8 * stack.max(axis=2).sum(axis=1)).astype(np.float32)
+    ids = np.argsort(lengths, kind="stable")
+    ((_, g),) = multi.pack_database(stack, lengths, ths, ids, 21, 2048)
+    chunk = rng.integers(0, 21, max(GMMA_REPEAT_COUNTS) + 40).astype(np.uint8)
+    return multi.group_to_device(g, DEVICE), torch.from_numpy(chunk).to(DEVICE)
+
+
+def gmma_repeats_only() -> int:
+    """The build, then :func:`gmma_repeats` at the DNA database's first
+    group (over the E. coli-length genome) and at a deep protein group
+    (:func:`deep_protein_group`)."""
+    from lightmotif_tpu_torch.ops.pipeline import DeviceSequence
+    from lightmotif_tpu_torch.scanner import MultiScanner
+
+    phase_card()
+    phase_build()
+    _, seq = build_inputs()
+    pssms, ths, _ = synthetic_database(DB_MOTIFS, DB_SEED)
+    group = MultiScanner(pssms, thresholds=ths, device=DEVICE)._pack()[0]
+    gmma_repeats(group, DeviceSequence(seq, DEVICE).data)
+    gmma_repeats(*deep_protein_group(), shape="protein_deep")
+    print(json.dumps({"ok": True, "gmma_repeats_only": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def phase_database_times(ms, seq) -> tuple:
@@ -3643,6 +3693,7 @@ def phase_database_times(ms, seq) -> tuple:
     if not (torch.equal(kernel()[:n], plain()[:n]) and torch.equal(kernel(), mma())):
         raise SystemExit("prefilter_any8 != plain or mma_kernel at the database group's shape")
     gmma_repeats(group, chunk)
+    gmma_repeats(*deep_protein_group(), shape="protein_deep")
     lanes = group["phase_c"][2].shape[0]
     # device time per launch, in turns: plain, kernel, kernel, plain; then
     # mma_kernel, kernel, kernel, mma_kernel
@@ -5096,11 +5147,13 @@ def main(argv: list) -> int:
         return one_pssm_cards(parent)
     if mode == ["--segment-times"]:
         return segment_times(parent)
+    if mode == ["--gmma-repeats"] and parent is None:
+        return gmma_repeats_only()
     if mode:
         print(f"chip_smoke: unknown arguments {argv} (--mesh-only [--parent DIR], "
               "--scale-only, --parent DIR, --stages-only --parent DIR, "
-              "--one-pssm-cards [--parent DIR], --segment-times [--parent DIR], or none)",
-              file=sys.stderr)
+              "--one-pssm-cards [--parent DIR], --segment-times [--parent DIR], "
+              "--gmma-repeats, or none)", file=sys.stderr)
         return 2
     phase_card()
     phase_imports()

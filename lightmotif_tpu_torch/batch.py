@@ -15,6 +15,12 @@ together:
   (:class:`~.scanner.MultiScanner`, K3) over the concatenation, with
   ``prepare`` / ``rebind_prepared`` and ``dispatch`` / ``fetch`` so a
   streaming reader overlaps the next batch's upload with this one's scan.
+  Under ``torch.profiler`` the join (span ``records.join``, counts
+  ``records`` and ``residues``) and the upload (``upload.pad``,
+  ``upload.copy``) join the next scan's spans, and the hits' mapping to
+  records (``records.map``, counts ``hits`` and ``dropped``, those past a
+  record's end) the scan they come from
+  (:func:`~.utils.profiling.before_scan`, :func:`~.utils.profiling.after_scan`).
 
 Windows that cross a record boundary touch at least one separator; they
 may be candidates but are dropped exactly by the ``local <= len(record)
@@ -32,6 +38,7 @@ from .ops import kernels
 from .ops.pipeline import DeviceSequence, pad_length, resolve_device
 from .scanner import Hit, MultiHit, MultiScanner, Scanner
 from .sequence import EncodedSequence
+from .utils import profiling
 
 __all__ = ["BatchScanner", "BatchReducer", "MultiBatchScanner"]
 
@@ -227,9 +234,13 @@ class MultiBatchScanner:
         """Concatenate records and upload the batch to the device
         without binding it, so a reader can prepare batch ``n + 1``
         while batch ``n`` scans."""
-        concat, offsets, lengths = _concatenate(
-            seqs, self.gap, self.pssms[0].alphabet, pad_to)
-        return DeviceSequence(concat, self.device), offsets, lengths
+        with profiling.before_scan():
+            with profiling.span("records.join") as span:
+                concat, offsets, lengths = _concatenate(
+                    seqs, self.gap, self.pssms[0].alphabet, pad_to)
+                if span:
+                    span.add(records=len(lengths), residues=int(lengths.sum()))
+            return DeviceSequence(concat, self.device), offsets, lengths
 
     def rebind_prepared(self, prepared) -> "MultiBatchScanner":
         """Bind a batch built by :meth:`prepare`."""
@@ -261,14 +272,19 @@ class MultiBatchScanner:
         return self._split_hits(self._scanner.fetch(inner), offsets, lengths)
 
     def _split_hits(self, raw, offsets, lengths):
-        mo, pos, sc = (np.asarray(raw[0], np.int32), np.asarray(raw[1], np.int64),
-                       np.asarray(raw[2], np.float32))
-        if pos.size == 0:
-            return (np.zeros(0, np.int64), mo, pos, sc)
-        rec = np.searchsorted(offsets, pos, side="right") - 1
-        local = pos - offsets[rec]
-        keep = local <= lengths[rec] - self._m[mo]
-        return rec[keep], mo[keep], local[keep], sc[keep]
+        with profiling.after_scan(), profiling.span("records.map") as span:
+            mo, pos, sc = (np.asarray(raw[0], np.int32), np.asarray(raw[1], np.int64),
+                           np.asarray(raw[2], np.float32))
+            if pos.size == 0:
+                out = (np.zeros(0, np.int64), mo, pos, sc)
+            else:
+                rec = np.searchsorted(offsets, pos, side="right") - 1
+                local = pos - offsets[rec]
+                keep = local <= lengths[rec] - self._m[mo]
+                out = rec[keep], mo[keep], local[keep], sc[keep]
+            if span:
+                span.add(hits=len(out[0]), dropped=len(pos) - len(out[0]))
+            return out
 
     def collect(self) -> list:
         """Per-record lists of :class:`~.scanner.MultiHit`, ordered by

@@ -106,6 +106,7 @@ __all__ = [
     "supports_fused",
     "tile_ksteps",
     "gmma_schedule",
+    "gmma_deep",
     "gmma_tile_positions",
     "gmma_blocks",
     "issued_ops",
@@ -316,15 +317,19 @@ def gmma_schedule(chunk_m, n_planes: int, k: int) -> np.ndarray:
                        for kk in range(int(ks[t]))], np.int64).reshape(-1, 3)
 
 
+def gmma_deep(shape) -> bool:
+    """Whether the warpgroup kernel takes planes of ``shape`` (``[P,
+    chunks, K3_LANES, rows, K]``) by its loop of commit groups: ``rows *
+    K`` past :data:`GMMA_TWO_KSTEPS` k-steps, or three or four planes."""
+    n_planes, _, _, rows, k = shape
+    return -(-rows * k // GMMA_KSTEP) > GMMA_TWO_KSTEPS or n_planes > 2
+
+
 def gmma_tile_positions(shape) -> int:
     """The window starts of one tile of the warpgroup kernel on planes of
-    ``shape`` (``[P, chunks, K3_LANES, rows, K]``): 256, two halves of 64 a
-    consumer warpgroup, when ``rows * K`` spans at most
-    :data:`GMMA_TWO_KSTEPS` k-steps and there are one or two planes, else
-    128 (``ggeom`` in ``csrc/prefilter.cu``)."""
-    n_planes, _, _, rows, k = shape
-    two = -(-rows * k // GMMA_KSTEP) <= GMMA_TWO_KSTEPS and n_planes <= 2
-    return 2 * GMMA_HALF * (2 if two else 1)
+    ``shape``: 128 for a deep shape (:func:`gmma_deep`), else 256, two
+    halves of 64 a consumer warpgroup (``ggeom`` in ``csrc/prefilter.cu``)."""
+    return 2 * GMMA_HALF * (1 if gmma_deep(shape) else 2)
 
 
 def gmma_blocks(planes, chunk_m) -> np.ndarray:
@@ -383,12 +388,15 @@ def issue_counts(seq: torch.Tensor, planes: torch.Tensor, chunk_m: torch.Tensor,
                  t_eff: torch.Tensor, blocks: torch.Tensor | None = None,
                  ksteps=None) -> dict:
     """The ``prefilter`` span's counts of one launch on a prefilter's
-    inputs: ``gmma``, 1 when it goes through the warpgroup kernel, and
+    inputs: ``gmma``, 1 when it goes through the warpgroup kernel;
     ``issued_ops``, the int8 operations that kernel issues
-    (:func:`issued_ops`; 0 for another kernel).  No read of the device."""
+    (:func:`issued_ops`; 0 for another kernel); and ``deep_ops``, those of
+    a launch on a deep shape (:func:`gmma_deep`), else 0.  No read of the
+    device."""
     gmma = gmma_takes(planes)
-    return {"gmma": int(gmma),
-            "issued_ops": issued_ops(seq.shape[0], planes, blocks) if gmma else 0}
+    ops = issued_ops(seq.shape[0], planes, blocks) if gmma else 0
+    return {"gmma": int(gmma), "issued_ops": ops,
+            "deep_ops": ops if gmma_deep(planes.shape) else 0}
 
 
 def launch(name, variant: int | None, seq, planes, chunk_m, t_eff, lib=None,

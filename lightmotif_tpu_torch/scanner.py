@@ -596,7 +596,9 @@ class MultiScanner:
     (a new sequence bound), ``scanner.dispatch`` (``scanner.route`` and
     ``scanner.pack`` at the first scan, then each step's ``prefilter``,
     ``exact.compact``, ``exact.phase_c`` and ``exact.pairs``, each dense
-    motif's ``dense``, or ``scanner.replay`` where a graph replays them)
+    motif's ``dense`` (counts ``windows``, its window starts, and
+    ``residues``, its length), or ``scanner.replay`` where a graph replays
+    them)
     and ``fetch`` (``fetch.sort``, ``fetch.wait``, ``fetch.settle`` with
     a ``fetch.rerun`` per re-run, ``fetch.hit_arrays``), whose counts are
     :func:`~.ops.multi.entry_counts`, the reads (``reads``) and the bytes
@@ -770,7 +772,9 @@ class MultiScanner:
         return steps
 
     def _dense_run(self, data, i, n_valid, cap, cap_hits):
-        with profiling.span("dense"):
+        with profiling.span("dense") as span:
+            if span:
+                span.add(windows=n_valid, residues=int(self.lengths[i]))
             return multi.dense_entry(data, *self._dense_dev[i], n_valid, cap, i)
 
     def _caps(self, key) -> tuple:

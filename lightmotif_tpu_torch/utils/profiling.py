@@ -17,7 +17,11 @@ no tracing beyond ``cargo bench`` MB/s counters
   close, recorded only while a ``torch.profiler`` session is on: as a
   ``record_function`` range on the profiler's timeline, beside the
   device's kernels and copies, and in memory (:func:`spans`), grouped
-  by scan.  With no profiler on, a span is one check.
+  by scan.  With no profiler on, a span is one check;
+* :func:`before_scan` and :func:`after_scan` -- work done for a scan
+  outside its outermost span (a record set's join and upload before it,
+  the mapping of its hits to records after it): the spans opened inside
+  with no span open join that scan, top-level beside its outermost span.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["profile_trace", "throughput", "ScanStats", "SpanRecord", "span", "root_span",
-           "spans", "reset_spans"]
+           "before_scan", "after_scan", "spans", "reset_spans"]
 
 
 @contextlib.contextmanager
@@ -150,7 +154,11 @@ class _Off:
 _OFF = _Off()
 _IDS = itertools.count(1)
 _SCANS = collections.deque(maxlen=SCANS_KEPT)  # one list of SpanRecords per scan
-_LOCAL = threading.local()  # .open: this thread's open spans, the outermost first
+#: Per thread: ``open``, its open spans, the outermost first; ``join``,
+#: ``"next"`` or ``"last"`` inside :func:`before_scan` / :func:`after_scan`;
+#: ``held``, the records of spans waiting for the next scan; ``last``, the
+#: id and records of the scan opened last.
+_LOCAL = threading.local()
 
 
 def _open() -> list:
@@ -158,6 +166,33 @@ def _open() -> list:
     if stack is None:
         stack = _LOCAL.open = []
     return stack
+
+
+def _held() -> collections.deque:
+    held = getattr(_LOCAL, "held", None)
+    if held is None:
+        held = _LOCAL.held = collections.deque(maxlen=SCANS_KEPT)
+    return held
+
+
+def _top_level(span_id: int) -> tuple:
+    """``(scan, records)`` of a span opened with no span open on this
+    thread: the scan opened last inside :func:`after_scan`; inside
+    :func:`before_scan` a list held for the next scan; else a scan of its
+    own, which takes the held spans."""
+    join = getattr(_LOCAL, "join", None)
+    if join == "last" and getattr(_LOCAL, "last", None) is not None:
+        return _LOCAL.last
+    records = []
+    if join == "next":
+        _held().append(records)
+        return span_id, records
+    _SCANS.append(records)
+    held = _held()
+    while held:
+        records.extend(r._replace(scan=span_id) for r in held.popleft())
+    _LOCAL.last = (span_id, records)
+    return span_id, records
 
 
 class _Span:
@@ -177,8 +212,8 @@ class _Span:
             top = stack[-1]
             self.parent, self.scan, self.records = top.id, top.scan, top.records
         else:
-            self.parent, self.scan, self.records = None, self.id, []
-            _SCANS.append(self.records)
+            self.parent = None
+            self.scan, self.records = _top_level(self.id)
         stack.append(self)
         # the ops of torch.profiler.record_function, called here: under the
         # profiler's stack tracer its Python wrapper puts tens of
@@ -208,7 +243,8 @@ def span(name: str, **counts):
     an exported Chrome trace holds the stage on the clock of the
     device's kernels)
     and, at its close, appends a :class:`SpanRecord` to its scan, the
-    spans inside the outermost one open on this thread (:func:`spans`).
+    spans inside the outermost one open on this thread (:func:`spans`;
+    :func:`before_scan` and :func:`after_scan` for work outside it).
     Otherwise it is one check and a shared object that does nothing: no
     allocation on a device, no synchronisation, no read.  Counts come
     from values the host holds; a span never reads the device."""
@@ -227,6 +263,47 @@ def root_span(name: str):
     return _Span(name, {})
 
 
+class _Joining:
+    """The context of :func:`before_scan` and :func:`after_scan`."""
+
+    __slots__ = ("join", "saved")
+
+    def __init__(self, join: str):
+        self.join = join
+
+    def __enter__(self):
+        self.saved = getattr(_LOCAL, "join", None)
+        _LOCAL.join = self.join
+        return self
+
+    def __exit__(self, *exc):
+        _LOCAL.join = self.saved
+        return False
+
+
+def before_scan():
+    """A context for work that prepares a scan before its outermost span
+    opens (a record set's join and upload): the spans opened inside with
+    no span open on this thread join the next scan opened on it, as
+    top-level spans (``parent`` ``None``) beside its outermost one.  With
+    no profiler on, one check and the shared object that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Joining("next")
+
+
+def after_scan():
+    """A context for work on a scan's results after its outermost span
+    has closed (a record set's hits mapped to records): the spans opened
+    inside with no span open on this thread join the scan opened last on
+    it, as top-level spans, or open a scan of their own where there is
+    none.  With no profiler on, one check and the shared object that does
+    nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Joining("last")
+
+
 def spans() -> list:
     """The :class:`SpanRecord` s of the newest :data:`SCANS_KEPT` scans, a
     scan's spans together, the scans and the spans of each in the order
@@ -235,5 +312,8 @@ def spans() -> list:
 
 
 def reset_spans() -> None:
-    """Forget every recorded span."""
+    """Forget every recorded span, and this thread's spans held for the
+    next scan and its last scan."""
     _SCANS.clear()
+    _held().clear()
+    _LOCAL.last = None

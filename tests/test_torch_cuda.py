@@ -8,6 +8,8 @@ port is installed::
 """
 
 import ctypes
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -347,18 +349,30 @@ def test_gmma_prefilter_matches_at_the_database_groups_shapes(cuda):
 def test_gmma_prefilter_repeated_ragged_launches(cuda):
     # many launches at counts of window starts that are no multiple of a
     # 128-position tile, each held to the plain version (the check P6's
-    # unexplained wgmma race asked of any production wgmma kernel)
-    group, _ = _database_groups(cuda)[0]
+    # unexplained wgmma race asked of any production wgmma kernel), at a
+    # DNA database group's shape and at a deep protein group's (the loop of
+    # commit groups; chip_smoke.py's)
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        from chip_smoke import deep_protein_group
+    finally:
+        sys.path.pop(0)
     rng = np.random.default_rng(12)
-    s = torch.from_numpy(rng.integers(0, 4, size=128_077 + 15).astype(np.uint8)).to(cuda)
+    dna = torch.from_numpy(rng.integers(0, 4, size=128_077 + 15).astype(np.uint8)).to(cuda)
+    cases = {"dna": (_database_groups(cuda)[0][0], dna), "protein_deep": deep_protein_group()}
+    assert not multi_kernel.gmma_deep(cases["dna"][0]["k3"][0].shape)
+    assert multi_kernel.gmma_deep(cases["protein_deep"][0]["k3"][0].shape)
     before = multi_kernel.LAUNCHES["prefilter_gmma"]
-    wrong = 0
-    for n in (130, 5000, 128_077):
-        want = torch_ops.prefilter_any8(s[:n], *group["k3"])
-        for _ in range(8):
-            wrong += not torch.equal(multi_kernel.prefilter_any8(s[:n], *group["k3"]), want)
-    assert wrong == 0
-    assert multi_kernel.LAUNCHES["prefilter_gmma"] == before + 24
+    wrong = {}
+    for shape, (group, s) in cases.items():
+        for n in (130, 5000, 128_077):
+            want = torch_ops.prefilter_any8(s[:n], *group["k3"])
+            for _ in range(8):
+                got = multi_kernel.prefilter_any8(s[:n], *group["k3"])
+                wrong[shape, n] = wrong.get((shape, n), 0) + int((got != want).sum())
+    print("gmma repeated ragged launches, wrong positions by (shape, starts):", wrong)
+    assert sum(wrong.values()) == 0, wrong
+    assert multi_kernel.LAUNCHES["prefilter_gmma"] == before + 48
 
 
 def test_scan_multi_core_graph_replay_holds_the_hits(cuda):

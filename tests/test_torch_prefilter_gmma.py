@@ -169,6 +169,7 @@ def test_issued_ops_count_whole_position_tiles_of_every_block(n_windows, rows, k
     # k-steps and there are one or two planes
     planes = torch.zeros(n_planes, 2, 16, rows, k, dtype=torch.uint8)
     assert multi_kernel.gmma_tile_positions(planes.shape) == pos
+    assert multi_kernel.gmma_deep(planes.shape) == (pos == 128)  # the loop of commit groups
     blocks = torch.zeros(96, LANES, KSTEP, dtype=torch.uint8)
     tiles = -(-n_windows // pos)
     assert multi_kernel.issued_ops(n_windows, planes, blocks) == 2 * tiles * pos * 96 * 4096
@@ -182,7 +183,8 @@ def test_wrappers_take_blocks_and_refuse_bad_ones():
     got = multi_kernel.prefilter_any8(seq, *dev["k3"])
     assert torch.equal(got, torch_ops.prefilter_any8(seq, *dev["k3"][:3]))
     assert set(multi_kernel.LAUNCHES.values()) == {0}  # the plain version on the CPU
-    assert multi_kernel.issue_counts(seq, *dev["k3"]) == {"gmma": 0, "issued_ops": 0}
+    assert multi_kernel.issue_counts(seq, *dev["k3"]) == {"gmma": 0, "issued_ops": 0,
+                                                          "deep_ops": 0}
     bad = dev["k3"][3][:, :, :16].contiguous()
     with pytest.raises(TypeError):
         multi_kernel.prefilter_any8(seq, *dev["k3"][:3], bad, dev["k3"][4])
@@ -224,11 +226,13 @@ def test_the_shape_test_asks_the_library_once_a_shape(monkeypatch):
     assert asked == [(2, 128, 16, 5), (1, 4, 16, 5)]
 
 
-def _profiled_scan():
+def _profiled_scan(widths=(6, 9, 12, 20), protein=False):
     rng = np.random.default_rng(3)
-    motifs = random_motifs(rng, [6, 9, 12, 20])
+    motifs = random_motifs(rng, list(widths), protein=protein)
     pssms, ths = convert.motif_set(motifs, [p.score_distribution().score(1e-3) for p in motifs])
-    seqs = [sequences(rng.integers(0, 4, size=12_000))[1] for _ in range(2)]
+    k = 21 if protein else 5
+    seqs = [sequences(rng.integers(0, k - 1, size=12_000), protein=protein)[1]
+            for _ in range(2)]
     ms = MultiScanner(pssms, thresholds=ths, device="cpu")
     ms.SEGMENT = 5000
     ms.scan_arrays(seqs[0])
@@ -254,6 +258,17 @@ def test_prefilter_spans_count_the_warpgroup_kernels_launches(monkeypatch):
     for r in records:
         assert r.counts["issued_ops"] > 0
         assert r.counts["issued_ops"] % (2 * 256 * 4096) == 0  # 256-position tiles
+        assert r.counts["deep_ops"] == 0  # 20 rows of K = 5: 4 k-steps
+
+
+def test_prefilter_spans_count_the_deep_shapes_operations(monkeypatch):
+    # protein motifs of up to 20 rows: 14 k-steps a lane, the deep loop
+    monkeypatch.setattr(multi_kernel, "gmma_takes", lambda planes: True)
+    records = _profiled_scan(widths=(6, 13, 20), protein=True)
+    assert records
+    for r in records:
+        assert r.counts["deep_ops"] == r.counts["issued_ops"] > 0
+        assert r.counts["issued_ops"] % (2 * 128 * 4096) == 0  # 128-position tiles
 
 
 def _reader(name):

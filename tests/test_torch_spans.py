@@ -1,8 +1,9 @@
 """The port's stage spans (``lightmotif_tpu_torch.utils.profiling.span``)
 on the CPU: recorded only under ``torch.profiler``, one check and no
-work without it, the tree of a database scan with one scan id, the
-fetch's counts from its one read, the spans on the profiler's clock, the
-hits unchanged, and ``chip_smoke.py``'s split by stage built on them."""
+work without it, the tree of a database scan with one scan id, a record
+set's join, upload and mapping in the scan they serve, the fetch's
+counts from its one read, the spans on the profiler's clock, the hits
+unchanged, and ``chip_smoke.py``'s split by stage built on them."""
 
 import sys
 import time
@@ -14,7 +15,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from lightmotif_tpu_torch import convert
+from lightmotif_tpu_torch import EncodedSequence, convert
+from lightmotif_tpu_torch.batch import MultiBatchScanner
 from lightmotif_tpu_torch.scanner import MultiScanner
 from lightmotif_tpu_torch.utils import profiling
 
@@ -141,6 +143,80 @@ def test_scan_records_its_tree_under_one_scan_id(dense32, entry, first):
     assert all(r.counts["bytes"] >= 12_000 for r in records if r.name == "upload.pad")
     assert sorted(names[r.parent] for r in records if r.name == "fetch.wait") == [
         "fetch", "fetch.sort"]
+
+
+#: The top-level spans of a record set's scan: the join and upload before
+#: its root, the mapping of its hits after it.
+RECORD_SPANS = ("records.join", "upload.pad", "upload.copy", "records.map")
+
+
+def _tree(records) -> list:
+    """(name, parent's name) of each span, in the order they opened."""
+    names = {r.id: r.name for r in records}
+    return [(r.name, names.get(r.parent)) for r in records]
+
+
+def test_record_set_spans_join_the_scan_they_serve(dense32, monkeypatch):
+    pssms, ths, seqs = database()
+    rng = np.random.default_rng(4)
+    lengths = (3, 50, 900, 4000, 41)
+    records = [EncodedSequence(rng.integers(0, 4, n).astype(np.uint8)) for n in lengths]
+    mb = MultiBatchScanner(pssms, thresholds=ths, device="cpu")
+    mb.rebind(records).collect_arrays()
+    ms = MultiScanner(pssms, thresholds=ths, device="cpu")
+    ms.scan_arrays(seqs[0])
+    profiling.reset_spans()
+    profiled(lambda: ms.scan_arrays(seqs[1]))
+    alone = _tree(profiling.spans())
+    calls = []
+    inner = MultiScanner.collect_arrays
+
+    def timed(self):
+        t0 = time.time_ns()
+        out = inner(self)
+        calls.append((t0, time.time_ns()))
+        return out
+
+    monkeypatch.setattr(MultiScanner, "collect_arrays", timed)
+    profiling.reset_spans()
+    (hits, _), _ = profiled(lambda: (mb.rebind(records).collect_arrays(),
+                                     ms.scan_arrays(seqs[2])))
+    rec_scan, dna_scan = scans_of(profiling.spans()).values()
+    (root,) = [r for r in rec_scan if r.name == "scanner.scan"]
+    assert {r.scan for r in rec_scan} == {root.id}
+    top = [r for r in rec_scan if r.parent is None]
+    assert sorted(r.name for r in top) == sorted(RECORD_SPANS + ("scanner.scan",))
+    assert all(r.name not in RECORD_SPANS for r in rec_scan if r.parent is not None)
+    # the root spans the collect_arrays call alone: the join and upload end
+    # before it, the mapping starts after it
+    t0, t1 = calls[0]
+    assert t0 <= root.start_ns <= root.end_ns <= t1
+    assert all(r.end_ns <= t0 for r in top if r.name in RECORD_SPANS[:3])
+    (mapped,) = [r for r in top if r.name == "records.map"]
+    assert mapped.start_ns >= t1
+    (join,) = [r for r in top if r.name == "records.join"]
+    assert join.counts == {"records": len(lengths), "residues": sum(lengths)}
+    assert mapped.counts["hits"] == len(hits[0]) > 0 and mapped.counts["dropped"] >= 0
+    # a DNA scan after it keeps its own tree
+    assert _tree(dna_scan) == alone
+
+
+def test_unprofiled_record_set_makes_no_span(dense32, monkeypatch):
+    pssms, ths, _ = database()
+    rng = np.random.default_rng(5)
+    records = [EncodedSequence(rng.integers(0, 4, n).astype(np.uint8)) for n in (30, 700)]
+    mb = MultiBatchScanner(pssms, thresholds=ths, device="cpu")
+    want = mb.rebind(records).collect_arrays()
+    profiling.reset_spans()
+
+    def refused(*a, **k):
+        raise AssertionError("a span or a joining context was made with no profiler")
+
+    monkeypatch.setattr(profiling, "_Span", refused)
+    monkeypatch.setattr(profiling, "_Joining", refused)
+    got = mb.rebind(records).collect_arrays()
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert profiling.spans() == []
 
 
 @pytest.mark.parametrize("capacity", [None, 1], ids=["seeded", "overflowing"])
